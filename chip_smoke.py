@@ -21,7 +21,18 @@ toolkit:
    step, K3 and K4 once), that every output is finite and masked slots are
    zero, and the heatmaps against the plain pose step on the card, and
    times it (host clock, median of five windows of ``--reps`` steps);
-5. prints one JSON line per kernel set (``kernels``), the card line, and
+5. holds the training kernels (K5 forward, K6a MLP backward, K7 attention
+   backward at bf16 and fp32, K8 fused Adam bit for bit) against their
+   plain versions at the main shapes and a ragged batch, and times each
+   beside its plain version and a PyTorch yardstick;
+6. drives the training step at full width (ViT-B, depth 12, 64 crops,
+   AMP bf16, drop-path 0.3 from a seeded generator, fused f32 Adam at the
+   finetune lr 3.75e-4 and clip 1.0) on a device-input batch from
+   ``--seed``: it checks the launch counts (K5, K6a, K7 12 per step, K8
+   once per leaf), that the loss falls over 20 steps on the batch, one
+   step's loss and gradients against the plain step on the card, and times
+   it (median of five windows, images/s, peak memory);
+7. prints one JSON line per kernel set (``kernels``), the card line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script then exits non-zero and prints no result.
@@ -55,6 +66,17 @@ LAUNCH_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 1e-2}
 # pose-step heatmaps against the plain pose step, relative to their range
 HEATMAP_TOL = {"fp32": 1e-5, "bf16": 2e-2, "int8": 2e-2}
 SLOTS, FRAME_HW = 64, (1080, 1920)
+# K5-K7 outputs and gradients against their plain versions, relative to the
+# largest |plain| of each tensor: float32 sums in another order (the weight
+# grads sum 12288 rows); at bf16 a rounding of the kernel may flip
+TRAIN_TOL = {"torch.float32": 1e-4, "torch.bfloat16": 2e-2}
+# one AMP step through the kernels against the plain step: the loss, and each
+# gradient leaf relative to its largest |plain|; bf16 flips compound through
+# 12 blocks and the head, and cuDNN's head backward is not deterministic
+# (measured up to 9.7e-5 and 9.6e-3 on an H100)
+STEP_LOSS_TOL, STEP_GRAD_TOL = 1e-3, 0.05
+TRAIN_LR, TRAIN_CLIP, TRAIN_STEPS = 3.75e-4, 1.0, 20
+TRAIN_REPS = 3     # train steps in each of the five timed windows
 
 
 def check(cond: bool, msg: str) -> None:
@@ -312,6 +334,220 @@ def check_kernels(torch, model, rng, dev):
     return out
 
 
+def train_block_work(B, N, D, hidden):
+    """Operations of K5, K6a and K7 on one block (bf16 tensor-core work)."""
+    R = B * N
+    attn = 2.0 * R * N * D                 # one (N x N x head_dim) product, all heads
+    fwd = 2.0 * R * (4 * D * D + 2 * D * hidden) + 2 * attn
+    mlp = 5 * 2.0 * R * D * hidden        # fc1 recompute, dg, dh2, dW2, dW1
+    attn_bwd = 2.0 * R * (3 * 3 * D * D + 2 * D * D) + 6 * attn
+    return fwd, mlp, attn_bwd
+
+
+def sublayer_backward(torch, layer, x, dout, which: str):
+    """A closure running the backward of one residual half of
+    ``nn.TransformerEncoderLayer`` (``x + mlp(norm2(x))`` or ``x +
+    attn(norm1(x))``) for ``dout``: the yardstick of K6a or K7."""
+    import torch.nn.functional as F
+    xg = x.detach().requires_grad_(True)
+    if which == "mlp":
+        mods = (layer.norm2, layer.linear1, layer.linear2)
+        out = xg + layer.linear2(F.gelu(layer.linear1(layer.norm2(xg))))
+    else:
+        mods = (layer.norm1, layer.self_attn)
+        h = layer.norm1(xg)
+        out = xg + layer.self_attn(h, h, h, need_weights=False)[0]
+    params = [p for m in mods for p in m.parameters()]
+    return lambda: torch.autograd.grad(out, [xg, *params], dout, retain_graph=True)
+
+
+def check_train_kernels(torch, model, rng, dev):
+    """K5, K6a and K7 against their plain versions on block 0 at bf16 and
+    fp32, at the main path's 64 crops and at 3, and K8 on every leaf of the
+    model, bit for bit; returns measurements per kernel."""
+    import copy
+
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    from easy_vitpose_tpu_torch.models.vit import block_weights
+    from easy_vitpose_tpu_torch.train import fused_opt
+
+    cfg = model.cfg.backbone
+    D, N, heads, eps = cfg.embed_dim, cfg.num_tokens, cfg.num_heads, cfg.layer_norm_eps
+    hidden = int(D * cfg.mlp_ratio)
+    out = {}
+    for tdt in (torch.bfloat16, torch.float32):
+        blk = copy.deepcopy(model.backbone.blocks[0]).to(tdt)
+        w = block_weights({k: v.detach() for k, v in blk.named_parameters()}, "")
+        for B in (SLOTS, 3):
+            x = torch.from_numpy(rng.standard_normal((B, N, D)).astype(np.float32)).to(dev, tdt)
+            dout = torch.from_numpy((rng.standard_normal((B, N, D)) * 0.02).astype(np.float32)).to(dev, tdt)
+            keep = torch.from_numpy((np.floor(0.7 + rng.uniform(size=B)) / 0.7).astype(np.float32)).to(dev)
+            keep[0], keep[1] = 1 / 0.7, 0.0                   # one kept, one dropped crop
+            errs = {}
+
+            def hold(name, got, ref):
+                check(got.dtype == ref.dtype and got.shape == ref.shape, f"{name}: {got.dtype} {ref.dtype}")
+                err, rel = max_rel_err(torch, got, ref)
+                errs[name] = max(errs.get(name, (0.0, 0.0)), (rel, err))
+                check(rel <= TRAIN_TOL[str(tdt)], f"{name} {tdt} B={B} disagrees with its plain version: {rel}")
+
+            o, x1 = fbt.train_forward(x, keep, w, heads, eps)
+            ro, rx1 = fbt.train_forward_plain(x, keep, w, heads, eps)
+            hold("K5", o, ro)
+            hold("K5", x1, rx1)
+            dx1, gm = fbt.mlp_backward(rx1, dout, keep, w, eps)
+            rdx1, rgm = fbt.mlp_backward_plain(rx1, dout, keep, w, eps)
+            for got, ref in zip((dx1, *gm), (rdx1, *rgm)):
+                hold("K6a", got, ref)
+            dx, ga = fbt.attn_backward(x, rdx1, keep, w, heads, eps)
+            rdx, rga = fbt.attn_backward_plain(x, rdx1, keep, w, heads, eps)
+            for got, ref in zip((dx, *ga), (rdx, *rga)):
+                hold("K7", got, ref)
+            print(f"check train {tdt} B={B}:", " ".join(f"{k} rel {v[0]:.3e} abs {v[1]:.3e}"
+                                                       for k, v in errs.items()))
+            if B != SLOTS or tdt != torch.bfloat16:
+                continue
+            fwd_ops, mlp_ops, attn_ops = train_block_work(B, N, D, hidden)
+            act, wts = B * N * D * 2, (4 * D * D + 2 * D * hidden) * 2
+            layer = encoder_layer(torch, blk)
+            with torch.no_grad():
+                lib_fwd = time_ms(torch, lambda: layer(x))
+            whole = layer(x.detach().requires_grad_(True))
+            lib_layer_bwd = time_ms(torch, lambda: torch.autograd.grad(
+                whole, list(layer.parameters()), dout, retain_graph=True))
+            print(f"yardstick TransformerEncoderLayer bf16 B={B}: forward {lib_fwd:.3f} ms, "
+                  f"whole backward {lib_layer_bwd:.3f} ms")
+            out["K5"] = {"max_abs_err": errs["K5"][1],
+                         "ms": time_ms(torch, lambda: fbt.train_forward(x, keep, w, heads, eps)),
+                         "plain_ms": time_ms(torch, lambda: fbt.train_forward_plain(x, keep, w, heads, eps)),
+                         "bound": bound(act + 2 * act + wts, {"bf16": fwd_ops}), "library_ms": lib_fwd}
+            out["K6a"] = {"max_abs_err": errs["K6a"][1],
+                          "ms": time_ms(torch, lambda: fbt.mlp_backward(rx1, dout, keep, w, eps)),
+                          "plain_ms": time_ms(torch, lambda: fbt.mlp_backward_plain(rx1, dout, keep, w, eps)),
+                          "bound": bound(3 * act + 2 * wts, {"bf16": mlp_ops}),
+                          "library_ms": time_ms(torch, sublayer_backward(torch, layer, rx1, dout, "mlp"))}
+            out["K7"] = {"max_abs_err": errs["K7"][1],
+                         "ms": time_ms(torch, lambda: fbt.attn_backward(x, rdx1, keep, w, heads, eps)),
+                         "plain_ms": time_ms(torch, lambda: fbt.attn_backward_plain(x, rdx1, keep, w, heads, eps)),
+                         "bound": bound(3 * act + 2 * wts, {"bf16": attn_ops}),
+                         "library_ms": time_ms(torch, sublayer_backward(torch, layer, x, rdx1, "attn"))}
+
+    # K8 on every float32 leaf of the model, and on ragged leaves
+    leaves = [p.detach().float().contiguous() for p in model.parameters()]
+    leaves += [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev) for n in (1, 1001)]
+    moments = [(torch.from_numpy((rng.standard_normal(p.numel()) * 1e-3).astype(np.float32)).to(dev).view_as(p),
+                torch.from_numpy((rng.standard_normal(p.numel()) * 1e-3).astype(np.float32)).to(dev).view_as(p),
+                torch.from_numpy((rng.standard_normal(p.numel()) * 1e-3).astype(np.float32)).to(dev).view_as(p).square())
+               for p in leaves]
+    scal = torch.tensor([0.37, TRAIN_LR, 1 - 0.9 ** 7, 1 - 0.999 ** 7], device=dev)
+    for p, (g, mu, nu) in zip(leaves, moments):
+        for got, ref in zip(fused_opt.adam_leaf(g, mu, nu, p, scal),
+                            fused_opt.adam_leaf_plain(g, mu, nu, p, scal)):
+            check(torch.equal(got, ref), f"K8 is not bit-equal to its plain version on a leaf of {p.numel()}")
+    main = leaves[:-2]
+    n_params = sum(p.numel() for p in main)
+    print(f"check adam: bit-equal on {len(leaves)} leaves ({n_params} model parameters)")
+    ps = [torch.nn.Parameter(p.clone()) for p in main]
+    for p, (g, _, _) in zip(ps, moments):
+        p.grad = g.clone()
+    opt = torch.optim.Adam(ps, lr=TRAIN_LR, fused=True)
+
+    def library_step():
+        torch.nn.utils.clip_grad_norm_(ps, TRAIN_CLIP)
+        opt.step()
+
+    out["K8"] = {"max_abs_err": 0.0,
+                 "ms": time_ms(torch, lambda: [fused_opt.adam_leaf(g, mu, nu, p, scal)
+                                               for p, (g, mu, nu) in zip(main, moments)]),
+                 "plain_ms": time_ms(torch, lambda: [fused_opt.adam_leaf_plain(g, mu, nu, p, scal)
+                                                     for p, (g, mu, nu) in zip(main, moments)]),
+                 "bound": bound(28.0 * n_params, {"f32": 12.0 * n_params}),
+                 "library_ms": time_ms(torch, library_step)}
+    return out
+
+
+def train_batch(torch, rng, B: int, dev) -> dict:
+    """A device-input batch: B uint8 crops of noise and 17 joints each
+    inside the crop, 85% visible."""
+    W, H = 192, 256
+    joints = np.stack([rng.uniform(0, W, (B, 17)), rng.uniform(0, H, (B, 17))], -1)
+    return {"images_u8": torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)).to(dev),
+            "joints": torch.from_numpy(joints.astype(np.float32)).to(dev),
+            "joints_vis": torch.from_numpy((rng.uniform(size=(B, 17, 2)) > 0.15)
+                                           .astype(np.float32)).to(dev)}
+
+
+def run_train_step(torch, model, rng, seed, dev):
+    """The training step at full width; returns launches, losses, the
+    kernel-vs-plain errors and times."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.models.vit import draw_drop_path_masks
+    from easy_vitpose_tpu_torch.train import fused_opt, step as tstep
+
+    cfg = model.cfg
+    depth = cfg.backbone.depth
+    B = SLOTS
+    batch = train_batch(torch, rng, B, dev)
+    tx = fused_opt.make_fused_adam(TRAIN_LR, max_grad_norm=TRAIN_CLIP)
+    state = tstep.init_train_state(model, tx)
+    step = tstep.make_train_step(cfg, tx, use_amp=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    state, m = step(state, batch, gen)                      # warm-up, the first step
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    state, m = step(state, batch, gen)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {"train_fwd": depth, "train_bwd_mlp": depth, "train_bwd_attn": depth,
+            "adam": len(state["params"])}
+    print(f"train step: launches {counts}")
+    check(counts == want, f"train step launched {counts}, expected {want}")
+    losses = [float(m["loss"])]
+    for _ in range(TRAIN_STEPS - 2):
+        state, m = step(state, batch, gen)
+        losses.append(float(m["loss"]))
+    check(all(math.isfinite(v) for v in losses) and math.isfinite(float(m["grad_norm"])),
+          f"train step: loss or grad norm not finite: {losses}")
+    print("train step: losses", " ".join(f"{v:.5f}" for v in losses))
+    check(losses[-1] < 0.9 * losses[0], f"train step: the loss did not fall: {losses}")
+
+    rendered = tstep.render_batch_on_device(batch, dev)
+    masks = draw_drop_path_masks(cfg.backbone, B, gen, dev)
+    lk, _, gk = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered,
+                                     drop_path_masks=masks)
+    lp, _, gp = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered,
+                                     drop_path_masks=masks, plain=True)
+    loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
+    grad_err = {k: max_rel_err(torch, gk[k], gp[k])[1] for k in gp}
+    worst = sorted(grad_err.items(), key=lambda kv: kv[1])[-3:]
+    print(f"train step vs plain: loss {float(lk):.6f} vs {float(lp):.6f} (rel {loss_err:.3e}); "
+          f"worst grads {worst}")
+    check(loss_err <= STEP_LOSS_TOL, f"train step loss disagrees with the plain step: {loss_err}")
+    check(max(grad_err.values()) <= STEP_GRAD_TOL, f"train step grads disagree: {worst}")
+    del gk, gp
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def window():
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_REPS):
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
+
+    ms = statistics.median(window() for _ in range(5))
+    res = {"launches": counts, "ms_per_step": ms, "images_per_s": B / ms * 1e3,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "loss_first": losses[0], "loss_last": losses[-1], "loss_rel_err_vs_plain": loss_err,
+           "max_grad_rel_err_vs_plain": max(grad_err.values())}
+    print(f"train step: {ms:.3f} ms/step, {res['images_per_s']:.1f} images/s, "
+          f"peak {res['max_memory_allocated_gib']:.2f} GiB")
+    return res
+
+
 def run_pose_steps(torch, model, rng, reps, dev):
     """The main path at each serving dtype; returns launches and times."""
     from easy_vitpose_tpu_torch import kernels
@@ -401,6 +637,8 @@ def main() -> int:
     with torch.no_grad():
         meas = check_kernels(torch, model, rng, dev)
         steps = run_pose_steps(torch, model, rng, args.reps, dev)
+    meas.update(check_train_kernels(torch, model, rng, dev))
+    train = run_train_step(torch, model, rng, args.seed, dev)
 
     rows = []
     spec = (("K1 fused_block bf16", "bf16", "block.cu", "models/fused_block.py:51", "bf16", "block"),
@@ -417,6 +655,20 @@ def main() -> int:
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                      "library_ms": m["library_ms"]})
+    train_spec = (("K5 train_forward", "K5", "models/fused_block_train.py:95", "train_fwd"),
+                  ("K6a mlp_backward", "K6a", "models/fused_block_train.py:195", "train_bwd_mlp"),
+                  ("K7 attn_backward", "K7", "models/fused_block_train.py:404", "train_bwd_attn"),
+                  ("K8 adam_leaf", "K8", "train/fused_opt.py:154", "adam"))
+    for name, key, replaces, counter in train_spec:
+        m = meas[key]
+        rows.append({"name": name, "route": "cuda",
+                     "source": "easy_vitpose_tpu_torch/csrc/" + ("adam.cu" if key == "K8" else "train_block.cu"),
+                     "replaces": f"easy_vitpose_tpu/{replaces}",
+                     "launches": train["launches"].get(counter, 0),
+                     "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
+                     "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
+                     "library_ms": m["library_ms"]})
+    print("train_step:", json.dumps({k: v for k, v in train.items() if k != "launches"}))
     print("pose_steps:", json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "launches"}
                                      for k, v in steps.items()}))
     print(json.dumps({"kernels": rows}))

@@ -2,8 +2,8 @@
 
 The port's own copy of the constants and dataclasses of
 ``easy_vitpose_tpu/configs.py``; the port imports nothing of the JAX package.
-Only what the pose step needs is here: the hybrid CNN stem and the "simple"
-head variant are not ported yet.
+Only what the pose step and the training step need is here: the hybrid CNN
+stem and the "simple" head variant are not ported yet.
 """
 from __future__ import annotations
 
@@ -41,7 +41,7 @@ class BackboneConfig:
     num_heads: int
     mlp_ratio: float = 4.0
     qkv_bias: bool = True
-    drop_path_rate: float = 0.0   # training only; the port serves
+    drop_path_rate: float = 0.0   # stochastic depth, training only
     patch_size: int = PATCH_SIZE
     patch_padding: int = PATCH_PADDING
     img_size: Tuple[int, int] = (256, 192)  # (H, W)

@@ -130,7 +130,8 @@ EVT_EXPORT int evt_gemm(const void* a, const void* w, const void* bias, const vo
 // padded by one float against bank conflicts), the q tile and the 64 x N
 // float32 logits sit in shared memory.  q*scale, the probs and the output
 // are rounded to T, as the JAX kernel rounds them; logits, softmax and the
-// sums stay float32.
+// sums stay float32.  The caller passes the scale already rounded to T, as
+// JAX rounds a Python float that meets a bf16 array.
 template <typename T>
 __global__ void __launch_bounds__(256)
 attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, int N, int D, int heads,

@@ -7,16 +7,19 @@
 // that of ops/preprocess.py::sample_crops, step by step with round-to-
 // nearest intrinsics so the compiler fuses nothing into an FMA: the
 // half-pixel map clamped to the padded crop, taps outside the crop are
-// zero, frame indices clamped to the frame.
+// zero, frame indices clamped to the frame.  The lerps run in TO, the
+// sampling dtype: in bf16 the weights, each product and each sum are
+// rounded, as JAX's bf16 sample_crops rounds them; the normalize is float32.
 #include "common.cuh"
 
 struct AxisTaps {
     int g0, g1;        // frame index of tap 0 and 1 (clamped)
     bool in0, in1;     // tap inside the crop (else it reads zero)
-    float w0, w1;      // 1 - f and f
+    float w0, w1;      // 1 - f and f, in the sampling dtype
 };
 
 // geometry of one axis: padded size, pad offset, crop size, crop origin
+template <typename TO>
 __device__ __forceinline__ AxisTaps axis_taps(int o, int n_out, int size_p, int lo, int size,
                                               int origin, int n_frame) {
     const float sp = static_cast<float>(size_p);
@@ -31,9 +34,15 @@ __device__ __forceinline__ AxisTaps axis_taps(int o, int n_out, int size_p, int 
     t.in1 = i1 >= lo && i1 < lo + size;
     t.g0 = min(max(i0 - lo + origin, 0), n_frame - 1);
     t.g1 = min(max(i1 - lo + origin, 0), n_frame - 1);
-    t.w0 = __fsub_rn(1.f, f);
-    t.w1 = f;
+    t.w1 = round_to<TO>(f);
+    t.w0 = round_to<TO>(__fsub_rn(1.f, t.w1));
     return t;
+}
+
+// a * w0 + b * w1, each product and the sum rounded to TO
+template <typename TO>
+__device__ __forceinline__ float lerp(float a, float w0, float b, float w1) {
+    return round_to<TO>(__fadd_rn(round_to<TO>(__fmul_rn(a, w0)), round_to<TO>(__fmul_rn(b, w1))));
 }
 
 // grid (ceil(OH*OW / 256), M); geo rows are [x1, y1, wc, hc, wp, hp, left, top]
@@ -46,8 +55,8 @@ sample_kernel(const uint8_t* __restrict__ frame, const int* __restrict__ geo,
     if (p >= OH * OW) return;
     const int oy = p / OW, ox = p - oy * OW;
     const int* g = geo + m * 8;
-    const AxisTaps tx = axis_taps(ox, OW, g[4], g[6], g[2], g[0], W);
-    const AxisTaps ty = axis_taps(oy, OH, g[5], g[7], g[3], g[1], H);
+    const AxisTaps tx = axis_taps<TO>(ox, OW, g[4], g[6], g[2], g[0], W);
+    const AxisTaps ty = axis_taps<TO>(oy, OH, g[5], g[7], g[3], g[1], H);
     const uint8_t* r0 = frame + (size_t)ty.g0 * W * 3;
     const uint8_t* r1 = frame + (size_t)ty.g1 * W * 3;
     const float mv[3] = {mean.x, mean.y, mean.z}, sv[3] = {stdv.x, stdv.y, stdv.z};
@@ -59,9 +68,9 @@ sample_kernel(const uint8_t* __restrict__ frame, const int* __restrict__ geo,
         const float a01 = tx.in1 ? static_cast<float>(r0[tx.g1 * 3 + c]) : 0.f;
         const float a10 = tx.in0 ? static_cast<float>(r1[tx.g0 * 3 + c]) : 0.f;
         const float a11 = tx.in1 ? static_cast<float>(r1[tx.g1 * 3 + c]) : 0.f;
-        const float x0 = ty.in0 ? __fadd_rn(__fmul_rn(a00, tx.w0), __fmul_rn(a01, tx.w1)) : 0.f;
-        const float x1 = ty.in1 ? __fadd_rn(__fmul_rn(a10, tx.w0), __fmul_rn(a11, tx.w1)) : 0.f;
-        const float v = __fadd_rn(__fmul_rn(x0, ty.w0), __fmul_rn(x1, ty.w1));
+        const float x0 = ty.in0 ? lerp<TO>(a00, tx.w0, a01, tx.w1) : 0.f;
+        const float x1 = ty.in1 ? lerp<TO>(a10, tx.w0, a11, tx.w1) : 0.f;
+        const float v = lerp<TO>(x0, ty.w0, x1, ty.w1);
         o[c] = from_f<TO>(__fdiv_rn(__fsub_rn(v, mv[c]), sv[c]));
     }
 }

@@ -1,0 +1,654 @@
+// K5, K6a and K7: the training block's forward and its two backward halves,
+// as sequences of launches driven by models/fused_block_train.py.  LayerNorm
+// and the forward attention come from block.cu (K1); this file adds
+//
+//   * a GEMM for the three layouts a backward needs, C = A . B^T over K with
+//     A (M, K) and B (N, K) each stored K-contiguous or not: NT (the forward
+//     and recompute products, x W^T), NN (activation grads, dY W) and TN
+//     (weight grads, dY^T X, contracted over all rows).  bf16 on the tensor
+//     cores (mma.sync m16n8k16, float32 accumulation; an operand that is not
+//     K-contiguous is read with ldmatrix.trans) or float32 FMA.  One
+//     block owns one 64x64 output tile for the whole K loop, so a weight
+//     grad is one deterministic sum with no atomics;
+//   * epilogues: bias, GELU, the drop-path residual round(x + dp * (acc + b))
+//     with the branch kept in float32, GELU saving the float32 pre-activation,
+//     and the GELU derivative;
+//   * a row kernel for the LayerNorm backward and a two-stage column sum for
+//     the bias and LayerNorm grads (partials per row chunk, then one fixed-
+//     order sum per column);
+//   * the attention backward for one (crop, head) split over two kernels by
+//     query tiles (o, dq, softmax statistics) and key tiles (dk, dv), each
+//     recomputing the logits, so that K, V, Q and dO fit shared memory.
+// Replaces easy_vitpose_tpu/models/fused_block_train.py::_fwd_kernel,
+// _bwd_mlp_kernel and _bwd_attn_kernel.
+#include <cfloat>
+
+#include "common.cuh"
+
+enum {
+    TE_NONE = 0,       // out = round(acc + bias)
+    TE_GELU = 1,       // out = round(gelu(acc + bias))
+    TE_DP_RES = 2,     // out = round(res + dp[row / tokens] * (acc + bias))
+    TE_GELU_SAVE = 3,  // out_f = acc + bias; out = round(gelu(out_f))
+    TE_GELU_GRAD = 4,  // out_f = acc * gelu'(aux)
+    TE_F32 = 5,        // out_f = acc
+};
+
+struct Epi {
+    int mode, tokens, ldo;
+    const void* bias;   // T per column, or null
+    const void* res;    // T (M, ldo)
+    const float* dp;    // per crop
+    const float* aux;   // float32 (M, ldo)
+    void* out;          // T
+    float* out_f;       // float32
+};
+
+__device__ __forceinline__ float gelu_grad(float x) {
+    const float cdf = 0.5f * (1.0f + erf_as(x * 0.7071067811865476f));
+    const float pdf = expf(-0.5f * x * x) * 0.3989422804014327f;
+    return cdf + x * pdf;
+}
+
+template <typename T>
+__device__ __forceinline__ void epi_store(const Epi& e, int row, int col, float acc) {
+    const size_t idx = (size_t)row * e.ldo + col;
+    float v = acc;
+    if (e.bias) v = __fadd_rn(v, to_f(static_cast<const T*>(e.bias)[col]));
+    T* out = static_cast<T*>(e.out);
+    switch (e.mode) {
+        case TE_NONE: out[idx] = from_f<T>(v); break;
+        case TE_GELU: out[idx] = from_f<T>(gelu_as(v)); break;
+        case TE_DP_RES:
+            out[idx] = from_f<T>(__fadd_rn(to_f(static_cast<const T*>(e.res)[idx]),
+                                           __fmul_rn(v, e.dp[row / e.tokens])));
+            break;
+        case TE_GELU_SAVE: e.out_f[idx] = v; out[idx] = from_f<T>(gelu_as(v)); break;
+        case TE_GELU_GRAD: e.out_f[idx] = __fmul_rn(v, gelu_grad(e.aux[idx])); break;
+        default: e.out_f[idx] = v; break;
+    }
+}
+
+// ------------------------------------------------------------ bf16 GEMM
+// Block tile 64x64, k-tile 32, 4 warps in 2x2 with 32x32 warp tiles.  Both
+// layouts of an operand are copied 16 bytes at a time, as stored:
+//   * K-contiguous: a [row][k] tile, rows padded to 40 elements (80 bytes),
+//     which puts a fragment's 32 four-byte reads on 32 banks;
+//   * row-contiguous: a [k][row] tile, rows padded to 72 elements (144
+//     bytes), from which ldmatrix.trans reads the fragments transposed; the
+//     eight 16-byte rows of each 8x8 matrix land on distinct bank groups.
+namespace tg {
+constexpr int BM = 64, BK = 32, PITCH = 40, TPITCH = 72, THREADS = 128;
+
+template <bool KMAJ>
+__host__ __device__ constexpr int tile_elems() { return KMAJ ? BM * PITCH : BK * TPITCH; }
+
+template <bool KMAJ>
+__device__ __forceinline__ void load_bf16(bf16* dst, const bf16* src, int r0, int rows, int k0,
+                                          int K, int ld) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+        const int c = threadIdx.x + i * THREADS;      // 256 chunks of 8 elements
+        uint4 v = make_uint4(0u, 0u, 0u, 0u);
+        if (KMAJ) {
+            const int r = c >> 2, kc = (c & 3) * 8;
+            if (r0 + r < rows && k0 + kc < K)
+                v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + k0 + kc);
+            *reinterpret_cast<uint4*>(dst + r * PITCH + kc) = v;
+        } else {
+            const int k = c >> 3, rc = (c & 7) * 8;
+            if (k0 + k < K && r0 + rc < rows)
+                v = *reinterpret_cast<const uint4*>(src + (size_t)(k0 + k) * ld + r0 + rc);
+            *reinterpret_cast<uint4*>(dst + k * TPITCH + rc) = v;
+        }
+    }
+}
+
+// four 8x8 b16 matrices, transposed; lane l gives the address of row l % 8
+// of matrix l / 8, and register i gets matrix i
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
+    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// A fragment (m16 x k16 at row m0, k ks): a0 (m g, k 2t), a1 (m g+8), a2
+// (k 2t+8), a3 (both), with g = lane / 4, t = lane % 4
+template <bool KMAJ>
+__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int m0, int ks, int lane) {
+    if (KMAJ) {
+        const bf16* p = s + (m0 + (lane >> 2)) * PITCH + ks + 2 * (lane & 3);
+        a[0] = *reinterpret_cast<const uint32_t*>(p);
+        a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * PITCH);
+        a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
+        a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * PITCH + 8);
+    } else {
+        const int mat = lane >> 3;
+        ldsm_x4_trans(a, s + (ks + (lane & 7) + 8 * (mat >> 1)) * TPITCH + m0 + 8 * (mat & 1));
+    }
+}
+
+// B fragments of two n8 x k16 tiles at rows n0 and n0 + 8: b0 (k 2t, n g),
+// b1 (k 2t+8, n g) of each
+template <bool KMAJ>
+__device__ __forceinline__ void frag_b2(uint32_t (*b)[2], const bf16* s, int n0, int ks, int lane) {
+    if (KMAJ) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const bf16* p = s + (n0 + 8 * j + (lane >> 2)) * PITCH + ks + 2 * (lane & 3);
+            b[j][0] = *reinterpret_cast<const uint32_t*>(p);
+            b[j][1] = *reinterpret_cast<const uint32_t*>(p + 8);
+        }
+    } else {
+        const int mat = lane >> 3;
+        uint32_t r[4];
+        ldsm_x4_trans(r, s + (ks + (lane & 7) + 8 * (mat & 1)) * TPITCH + n0 + 8 * (mat >> 1));
+        b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
+    }
+}
+
+__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
+    asm volatile(
+        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+template <bool AK, bool BKM>
+__global__ void __launch_bounds__(THREADS)
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N, int K,
+                 int lda, int ldb, Epi ep) {
+    __shared__ __align__(16) bf16 As[tile_elems<AK>()];
+    __shared__ __align__(16) bf16 Bs[tile_elems<BKM>()];
+    const int bm = blockIdx.y * BM, bn = blockIdx.x * BM;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
+    const int g = lane >> 2, t = lane & 3;
+    float acc[2][4][4];
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
+
+    for (int k0 = 0; k0 < K; k0 += BK) {
+        load_bf16<AK>(As, A, bm, M, k0, K, lda);
+        load_bf16<BKM>(Bs, B, bn, N, k0, K, ldb);
+        __syncthreads();
+#pragma unroll
+        for (int ks = 0; ks < BK; ks += 16) {
+            uint32_t a[2][4], b[4][2];
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi) frag_a<AK>(a[mi], As, wm + mi * 16, ks, lane);
+#pragma unroll
+            for (int nj = 0; nj < 2; ++nj) frag_b2<BKM>(b + 2 * nj, Bs, wn + nj * 16, ks, lane);
+#pragma unroll
+            for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+                for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+        }
+        __syncthreads();
+    }
+    // accumulator e of an m16n8 tile: row g + 8*(e>>1), column 2*t + (e&1)
+#pragma unroll
+    for (int mi = 0; mi < 2; ++mi)
+#pragma unroll
+        for (int ni = 0; ni < 4; ++ni)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int row = bm + wm + mi * 16 + g + 8 * (e >> 1);
+                const int col = bn + wn + ni * 8 + 2 * t + (e & 1);
+                if (row < M && col < N) epi_store<bf16>(ep, row, col, acc[mi][ni][e]);
+            }
+}
+
+// ------------------------------------------------------------ f32 GEMM
+// float32 training is the parity mode: FMA, no TF32.  64x64 tile, k-tile 16,
+// 256 threads with 4x4 outputs each; shared tiles are [k][row].
+constexpr int FK = 16, FPITCH = 68;
+
+template <bool KMAJ>
+__device__ __forceinline__ void load_f32(float (*dst)[FPITCH], const float* src, int r0, int rows,
+                                         int k0, int K, int ld) {
+    const int tid = threadIdx.x;
+    float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (KMAJ) {
+        const int r = tid >> 2, kc = (tid & 3) * 4;
+        if (r0 + r < rows && k0 + kc < K)
+            v = *reinterpret_cast<const float4*>(src + (size_t)(r0 + r) * ld + k0 + kc);
+        dst[kc + 0][r] = v.x; dst[kc + 1][r] = v.y; dst[kc + 2][r] = v.z; dst[kc + 3][r] = v.w;
+    } else {
+        const int k = tid >> 4, rc = (tid & 15) * 4;
+        if (k0 + k < K && r0 + rc < rows)
+            v = *reinterpret_cast<const float4*>(src + (size_t)(k0 + k) * ld + r0 + rc);
+        *reinterpret_cast<float4*>(&dst[k][rc]) = v;
+    }
+}
+
+template <bool AK, bool BKM>
+__global__ void __launch_bounds__(256)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M, int N, int K,
+                int lda, int ldb, Epi ep) {
+    __shared__ __align__(16) float As[FK][FPITCH];
+    __shared__ __align__(16) float Bs[FK][FPITCH];
+    const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+    const int bm = blockIdx.y * BM, bn = blockIdx.x * BM;
+    float acc[4][4] = {};
+    for (int k0 = 0; k0 < K; k0 += FK) {
+        load_f32<AK>(As, A, bm, M, k0, K, lda);
+        load_f32<BKM>(Bs, B, bn, N, k0, K, ldb);
+        __syncthreads();
+#pragma unroll
+        for (int k = 0; k < FK; ++k) {
+            const float4 a = *reinterpret_cast<const float4*>(&As[k][ty * 4]);
+            const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * 4]);
+            const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+#pragma unroll
+                for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+        }
+        __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const int row = bm + ty * 4 + i, col = bn + tx * 4 + j;
+            if (row < M && col < N) epi_store<float>(ep, row, col, acc[i][j]);
+        }
+}
+
+template <typename T, bool AK, bool BKM>
+void launch(const void* a, const void* b, int M, int N, int K, int lda, int ldb, const Epi& ep,
+            cudaStream_t st) {
+    const dim3 grid((N + BM - 1) / BM, (M + BM - 1) / BM);
+    if (sizeof(T) == 2)
+        gemm_bf16_kernel<AK, BKM><<<grid, THREADS, 0, st>>>(
+            static_cast<const bf16*>(a), static_cast<const bf16*>(b), M, N, K, lda, ldb, ep);
+    else
+        gemm_f32_kernel<AK, BKM><<<grid, 256, 0, st>>>(
+            static_cast<const float*>(a), static_cast<const float*>(b), M, N, K, lda, ldb, ep);
+}
+
+template <typename T>
+cudaError_t dispatch(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
+                     int a_kmaj, int b_kmaj, const Epi& ep, cudaStream_t st) {
+    if (a_kmaj && b_kmaj) launch<T, true, true>(a, b, M, N, K, lda, ldb, ep, st);
+    else if (a_kmaj) launch<T, true, false>(a, b, M, N, K, lda, ldb, ep, st);
+    else if (!b_kmaj) launch<T, false, false>(a, b, M, N, K, lda, ldb, ep, st);
+    else return cudaErrorInvalidValue;
+    return cudaGetLastError();
+}
+}  // namespace tg
+
+// C (M, N) = epilogue(sum_k A[m, k] B[n, k]).  A[m, k] sits at a[m*lda + k]
+// (a_kmaj) or a[k*lda + m]; B[n, k] at b[n*ldb + k] (b_kmaj) or b[k*ldb + n].
+// The (not K-contiguous, K-contiguous) pair is refused.  The caller
+// guarantees that each operand's contiguous dim (K, or M / N) and the
+// leading dims are multiples of 8; the other dims are ragged.
+EVT_EXPORT int evt_train_gemm(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
+                              int a_kmaj, int b_kmaj, int is_bf16, int mode, const void* bias,
+                              const void* res, const void* dp, int tokens, const void* aux,
+                              void* out, void* out_f, int ldo, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    Epi ep;
+    ep.mode = mode; ep.tokens = tokens; ep.ldo = ldo; ep.bias = bias; ep.res = res;
+    ep.dp = static_cast<const float*>(dp); ep.aux = static_cast<const float*>(aux);
+    ep.out = out; ep.out_f = static_cast<float*>(out_f);
+    return static_cast<int>(is_bf16
+        ? tg::dispatch<bf16>(a, b, M, N, K, lda, ldb, a_kmaj, b_kmaj, ep, st)
+        : tg::dispatch<float>(a, b, M, N, K, lda, ldb, a_kmaj, b_kmaj, ep, st));
+}
+
+// ------------------------------------------------------ column sums
+// Stage 1: v = src * dp[row / tokens] (dp optional) in float32, written
+// rounded to TD, and summed per column over a chunk of rows.  Stage 2 sums
+// the chunks of each column in order.
+template <typename TS, typename TD>
+__global__ void __launch_bounds__(256)
+scale_colsum_kernel(const TS* __restrict__ src, const float* __restrict__ dp, int tokens,
+                    TD* __restrict__ dst, float* __restrict__ partial, int R, int C, int chunk) {
+    const int c = blockIdx.x * 256 + threadIdx.x;
+    if (c >= C) return;
+    const int r0 = blockIdx.y * chunk, r1 = min(R, r0 + chunk);
+    float s = 0.f;
+    for (int r = r0; r < r1; ++r) {
+        float v = to_f(src[(size_t)r * C + c]);
+        if (dp) v = __fmul_rn(v, dp[r / tokens]);
+        dst[(size_t)r * C + c] = from_f<TD>(v);
+        s = __fadd_rn(s, v);
+    }
+    partial[(size_t)blockIdx.y * C + c] = s;
+}
+
+template <typename TO>
+__global__ void __launch_bounds__(256)
+colsum_finish_kernel(const float* __restrict__ partial, int n, int C, TO* __restrict__ out) {
+    const int c = blockIdx.x * 256 + threadIdx.x;
+    if (c >= C) return;
+    float s = 0.f;
+    for (int i = 0; i < n; ++i) s = __fadd_rn(s, partial[(size_t)i * C + c]);
+    out[c] = from_f<TO>(s);
+}
+
+template <typename TS, typename TD>
+static void scale_colsum(const void* src, const void* dp, int tokens, void* dst, void* partial,
+                         int R, int C, int chunk, cudaStream_t st) {
+    const dim3 grid((C + 255) / 256, (R + chunk - 1) / chunk);
+    scale_colsum_kernel<TS, TD><<<grid, 256, 0, st>>>(
+        static_cast<const TS*>(src), static_cast<const float*>(dp), tokens, static_cast<TD*>(dst),
+        static_cast<float*>(partial), R, C, chunk);
+}
+
+// partial gets ceil(R / chunk) rows of C floats
+EVT_EXPORT int evt_scale_colsum(const void* src, int src_bf16, const void* dp, int tokens,
+                                void* dst, int dst_bf16, void* partial, int R, int C, int chunk,
+                                void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (src_bf16 && dst_bf16) scale_colsum<bf16, bf16>(src, dp, tokens, dst, partial, R, C, chunk, st);
+    else if (src_bf16) scale_colsum<bf16, float>(src, dp, tokens, dst, partial, R, C, chunk, st);
+    else if (dst_bf16) scale_colsum<float, bf16>(src, dp, tokens, dst, partial, R, C, chunk, st);
+    else scale_colsum<float, float>(src, dp, tokens, dst, partial, R, C, chunk, st);
+    return static_cast<int>(cudaGetLastError());
+}
+
+EVT_EXPORT int evt_colsum_finish(const void* partial, int n, int C, void* out, int out_bf16,
+                                 void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int blocks = (C + 255) / 256;
+    if (out_bf16)
+        colsum_finish_kernel<bf16><<<blocks, 256, 0, st>>>(static_cast<const float*>(partial), n,
+                                                          C, static_cast<bf16*>(out));
+    else
+        colsum_finish_kernel<float><<<blocks, 256, 0, st>>>(static_cast<const float*>(partial), n,
+                                                           C, static_cast<float*>(out));
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------ LayerNorm backward
+// One warp per row, 8 warps per block, LN_ROWS rows per block.  It
+// recomputes mean, 1/sigma and xhat of the forward from x, then
+//   dxhat = dh * w,  dx = (1/sigma) (dxhat - mean(dxhat) - xhat mean(dxhat xhat)),
+//   out = round(res + dx),
+// and each warp writes its partial sums of dh * xhat (dw) and dh (db) over
+// its rows: partial row (block * 8 + warp).  A lane holds columns
+// lane + 32 j, j < LN_MAXJ, so D <= 32 * LN_MAXJ.
+constexpr int LN_ROWS = 64, LN_MAXJ = 48;
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+ln_backward_kernel(const T* __restrict__ x, const T* __restrict__ w, const float* __restrict__ dh,
+                   const T* __restrict__ res, T* __restrict__ out, float* __restrict__ pdw,
+                   float* __restrict__ pdb, int R, int D, float eps) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    float dw[LN_MAXJ], db[LN_MAXJ];
+#pragma unroll
+    for (int j = 0; j < LN_MAXJ; ++j) dw[j] = db[j] = 0.f;
+    const int r_end = min(R, (blockIdx.x + 1) * LN_ROWS);
+    for (int r = blockIdx.x * LN_ROWS + warp; r < r_end; r += 8) {
+        const T* xr = x + (size_t)r * D;
+        const float* g = dh + (size_t)r * D;
+        float s = 0.f;
+        for (int i = lane; i < D; i += 32) s += to_f(xr[i]);
+        const float mean = warp_sum(s) / D;
+        float v = 0.f;
+        for (int i = lane; i < D; i += 32) {
+            const float d = to_f(xr[i]) - mean;
+            v += d * d;
+        }
+        const float inv = rsqrtf(warp_sum(v) / D + eps);
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int j = 0; j < LN_MAXJ; ++j) {
+            const int i = lane + 32 * j;
+            if (i < D) {
+                const float xhat = (to_f(xr[i]) - mean) * inv;
+                const float dxhat = g[i] * to_f(w[i]);
+                s1 += dxhat;
+                s2 += dxhat * xhat;
+                dw[j] += g[i] * xhat;
+                db[j] += g[i];
+            }
+        }
+        const float m1 = warp_sum(s1) / D, m2 = warp_sum(s2) / D;
+#pragma unroll
+        for (int j = 0; j < LN_MAXJ; ++j) {
+            const int i = lane + 32 * j;
+            if (i < D) {
+                const float xhat = (to_f(xr[i]) - mean) * inv;
+                const float dxhat = g[i] * to_f(w[i]);
+                const float dx = inv * (dxhat - m1 - xhat * m2);
+                out[(size_t)r * D + i] = from_f<T>(to_f(res[(size_t)r * D + i]) + dx);
+            }
+        }
+    }
+    const size_t prow = (size_t)(blockIdx.x * 8 + warp) * D;
+#pragma unroll
+    for (int j = 0; j < LN_MAXJ; ++j) {
+        const int i = lane + 32 * j;
+        if (i < D) {
+            pdw[prow + i] = dw[j];
+            pdb[prow + i] = db[j];
+        }
+    }
+}
+
+// pdw and pdb get 8 * ceil(R / LN_ROWS) rows of D floats
+EVT_EXPORT int evt_ln_backward(const void* x, const void* w, const void* dh, const void* res,
+                               void* out, void* pdw, void* pdb, int R, int D, float eps,
+                               int is_bf16, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const int blocks = (R + LN_ROWS - 1) / LN_ROWS;
+    if (is_bf16)
+        ln_backward_kernel<bf16><<<blocks, 256, 0, st>>>(
+            static_cast<const bf16*>(x), static_cast<const bf16*>(w),
+            static_cast<const float*>(dh), static_cast<const bf16*>(res), static_cast<bf16*>(out),
+            static_cast<float*>(pdw), static_cast<float*>(pdb), R, D, eps);
+    else
+        ln_backward_kernel<float><<<blocks, 256, 0, st>>>(
+            static_cast<const float*>(x), static_cast<const float*>(w),
+            static_cast<const float*>(dh), static_cast<const float*>(res),
+            static_cast<float*>(out), static_cast<float*>(pdw), static_cast<float*>(pdb), R, D,
+            eps);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------ attention backward
+// Per (crop b, head h), with q, k, v the head's columns of qkv (T), do the
+// head's columns of the rounded output grad (T), qs = round(q * qscale):
+//   P = softmax(qs k^T) (float32),  o = round(round(P) v),
+//   dP = do v^T,  dlog = P (dP - rowsum(dP P)),  dv = round(P)^T do,
+//   dq = round(dlog) k * scale,  dk = round(dlog)^T q * scale.
+// Kernel A takes a tile of TQ queries: it holds K and V of all tokens, the
+// tile's qs and do, and the tile's logits and dP; it writes o, dq and each
+// query's softmax max, sum and rowsum(dP P).  Kernel B takes a tile of TK
+// keys: it holds q and do of all tokens, the tile's k and v, and the tile's
+// transposed logits; it recomputes them in the same order (so bitwise the
+// same P and dP as kernel A) from A's statistics and writes dk and dv.
+// Shared rows are padded by one float against bank conflicts.
+constexpr int TQ = 32, TK = 32;
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_bwd_q_kernel(const T* __restrict__ qkv, const T* __restrict__ dO, T* __restrict__ o,
+                  float* __restrict__ dqkv, float* __restrict__ stats, int N, int D, int heads,
+                  float qscale, float scale) {
+    extern __shared__ float smem[];
+    const int hd = D / heads, ld = hd + 1;
+    const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
+    const int nq = min(TQ, N - q0);
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    float* Ks = smem;
+    float* Vs = Ks + N * ld;
+    float* Qs = Vs + N * ld;
+    float* Ds = Qs + TQ * ld;
+    float* P = Ds + TQ * ld;
+    float* dP = P + TQ * N;
+    const T* base = qkv + (size_t)b * N * 3 * D + h * hd;
+    float* st = stats + ((size_t)b * heads + h) * 3 * N;   // [max | sum | rowsum(dP P)]
+
+    for (int idx = tid; idx < N * hd; idx += 256) {
+        const int j = idx / hd, d = idx - j * hd;
+        const T* r = base + (size_t)j * 3 * D + d;
+        Ks[j * ld + d] = to_f(r[D]);
+        Vs[j * ld + d] = to_f(r[2 * D]);
+    }
+    for (int idx = tid; idx < nq * hd; idx += 256) {
+        const int i = idx / hd, d = idx - i * hd;
+        Qs[i * ld + d] = round_to<T>(to_f(base[(size_t)(q0 + i) * 3 * D + d]) * qscale);
+        Ds[i * ld + d] = to_f(dO[(size_t)(b * N + q0 + i) * D + h * hd + d]);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < nq * N; idx += 256) {
+        const int i = idx / N, j = idx - i * N;
+        float acc = 0.f, dacc = 0.f;
+        for (int d = 0; d < hd; ++d) {
+            acc = fmaf(Qs[i * ld + d], Ks[j * ld + d], acc);
+            dacc = fmaf(Ds[i * ld + d], Vs[j * ld + d], dacc);
+        }
+        P[idx] = acc;
+        dP[idx] = dacc;
+    }
+    __syncthreads();
+    for (int i = warp; i < nq; i += 8) {          // softmax, one warp per row
+        float* p = P + i * N;
+        float m = -FLT_MAX;
+        for (int j = lane; j < N; j += 32) m = fmaxf(m, p[j]);
+        m = warp_max(m);
+        float s = 0.f;
+        for (int j = lane; j < N; j += 32) {
+            const float e = expf(p[j] - m);
+            p[j] = e;
+            s += e;
+        }
+        s = warp_sum(s);
+        float ds = 0.f;
+        for (int j = lane; j < N; j += 32) {
+            p[j] = p[j] / s;
+            ds += dP[i * N + j] * p[j];
+        }
+        ds = warp_sum(ds);
+        for (int j = lane; j < N; j += 32)
+            dP[i * N + j] = round_to<T>(p[j] * (dP[i * N + j] - ds));
+        if (lane == 0) {
+            st[q0 + i] = m;
+            st[N + q0 + i] = s;
+            st[2 * N + q0 + i] = ds;
+        }
+    }
+    __syncthreads();
+    for (int idx = tid; idx < nq * hd; idx += 256) {
+        const int i = idx / hd, d = idx - i * hd;
+        const float* p = P + i * N;
+        const float* g = dP + i * N;
+        float acc = 0.f, dq = 0.f;
+        for (int j = 0; j < N; ++j) {
+            acc = fmaf(round_to<T>(p[j]), Vs[j * ld + d], acc);
+            dq = fmaf(g[j], Ks[j * ld + d], dq);
+        }
+        const size_t row = (size_t)b * N + q0 + i;
+        o[row * D + h * hd + d] = from_f<T>(acc);
+        dqkv[row * 3 * D + h * hd + d] = dq * scale;
+    }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(256)
+attn_bwd_kv_kernel(const T* __restrict__ qkv, const T* __restrict__ dO,
+                   const float* __restrict__ stats, float* __restrict__ dqkv, int N, int D,
+                   int heads, float qscale, float scale) {
+    extern __shared__ float smem[];
+    const int hd = D / heads, ld = hd + 1;
+    const int k0 = blockIdx.x * TK, h = blockIdx.y, b = blockIdx.z;
+    const int nk = min(TK, N - k0);
+    const int tid = threadIdx.x;
+    float* Qr = smem;
+    float* Dd = Qr + N * ld;
+    float* Kt = Dd + N * ld;
+    float* Vt = Kt + TK * ld;
+    float* Pt = Vt + TK * ld;        // P, then round(dlog): [key][query] each
+    const T* base = qkv + (size_t)b * N * 3 * D + h * hd;
+    const float* st = stats + ((size_t)b * heads + h) * 3 * N;
+
+    for (int idx = tid; idx < N * hd; idx += 256) {
+        const int i = idx / hd, d = idx - i * hd;
+        Qr[i * ld + d] = to_f(base[(size_t)i * 3 * D + d]);
+        Dd[i * ld + d] = to_f(dO[(size_t)(b * N + i) * D + h * hd + d]);
+    }
+    for (int idx = tid; idx < nk * hd; idx += 256) {
+        const int j = idx / hd, d = idx - j * hd;
+        const T* r = base + (size_t)(k0 + j) * 3 * D + d;
+        Kt[j * ld + d] = to_f(r[D]);
+        Vt[j * ld + d] = to_f(r[2 * D]);
+    }
+    __syncthreads();
+    for (int idx = tid; idx < nk * N; idx += 256) {
+        const int j = idx / N, i = idx - j * N;
+        float acc = 0.f, dacc = 0.f;
+        for (int d = 0; d < hd; ++d) {
+            acc = fmaf(round_to<T>(Qr[i * ld + d] * qscale), Kt[j * ld + d], acc);
+            dacc = fmaf(Dd[i * ld + d], Vt[j * ld + d], dacc);
+        }
+        const float p = expf(acc - st[i]) / st[N + i];
+        Pt[idx] = p;
+        Pt[nk * N + idx] = round_to<T>(p * (dacc - st[2 * N + i]));    // round(dlog)
+    }
+    __syncthreads();
+    for (int idx = tid; idx < nk * hd; idx += 256) {
+        const int j = idx / hd, d = idx - j * hd;
+        const float* p = Pt + j * N;
+        const float* g = Pt + nk * N + j * N;
+        float dv = 0.f, dk = 0.f;
+        for (int i = 0; i < N; ++i) {
+            dv = fmaf(round_to<T>(p[i]), Dd[i * ld + d], dv);
+            dk = fmaf(g[i], Qr[i * ld + d], dk);
+        }
+        const size_t row = ((size_t)b * N + k0 + j) * 3 * D + h * hd + d;
+        dqkv[row + D] = dk * scale;
+        dqkv[row + 2 * D] = dv;
+    }
+}
+
+template <typename T>
+static cudaError_t attn_bwd_launch(const void* qkv, const void* dO, void* o, void* dqkv,
+                                   void* stats, int B, int N, int D, int heads, float qscale,
+                                   float scale, cudaStream_t st) {
+    const int hd = D / heads;
+    const size_t smem_q = sizeof(float) * (2 * (size_t)N * (hd + 1) + 2 * TQ * (hd + 1) +
+                                           2 * (size_t)TQ * N);
+    const size_t smem_kv = sizeof(float) * (2 * (size_t)N * (hd + 1) + 2 * TK * (hd + 1) +
+                                            2 * (size_t)TK * N);
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_kernel<T>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem_q));
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(attn_bwd_kv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem_kv));
+    if (err != cudaSuccess) return err;
+    const dim3 gq((N + TQ - 1) / TQ, heads, B), gk((N + TK - 1) / TK, heads, B);
+    attn_bwd_q_kernel<T><<<gq, 256, smem_q, st>>>(
+        static_cast<const T*>(qkv), static_cast<const T*>(dO), static_cast<T*>(o),
+        static_cast<float*>(dqkv), static_cast<float*>(stats), N, D, heads, qscale, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    attn_bwd_kv_kernel<T><<<gk, 256, smem_kv, st>>>(
+        static_cast<const T*>(qkv), static_cast<const T*>(dO), static_cast<const float*>(stats),
+        static_cast<float*>(dqkv), N, D, heads, qscale, scale);
+    return cudaGetLastError();
+}
+
+// qkv (B*N, 3D) T, dO (B*N, D) T -> o (B*N, D) T, dqkv (B*N, 3D) float32;
+// stats is scratch of B * heads * 3 * N floats
+EVT_EXPORT int evt_attn_backward(const void* qkv, const void* dO, void* o, void* dqkv,
+                                 void* stats, int B, int N, int D, int heads, float qscale,
+                                 float scale, int is_bf16, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    return static_cast<int>(
+        is_bf16 ? attn_bwd_launch<bf16>(qkv, dO, o, dqkv, stats, B, N, D, heads, qscale, scale, st)
+                : attn_bwd_launch<float>(qkv, dO, o, dqkv, stats, B, N, D, heads, qscale, scale,
+                                         st));
+}

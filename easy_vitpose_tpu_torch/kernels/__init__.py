@@ -9,7 +9,9 @@ is not 0.  The libraries land in ``easy_vitpose_tpu_torch/_build`` (listed in
 so an edited source is rebuilt and an unchanged one is reused.
 
 No ``--use_fast_math``: the int8 row quantisation needs IEEE division and
-``rint`` (``models/quant.py``), and the plain versions compare at 1e-5.
+``rint`` (``models/quant.py``), the fused Adam (``train/fused_opt.py``)
+IEEE division and square root to agree with its plain version bit for bit,
+and the plain versions compare at 1e-5.
 
 The launch counters are plain integers per kernel: a wrapper adds one where
 it launches its kernel on the card and nowhere else, so a run can show that
@@ -35,7 +37,7 @@ ARCH = "arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = ("-gencode", ARCH, "-std=c++17", "-O3", "-lineinfo",
               "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 MAX_TAPS = 32
 
 
@@ -69,6 +71,24 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "modulate": {
         # maps, taps, out, n_maps, H, W, radius, stream
         "evt_udp_modulate": [_P, Taps, _P, _I, _I, _I, _I, _P],
+    },
+    "train_block": {
+        # a, b, M, N, K, lda, ldb, a_kmaj, b_kmaj, bf16, mode, bias, res, dp,
+        # tokens, aux, out, out_f, ldo, stream
+        "evt_train_gemm": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+                           _I, _P, _P, _P, _I, _P],
+        # src, src_bf16, dp, tokens, dst, dst_bf16, partial, R, C, chunk, stream
+        "evt_scale_colsum": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P],
+        # partial, n, C, out, out_bf16, stream
+        "evt_colsum_finish": [_P, _I, _I, _P, _I, _P],
+        # x, w, dh, res, out, pdw, pdb, R, D, eps, bf16, stream
+        "evt_ln_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
+        # qkv, dO, o, dqkv, stats, B, N, D, heads, qscale, scale, bf16, stream
+        "evt_attn_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+    },
+    "adam": {
+        # g, mu, nu, p, scal, mu_o, nu_o, p_o, n, b1, 1-b1, b2, 1-b2, eps, stream
+        "evt_adam": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _P],
     },
 }
 SOURCES = tuple(SIGNATURES)

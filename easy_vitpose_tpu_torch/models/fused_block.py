@@ -31,7 +31,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .vit import Block, block
+from .vit import Block, block, q_scale
 
 KERNEL = "block"
 EPI_NONE, EPI_GELU, EPI_RESIDUAL = 0, 1, 2
@@ -80,7 +80,7 @@ def attention_cuda(qkv: torch.Tensor, B: int, N: int, heads: int) -> torch.Tenso
     D = qkv.shape[1] // 3
     o = torch.empty((B * N, D), dtype=qkv.dtype, device=qkv.device)
     kernels.call(KERNEL, "evt_attention", qkv.device, qkv.data_ptr(), o.data_ptr(),
-                 B, N, D, heads, float((D // heads) ** -0.5),
+                 B, N, D, heads, q_scale(D // heads, qkv.dtype),
                  int(qkv.dtype == torch.bfloat16))
     return o
 

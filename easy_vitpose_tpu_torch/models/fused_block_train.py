@@ -1,0 +1,423 @@
+"""K5, K6a and K7: the pre-LN transformer block for training.
+
+Port of ``easy_vitpose_tpu/models/fused_block_train.py`` at the flavor its
+defaults pick for ViT-S/B (D <= 768, recompute in both backward halves):
+
+* K5, the forward (``_fwd_kernel``): the serving block with a per-crop
+  drop-path keep factor ``dp`` (already scaled by 1/keep_prob) on both
+  residual branches, each branch kept in float32 until the residual add,
+  ``round(x + dp * (acc + b))``; it also returns ``x1``, the output of the
+  attention residual, which the backward starts from.
+* K6a, the MLP backward (``_bwd_mlp_kernel``): from (x1, dout) it recomputes
+  LN2, fc1 and the GELU and gives dx1 and the fc1, fc2 and LN2 grads.
+* K7, the attention backward (``_bwd_attn_kernel``): from (x, dx1) it
+  recomputes LN1, qkv and the softmax and gives dx and the qkv, proj and
+  LN1 grads.
+
+:class:`FusedBlockTrain` is the ``torch.autograd.Function`` in place of
+``make_fused_block_train``'s ``jax.custom_vjp``: its forward saves (x, x1)
+and the keep mask (which gets no gradient), its backward runs K6a, then K7.
+Weight grads come back in the dtype of the weights passed in (bf16 under
+AMP, as ``like()`` casts them), and the cast's own backward carries them to
+the float32 master weights.
+
+On the card each is a sequence of launches from ``csrc/train_block.cu``
+(GEMMs in the NT, NN and TN layouts with their epilogues, the LayerNorm
+backward, column sums and the attention backward) and K1's LayerNorm and
+attention (``csrc/block.cu``).  What bounds them on the H100 is operations:
+at ViT-B and 64 crops the forward is 181 GFLOP (as K1), the MLP backward
+five 58-GFLOP products and the attention backward 181 GFLOP (five linear
+products of 14.5 or 43.5 GFLOP and the attention's recompute); 0.18, 0.29
+and 0.18 ms at the bf16 tensor peak.  This first version keeps every GEMM
+simple (one 64x64 tile per block, no pipelining, no ``wgmma``/TMA) and the
+attention backward on float32 FMA, so it sits far from that bound; the times
+are in PERF.md.
+
+Each kernel has a plain version here (``*_plain``), written step by step as
+the kernel's math, rounding to the working dtype where the TPU kernels
+round: the tensors that a wrapper gets on the CPU go through it, and
+``chip_smoke.py`` holds the kernels to it on the card.
+"""
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from .. import kernels
+from .fused_block import (SMEM_LIMIT, attention_cuda, check_attention_shape,
+                          layernorm_cuda)
+from .vit import (BlockWeights, attention_core, erf_as, gelu, layer_norm,
+                  linear_f32, q_scale)
+
+KERNEL = "train_block"
+FWD, BWD_MLP, BWD_ATTN = "train_fwd", "train_bwd_mlp", "train_bwd_attn"
+TE_NONE, TE_GELU, TE_DP_RES, TE_GELU_SAVE, TE_GELU_GRAD, TE_F32 = range(6)
+COLSUM_CHUNK = 64        # rows per partial of the column sums
+LN_ROWS, LN_MAXJ = 64, 48
+ATTN_TILE = 32           # queries (kernel A) or keys (kernel B) per block
+_INV_SQRT2PI = 0.3989422804014327
+
+WeightGrads = Tuple[torch.Tensor, ...]
+
+
+# ---------------------------------------------------------------- plain math
+def gelu_grad(x: torch.Tensor) -> torch.Tensor:
+    """d/dx of the A&S-erf GELU, float32."""
+    cdf = 0.5 * (1.0 + erf_as(x * 0.7071067811865476))
+    pdf = torch.exp(-0.5 * x * x) * _INV_SQRT2PI
+    return cdf + x * pdf
+
+
+def ln_stats(x: torch.Tensor, eps: float):
+    """(xhat, 1/sigma) of a LayerNorm over the last dim, float32."""
+    xf = x.float()
+    mean = xf.mean(-1, keepdim=True)
+    inv = torch.rsqrt((xf - mean).square().mean(-1, keepdim=True) + eps)
+    return (xf - mean) * inv, inv
+
+
+def ln_backward(dh: torch.Tensor, xhat: torch.Tensor, inv: torch.Tensor, w: torch.Tensor):
+    """LayerNorm input grad for the upstream float32 ``dh``, and the scale and
+    bias grads (float32 column sums)."""
+    dxhat = dh * w.float()
+    dx = inv * (dxhat - dxhat.mean(-1, keepdim=True)
+                - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    return dx, (dh * xhat).sum(0), dh.sum(0)
+
+
+def _rows(x: torch.Tensor, keep: torch.Tensor):
+    """(B*N, D) rows of ``x`` and the (B*N, 1) float32 keep factor per row."""
+    B, N, D = x.shape
+    return x.reshape(B * N, D), keep.float().repeat_interleave(N)[:, None]
+
+
+def train_forward_plain(x: torch.Tensor, keep: torch.Tensor, w: BlockWeights,
+                        num_heads: int, eps: float):
+    """Plain version of K5: (B, N, D) tokens and (B,) keep -> (out, x1)."""
+    B, N, D = x.shape
+    dt = x.dtype
+    xr, dp = _rows(x, keep)
+    h = layer_norm(xr, w.ln1_w, w.ln1_b, eps)
+    qkv = linear_f32(h, w.qkv_w, w.qkv_b).to(dt)
+    o = attention_core(qkv.reshape(B, N, 3 * D), num_heads).reshape(B * N, D)
+    x1 = (xr.float() + linear_f32(o, w.proj_w, w.proj_b) * dp).to(dt)
+    g = gelu(linear_f32(layer_norm(x1, w.ln2_w, w.ln2_b, eps), w.fc1_w, w.fc1_b)).to(dt)
+    out = (x1.float() + linear_f32(g, w.fc2_w, w.fc2_b) * dp).to(dt)
+    return out.reshape(B, N, D), x1.reshape(B, N, D)
+
+
+def mlp_backward_plain(x1: torch.Tensor, dout: torch.Tensor, keep: torch.Tensor,
+                       w: BlockWeights, eps: float):
+    """Plain version of K6a: -> (dx1, (dW1, db1, dW2, db2, dln2_w, dln2_b))."""
+    B, N, D = x1.shape
+    dt = x1.dtype
+    x1r, dp = _rows(x1, keep)
+    doutf = dout.reshape(B * N, D).float()
+    xhat, inv = ln_stats(x1r, eps)
+    h2 = (xhat * w.ln2_w.float() + w.ln2_b.float()).to(dt)
+    m = linear_f32(h2, w.fc1_w, w.fc1_b)
+    g = gelu(m).to(dt)
+    dm2 = doutf * dp
+    dm2c = dm2.to(dt)
+    dm1 = torch.matmul(dm2c.float(), w.fc2_w.float()) * gelu_grad(m)
+    dm1c = dm1.to(dt)
+    dh2 = torch.matmul(dm1c.float(), w.fc1_w.float())
+    dx_ln, dln_w, dln_b = ln_backward(dh2, xhat, inv, w.ln2_w)
+    dx1 = (doutf + dx_ln).to(dt)
+    dW2 = torch.matmul(dm2c.float().t(), g.float())
+    dW1 = torch.matmul(dm1c.float().t(), h2.float())
+    grads = (dW1, dm1.sum(0), dW2, dm2.sum(0), dln_w, dln_b)
+    return dx1.reshape(B, N, D), tuple(g_.to(dt) for g_ in grads)
+
+
+def attention_backward_core(qkv: torch.Tensor, do: torch.Tensor, num_heads: int):
+    """Plain version of the attention backward launch: (B, N, 3D) qkv and
+    (B, N, D) do, both in the working dtype -> o in that dtype and the
+    float32 (B, N, 3D) dqkv."""
+    dt = qkv.dtype
+    B, N, D3 = qkv.shape
+    D = D3 // 3
+    hd = D // num_heads
+    q, k, v = (t.float() for t in qkv.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4))
+    qs = (q * q_scale(hd, dt)).to(dt).float()
+    probs_f = torch.softmax(torch.matmul(qs, k.transpose(-1, -2)), dim=-1)
+    probs = probs_f.to(dt).float()
+    o = torch.matmul(probs, v).to(dt)
+    dof = do.reshape(B, N, num_heads, hd).transpose(1, 2).float()
+    dP = torch.matmul(dof, v.transpose(-1, -2))
+    dv = torch.matmul(probs.transpose(-1, -2), dof)
+    dlog = probs_f * (dP - (dP * probs_f).sum(-1, keepdim=True))
+    dlogc = dlog.to(dt).float()
+    scale = hd ** -0.5
+    dq = torch.matmul(dlogc, k) * scale
+    dk = torch.matmul(dlogc.transpose(-1, -2), q) * scale
+    dqkv = torch.stack([dq, dk, dv]).permute(1, 3, 0, 2, 4).reshape(B, N, 3 * D)
+    return o.transpose(1, 2).reshape(B, N, D), dqkv
+
+
+def attn_backward_plain(x: torch.Tensor, dx1: torch.Tensor, keep: torch.Tensor,
+                        w: BlockWeights, num_heads: int, eps: float):
+    """Plain version of K7: -> (dx, (dWqkv, dbqkv, dWp, dbp, dln1_w, dln1_b))."""
+    B, N, D = x.shape
+    dt = x.dtype
+    xr, dp = _rows(x, keep)
+    dx1f = dx1.reshape(B * N, D).float()
+    xhat, inv = ln_stats(xr, eps)
+    h1 = (xhat * w.ln1_w.float() + w.ln1_b.float()).to(dt)
+    qkv = linear_f32(h1, w.qkv_w, w.qkv_b).to(dt)
+    da = dx1f * dp
+    dac = da.to(dt)
+    do = torch.matmul(dac.float(), w.proj_w.float()).to(dt)
+    o, dqkv = attention_backward_core(qkv.reshape(B, N, 3 * D), do.reshape(B, N, D), num_heads)
+    dqkv = dqkv.reshape(B * N, 3 * D)
+    dqkvc = dqkv.to(dt)
+    dh1 = torch.matmul(dqkvc.float(), w.qkv_w.float())
+    dx_ln, dln_w, dln_b = ln_backward(dh1, xhat, inv, w.ln1_w)
+    dx = (dx1f + dx_ln).to(dt)
+    dWqkv = torch.matmul(dqkvc.float().t(), h1.float())
+    dWp = torch.matmul(dac.float().t(), o.reshape(B * N, D).float())
+    grads = (dWqkv, dqkv.sum(0), dWp, da.sum(0), dln_w, dln_b)
+    return dx.reshape(B, N, D), tuple(g.to(dt) for g in grads)
+
+
+# ------------------------------------------------------------ CUDA launches
+def _ptr(t):
+    return None if t is None else t.data_ptr()
+
+
+def _gemm(a, b, M, N, K, lda, ldb, a_kmaj, b_kmaj, mode, *, bias=None, res=None, dp=None,
+          tokens=1, aux=None):
+    """``epilogue(sum_k A[m, k] B[n, k])`` (see ``evt_train_gemm``) in the
+    dtype of ``a``; returns (out in that dtype or None, float32 out or None)."""
+    # 16-byte loads run along the contiguous dim of each operand
+    contiguous = (K if a_kmaj else M, lda, K if b_kmaj else N, ldb)
+    if any(v % 8 for v in contiguous):
+        raise ValueError(f"GEMM dims {(M, N, K)}, leading dims {(lda, ldb)}: each operand's "
+                         f"contiguous dim must be a multiple of 8")
+    dt, dev = a.dtype, a.device
+    out = (torch.empty((M, N), dtype=dt, device=dev)
+           if mode in (TE_NONE, TE_GELU, TE_DP_RES, TE_GELU_SAVE) else None)
+    out_f = (torch.empty((M, N), dtype=torch.float32, device=dev)
+             if mode in (TE_GELU_SAVE, TE_GELU_GRAD, TE_F32) else None)
+    kernels.call(KERNEL, "evt_train_gemm", dev, a.data_ptr(), b.data_ptr(), M, N, K, lda, ldb,
+                 int(a_kmaj), int(b_kmaj), int(dt == torch.bfloat16), mode, _ptr(bias),
+                 _ptr(res), _ptr(dp), tokens, _ptr(aux), _ptr(out), _ptr(out_f), N)
+    return out, out_f
+
+
+def gemm_nt(a, w, mode, **epi):
+    """a (M, K) . w (N, K)^T: the forward's products."""
+    return _gemm(a, w, a.shape[0], w.shape[0], a.shape[1], a.shape[1], w.shape[1], 1, 1,
+                 mode, **epi)
+
+
+def gemm_nn(a, w, mode, **epi):
+    """a (M, K) . w (K, N): activation grads through a Linear weight."""
+    return _gemm(a, w, a.shape[0], w.shape[1], a.shape[1], a.shape[1], w.shape[1], 1, 0,
+                 mode, **epi)
+
+
+def gemm_tn(a, b):
+    """a (R, M)^T . b (R, N), contracted over all R rows: a weight grad, in
+    the dtype of ``a``."""
+    return _gemm(a, b, a.shape[1], b.shape[1], a.shape[0], a.shape[1], b.shape[1], 0, 0,
+                 TE_NONE)[0]
+
+
+def colsum_cuda(src, dt, dp=None, tokens=1):
+    """The rows ``src * dp[row / tokens]`` rounded to ``dt``, and their
+    column sums (float32, two stages) in ``dt``."""
+    R, C = src.shape
+    dev = src.device
+    n = -(-R // COLSUM_CHUNK)
+    partial = torch.empty((n, C), dtype=torch.float32, device=dev)
+    dst = torch.empty((R, C), dtype=dt, device=dev)
+    kernels.call(KERNEL, "evt_scale_colsum", dev, src.data_ptr(),
+                 int(src.dtype == torch.bfloat16), _ptr(dp), tokens, dst.data_ptr(),
+                 int(dt == torch.bfloat16), partial.data_ptr(), R, C, COLSUM_CHUNK)
+    return dst, colsum_finish(partial, dt)
+
+
+def colsum_finish(partial, out_dtype):
+    n, C = partial.shape
+    out = torch.empty((C,), dtype=out_dtype, device=partial.device)
+    kernels.call(KERNEL, "evt_colsum_finish", partial.device, partial.data_ptr(), n, C,
+                 out.data_ptr(), int(out_dtype == torch.bfloat16))
+    return out
+
+
+def ln_backward_cuda(x, w, dh, res, eps):
+    """round(res + LN backward of ``dh``) and the LN scale and bias grads."""
+    R, D = x.shape
+    if D > 32 * LN_MAXJ:
+        raise ValueError(f"LayerNorm backward takes D <= {32 * LN_MAXJ}, got {D}")
+    dev, dt = x.device, x.dtype
+    out = torch.empty((R, D), dtype=dt, device=dev)
+    n = 8 * -(-R // LN_ROWS)
+    pdw = torch.empty((n, D), dtype=torch.float32, device=dev)
+    pdb = torch.empty((n, D), dtype=torch.float32, device=dev)
+    kernels.call(KERNEL, "evt_ln_backward", dev, x.data_ptr(), w.data_ptr(), dh.data_ptr(),
+                 res.data_ptr(), out.data_ptr(), pdw.data_ptr(), pdb.data_ptr(), R, D, eps,
+                 int(dt == torch.bfloat16))
+    return out, colsum_finish(pdw, dt), colsum_finish(pdb, dt)
+
+
+def attention_backward_smem_bytes(tokens: int, head_dim: int) -> int:
+    """Shared memory of the larger of the two attention-backward blocks:
+    all tokens' K and V (or q and do), rows padded by one float, the tile's
+    two head-dim rows and its two tokens-wide float32 rows."""
+    t, ld = ATTN_TILE, head_dim + 1
+    return 4 * (2 * tokens * ld + 2 * t * ld + 2 * t * tokens)
+
+
+def check_train_shapes(N: int, D: int, hidden: int, heads: int) -> None:
+    check_attention_shape(N, D, heads)
+    smem = attention_backward_smem_bytes(N, D // heads)
+    if smem > SMEM_LIMIT:
+        raise ValueError(f"{N} tokens x head dim {D // heads} needs {smem} B of shared "
+                         f"memory in the attention backward, more than {SMEM_LIMIT}")
+    if D % 8 or hidden % 8:
+        raise ValueError(f"dims {D}, {hidden} must be multiples of 8")
+
+
+def attention_backward_cuda(qkv, do, B, N, heads):
+    """(B*N, 3D) qkv and (B*N, D) do -> o (B*N, D) and float32 dqkv (B*N, 3D)."""
+    D = do.shape[1]
+    dev, dt = qkv.device, qkv.dtype
+    o = torch.empty((B * N, D), dtype=dt, device=dev)
+    dqkv = torch.empty((B * N, 3 * D), dtype=torch.float32, device=dev)
+    stats = torch.empty((B * heads * 3 * N,), dtype=torch.float32, device=dev)
+    hd = D // heads
+    kernels.call(KERNEL, "evt_attn_backward", dev, qkv.data_ptr(), do.data_ptr(), o.data_ptr(),
+                 dqkv.data_ptr(), stats.data_ptr(), B, N, D, heads, q_scale(hd, dt),
+                 hd ** -0.5, int(dt == torch.bfloat16))
+    return o, dqkv
+
+
+def _check(x, keep, w: BlockWeights, num_heads: int = 0):
+    kernels.require_cuda(x, keep, *w)
+    dt = x.dtype
+    if dt not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"tokens must be float32 or bfloat16, got {dt}")
+    bad = [t.dtype for t in w if t.dtype != dt]
+    if bad:
+        raise ValueError(f"block weights must be {dt} like the tokens, got {bad[0]}")
+    if not all(t.is_contiguous() for t in w):
+        raise ValueError("block weights must be contiguous")
+    B, N, D = x.shape
+    if keep.shape != (B,):
+        raise ValueError(f"keep must be ({B},), got {tuple(keep.shape)}")
+    if num_heads:
+        check_train_shapes(N, D, w.fc1_w.shape[0], num_heads)
+    return B, N, D, dt
+
+
+def train_forward_cuda(x, keep, w: BlockWeights, num_heads: int, eps: float):
+    B, N, D, dt = _check(x, keep, w, num_heads)
+    xr = x.contiguous().reshape(B * N, D)
+    dp = keep.float().contiguous()
+    h = layernorm_cuda(xr, w.ln1_w, w.ln1_b, eps, dt)
+    qkv = gemm_nt(h, w.qkv_w, TE_NONE, bias=w.qkv_b)[0]
+    o = attention_cuda(qkv, B, N, num_heads)
+    x1 = gemm_nt(o, w.proj_w, TE_DP_RES, bias=w.proj_b, res=xr, dp=dp, tokens=N)[0]
+    h2 = layernorm_cuda(x1, w.ln2_w, w.ln2_b, eps, dt)
+    g = gemm_nt(h2, w.fc1_w, TE_GELU, bias=w.fc1_b)[0]
+    out = gemm_nt(g, w.fc2_w, TE_DP_RES, bias=w.fc2_b, res=x1, dp=dp, tokens=N)[0]
+    kernels.count_launch(FWD)
+    return out.reshape(B, N, D), x1.reshape(B, N, D)
+
+
+def mlp_backward_cuda(x1, dout, keep, w: BlockWeights, eps: float):
+    B, N, D, dt = _check(x1, keep, w)
+    kernels.require_cuda(dout)
+    x1r = x1.contiguous().reshape(B * N, D)
+    doutr = dout.to(dt).contiguous().reshape(B * N, D)
+    dp = keep.float().contiguous()
+    h2 = layernorm_cuda(x1r, w.ln2_w, w.ln2_b, eps, dt)
+    g, m = gemm_nt(h2, w.fc1_w, TE_GELU_SAVE, bias=w.fc1_b)
+    dm2c, db2 = colsum_cuda(doutr, dt, dp, N)
+    dm1 = gemm_nn(dm2c, w.fc2_w, TE_GELU_GRAD, aux=m)[1]
+    dm1c, db1 = colsum_cuda(dm1, dt)
+    dh2 = gemm_nn(dm1c, w.fc1_w, TE_F32)[1]
+    dx1, dln_w, dln_b = ln_backward_cuda(x1r, w.ln2_w, dh2, doutr, eps)
+    dW2 = gemm_tn(dm2c, g)
+    dW1 = gemm_tn(dm1c, h2)
+    kernels.count_launch(BWD_MLP)
+    return dx1.reshape(B, N, D), (dW1, db1, dW2, db2, dln_w, dln_b)
+
+
+def attn_backward_cuda(x, dx1, keep, w: BlockWeights, num_heads: int, eps: float):
+    B, N, D, dt = _check(x, keep, w, num_heads)
+    kernels.require_cuda(dx1)
+    xr = x.contiguous().reshape(B * N, D)
+    dx1r = dx1.contiguous().reshape(B * N, D)
+    dp = keep.float().contiguous()
+    h1 = layernorm_cuda(xr, w.ln1_w, w.ln1_b, eps, dt)
+    qkv = gemm_nt(h1, w.qkv_w, TE_NONE, bias=w.qkv_b)[0]
+    dac, dbp = colsum_cuda(dx1r, dt, dp, N)
+    do = gemm_nn(dac, w.proj_w, TE_NONE)[0]
+    o, dqkv = attention_backward_cuda(qkv, do, B, N, num_heads)
+    dqkvc, dbqkv = colsum_cuda(dqkv, dt)
+    dh1 = gemm_nn(dqkvc, w.qkv_w, TE_F32)[1]
+    dx, dln_w, dln_b = ln_backward_cuda(xr, w.ln1_w, dh1, dx1r, eps)
+    dWqkv = gemm_tn(dqkvc, h1)
+    dWp = gemm_tn(dac, o)
+    kernels.count_launch(BWD_ATTN)
+    return dx.reshape(B, N, D), (dWqkv, dbqkv, dWp, dbp, dln_w, dln_b)
+
+
+# ----------------------------------------------------------------- wrappers
+def train_forward(x, keep, w: BlockWeights, num_heads: int, eps: float, plain: bool = False):
+    """K5: (B, N, D) tokens, (B,) float32 keep -> (out, x1).  CPU tokens (or
+    ``plain``) take the plain version; CUDA tokens launch the kernels."""
+    if plain or x.device.type == "cpu":
+        return train_forward_plain(x, keep, w, num_heads, eps)
+    return train_forward_cuda(x, keep, w, num_heads, eps)
+
+
+def mlp_backward(x1, dout, keep, w: BlockWeights, eps: float, plain: bool = False):
+    """K6a: -> (dx1, (dW1, db1, dW2, db2, dln2_w, dln2_b))."""
+    if plain or x1.device.type == "cpu":
+        return mlp_backward_plain(x1, dout, keep, w, eps)
+    return mlp_backward_cuda(x1, dout, keep, w, eps)
+
+
+def attn_backward(x, dx1, keep, w: BlockWeights, num_heads: int, eps: float,
+                  plain: bool = False):
+    """K7: -> (dx, (dWqkv, dbqkv, dWp, dbp, dln1_w, dln1_b))."""
+    if plain or x.device.type == "cpu":
+        return attn_backward_plain(x, dx1, keep, w, num_heads, eps)
+    return attn_backward_cuda(x, dx1, keep, w, num_heads, eps)
+
+
+class FusedBlockTrain(torch.autograd.Function):
+    """``FusedBlockTrain.apply(x, keep, num_heads, eps, plain, *weights)``:
+    the training block with the forward of K5 and the backward of K6a then
+    K7; ``weights`` in :class:`..models.vit.BlockWeights` order."""
+
+    @staticmethod
+    def forward(ctx, x, keep, num_heads, eps, plain, *weights):
+        w = BlockWeights(*weights)
+        out, x1 = train_forward(x, keep, w, num_heads, eps, plain)
+        ctx.save_for_backward(x, x1, keep, *weights)
+        ctx.num_heads, ctx.eps, ctx.plain = num_heads, eps, plain
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x, x1, keep, *weights = ctx.saved_tensors
+        w = BlockWeights(*weights)
+        dx1, (dW1, db1, dW2, db2, dln2_w, dln2_b) = mlp_backward(
+            x1, dout.contiguous(), keep, w, ctx.eps, ctx.plain)
+        dx, (dWqkv, dbqkv, dWp, dbp, dln1_w, dln1_b) = attn_backward(
+            x, dx1, keep, w, ctx.num_heads, ctx.eps, ctx.plain)
+        grads = BlockWeights(dln1_w, dln1_b, dWqkv, dbqkv, dWp, dbp, dln2_w, dln2_b,
+                             dW1, db1, dW2, db2)
+        return (dx, None, None, None, None, *grads)
+
+
+def fused_block_train(x, keep, w: BlockWeights, num_heads: int, eps: float,
+                      plain: bool = False) -> torch.Tensor:
+    """The differentiable training block (see :class:`FusedBlockTrain`)."""
+    return FusedBlockTrain.apply(x, keep, num_heads, eps, plain, *w)

@@ -16,11 +16,20 @@ attention output, the GELU output and each residual add).
 
 Reference quirks kept: the patch conv's padding=2 with a crop to a multiple
 of the patch, and the position embedding applied as ``pe[:, 1:] + pe[:, :1]``.
+
+Training (port of ``vit.py:110-259``) is functional over a mapping from the
+state-dict names to tensors, so that a step can hand in bf16 casts of the
+float32 master weights that gradients flow through:
+:func:`vit_forward_train` with per-layer drop-path masks
+(:func:`draw_drop_path_masks`) runs each block through the training block
+(``models/fused_block_train.py``, the kernels' path) or through
+:func:`block_train`, the JAX package's XLA block under autograd.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Mapping, NamedTuple, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -72,6 +81,35 @@ class ViT(nn.Module):
         self.last_norm = nn.LayerNorm(cfg.embed_dim, eps=cfg.layer_norm_eps)
 
 
+BLOCK_PARAMS = ("norm1.weight", "norm1.bias", "attn.qkv.weight", "attn.qkv.bias",
+                "attn.proj.weight", "attn.proj.bias", "norm2.weight", "norm2.bias",
+                "mlp.fc1.weight", "mlp.fc1.bias", "mlp.fc2.weight", "mlp.fc2.bias")
+
+
+class BlockWeights(NamedTuple):
+    """One block's tensors in the order of :data:`BLOCK_PARAMS`."""
+    ln1_w: torch.Tensor
+    ln1_b: torch.Tensor
+    qkv_w: torch.Tensor
+    qkv_b: torch.Tensor
+    proj_w: torch.Tensor
+    proj_b: torch.Tensor
+    ln2_w: torch.Tensor
+    ln2_b: torch.Tensor
+    fc1_w: torch.Tensor
+    fc1_b: torch.Tensor
+    fc2_w: torch.Tensor
+    fc2_b: torch.Tensor
+
+
+def block_weights(params: Mapping[str, torch.Tensor], prefix: str) -> BlockWeights:
+    """The block at ``prefix`` (e.g. ``backbone.blocks.3``) of a state-dict
+    mapping; ``block_weights(dict(blk.named_parameters()), "")`` for a
+    :class:`Block`."""
+    dot = f"{prefix}." if prefix else ""
+    return BlockWeights(*(params[dot + n] for n in BLOCK_PARAMS))
+
+
 # ---------------------------------------------------------------- functions
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                eps: float, out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
@@ -120,16 +158,23 @@ def patch_embed(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return torch.addmm(bias.to(x.dtype), x, w).reshape(B, Hp * Wp, -1)
 
 
+def q_scale(head_dim: int, dtype: torch.dtype) -> float:
+    """The softmax scale ``head_dim ** -0.5`` as JAX multiplies q by it: a
+    Python float meeting a ``dtype`` array is first rounded to ``dtype``
+    (bf16 at head_dim 32 or 80, where the scale is not exact in bf16)."""
+    return float(torch.tensor(head_dim ** -0.5, dtype=dtype))
+
+
 def attention_core(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     """(B, N, 3D) fused qkv -> (B, N, D) per-head softmax(q k^T / sqrt(d)) v
-    with float32 logits; q*scale, the probs and the output are rounded to
-    the dtype of ``qkv``."""
+    with float32 logits; q*scale (the scale in the dtype of ``qkv``), the
+    probs and the output are rounded to the dtype of ``qkv``."""
     dt = qkv.dtype
     B, N, D3 = qkv.shape
     D = D3 // 3
     hd = D // num_heads
     q, k, v = qkv.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
-    q = (q.float() * hd ** -0.5).to(dt)
+    q = (q.float() * q_scale(hd, dt)).to(dt)
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2))
     probs = torch.softmax(logits, dim=-1).to(dt)
     o = torch.matmul(probs.float(), v.float()).to(dt)          # (B, h, N, hd)
@@ -182,3 +227,92 @@ def vit_forward(vit: ViT, x: torch.Tensor, *, plain: bool = False) -> torch.Tens
                         cfg.layer_norm_eps)
     Hp, Wp = cfg.patch_shape
     return tokens.reshape(x.shape[0], Hp, Wp, cfg.embed_dim)
+
+
+# ----------------------------------------------------------------- training
+def draw_drop_path_masks(cfg: BackboneConfig, batch: int, generator: torch.Generator,
+                         device=None) -> torch.Tensor:
+    """Per-layer stochastic-depth keep masks pre-scaled by 1/keep_prob,
+    (depth, B, 1, 1) float32: ``floor(kp + U) / kp`` with
+    ``kp = 1 - linspace(0, drop_path_rate, depth)`` and U uniform from
+    ``generator``.  The draws are not JAX's (another generator); the tests
+    hand JAX's masks to :func:`vit_forward_train` instead."""
+    dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth).astype(np.float32)
+    kp = (1.0 - torch.from_numpy(dpr)).to(device).reshape(-1, 1, 1, 1)
+    u = torch.rand((cfg.depth, batch, 1, 1), generator=generator,
+                   device=generator.device).to(device)
+    return torch.floor(kp + u) / kp
+
+
+def block_train(x: torch.Tensor, w: BlockWeights, num_heads: int, eps: float,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's XLA training block (``vit.py::block``) under
+    autograd: bf16 logits, the exact-erf GELU, each branch rounded to the
+    working dtype, times the (B, 1, 1) float32 keep mask, rounded again and
+    added.  The tests' second reference; the step's path is the training
+    block of ``models/fused_block_train.py``."""
+    dt = x.dtype
+    B, N, D = x.shape
+    hd = D // num_heads
+    h = layer_norm(x, w.ln1_w, w.ln1_b, eps)
+    qkv = linear_f32(h, w.qkv_w, w.qkv_b).to(dt)
+    q, k, v = qkv.reshape(B, N, 3, num_heads, hd).permute(2, 0, 3, 1, 4)
+    q = (q.float() * q_scale(hd, dt)).to(dt)
+    logits = torch.matmul(q.float(), k.float().transpose(-1, -2)).to(dt)
+    probs = torch.softmax(logits.float(), dim=-1).to(dt)
+    o = torch.matmul(probs.float(), v.float()).to(dt).transpose(1, 2).reshape(B, N, D)
+    a = linear_f32(o, w.proj_w, w.proj_b).to(dt)
+    if keep is not None:
+        a = (a.float() * keep).to(dt)
+    x = x + a
+    h = layer_norm(x, w.ln2_w, w.ln2_b, eps)
+    m = F.gelu(linear_f32(h, w.fc1_w, w.fc1_b)).to(dt)
+    m = linear_f32(m, w.fc2_w, w.fc2_b).to(dt)
+    if keep is not None:
+        m = (m.float() * keep).to(dt)
+    return x + m
+
+
+def vit_forward_train(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: BackboneConfig,
+                      *, drop_path_masks: Optional[torch.Tensor] = None,
+                      generator: Optional[torch.Generator] = None,
+                      block_impl: str = "fused_train", plain: bool = False) -> torch.Tensor:
+    """Training forward of the backbone over ``params`` (state-dict names,
+    ``backbone.*``): (B, H, W, 3) normalized NHWC crops -> (B, Hp, Wp, D).
+
+    Drop-path runs when ``cfg.drop_path_rate > 0``: masks are drawn from
+    ``generator``, unless pre-drawn (depth, B, 1, 1) ``drop_path_masks`` are
+    given, which then always apply (as ``vit.py:194-198``).
+    ``block_impl``: "fused_train" (the training block: K5, K6a, K7 on the
+    card; ``plain=True`` takes their plain versions on any device) or "xla"
+    (:func:`block_train`).
+    """
+    from .fused_block_train import fused_block_train
+
+    if block_impl not in ("fused_train", "xla"):
+        raise ValueError(f"block_impl must be 'fused_train' or 'xla', got {block_impl!r}")
+    B = x.shape[0]
+    tokens = patch_embed(x, params["backbone.patch_embed.proj.weight"],
+                         params["backbone.patch_embed.proj.bias"],
+                         cfg.patch_size, cfg.patch_padding)
+    pe = params["backbone.pos_embed"]
+    tokens = tokens + (pe[:, 1:] + pe[:, :1]).to(tokens.dtype)
+    masks = drop_path_masks
+    if masks is None and cfg.drop_path_rate > 0.0:
+        if generator is None:
+            raise ValueError("drop-path needs a torch.Generator (or drop_path_masks)")
+        masks = draw_drop_path_masks(cfg, B, generator, x.device)
+    for i in range(cfg.depth):
+        w = block_weights(params, f"backbone.blocks.{i}")
+        keep = None if masks is None else masks[i].reshape(B).float()
+        if block_impl == "xla":
+            tokens = block_train(tokens, w, cfg.num_heads, cfg.layer_norm_eps,
+                                 None if keep is None else keep[:, None, None])
+        else:
+            if keep is None:
+                keep = torch.ones((B,), dtype=torch.float32, device=x.device)
+            tokens = fused_block_train(tokens, keep, w, cfg.num_heads, cfg.layer_norm_eps, plain)
+    tokens = layer_norm(tokens, params["backbone.last_norm.weight"],
+                        params["backbone.last_norm.bias"], cfg.layer_norm_eps)
+    Hp, Wp = cfg.patch_shape
+    return tokens.reshape(B, Hp, Wp, cfg.embed_dim)

@@ -1,6 +1,6 @@
 """ViTPose = ViT backbone + heatmap head, in PyTorch.
 
-Port of ``easy_vitpose_tpu/models/vitpose.py`` (serving).  A
+Port of ``easy_vitpose_tpu/models/vitpose.py``.  A
 :class:`ViTPose` is keyed by the reference's state-dict names, so the
 reference's checkpoints (and ``convert.from_jax`` of the JAX params) load
 with ``load_state_dict``.
@@ -8,6 +8,10 @@ with ``load_state_dict``.
 The serving dtype is the only choice: :func:`serving_copy` makes the fp32,
 bf16 or int8 copy of a float32 model, and the compute dtype of a model is
 the dtype of its position embedding.
+
+Training is functional: :func:`vitpose_forward_train` runs over a mapping
+from state-dict names to tensors, so that a step can hand in bf16 casts of
+float32 master weights that gradients flow through (``train/step.py``).
 """
 from __future__ import annotations
 
@@ -18,10 +22,11 @@ import torch
 from torch import nn
 
 from ..configs import ModelConfig
-from .head import Head, head_forward
-from .vit import ViT, vit_forward
+from .head import Head, head_forward, head_forward_train
+from .vit import ViT, vit_forward, vit_forward_train
 
 SERVING_DTYPES = ("fp32", "bf16", "int8")
+BN_STATS = ("running_mean", "running_var")
 
 
 class ViTPose(nn.Module):
@@ -46,6 +51,19 @@ def vitpose_forward(model: ViTPose, x: torch.Tensor, *, plain: bool = False) -> 
     return heat.contiguous()
 
 
+def vitpose_forward_train(params, x: torch.Tensor, cfg: ModelConfig, *,
+                          drop_path_masks=None, generator=None,
+                          block_impl: str = "fused_train", plain: bool = False):
+    """Training forward over ``params`` (state-dict names to tensors, the
+    head's BN running statistics included): (B, 256, 192, 3) normalized NHWC
+    crops -> ((B, K, 64, 48) heatmaps, new BN running statistics by name).
+    Drop-path, ``block_impl`` and ``plain``: see
+    :func:`..models.vit.vit_forward_train`."""
+    feats = vit_forward_train(params, x, cfg.backbone, drop_path_masks=drop_path_masks,
+                              generator=generator, block_impl=block_impl, plain=plain)
+    return head_forward_train(params, feats.permute(0, 3, 1, 2), cfg.head)
+
+
 def cast_params(model: ViTPose, dtype: torch.dtype) -> ViTPose:
     """A copy with every floating parameter and buffer cast to ``dtype``,
     except the BN running statistics, which stay float32."""
@@ -54,7 +72,7 @@ def cast_params(model: ViTPose, dtype: torch.dtype) -> ViTPose:
         for _, p in mod.named_parameters(recurse=False):
             p.data = p.data.to(dtype)
         for name, b in mod.named_buffers(recurse=False):
-            if b.is_floating_point() and name not in ("running_mean", "running_var"):
+            if b.is_floating_point() and name not in BN_STATS:
                 setattr(mod, name, b.to(dtype))
     return out
 

@@ -59,8 +59,9 @@ def crop_geometry(boxes: torch.Tensor, frame_hw: Tuple[int, int]) -> Geometry:
 
 def _taps(size_p: torch.Tensor, lo: torch.Tensor, size: torch.Tensor,
           origin: torch.Tensor, n_out: int, n_frame: int):
-    """Both bilinear taps of one axis for every crop: frame index (clamped),
-    in-crop mask and weight of tap 0 and tap 1, each (M, n_out)."""
+    """Both bilinear taps of one axis for every crop: frame index (clamped)
+    and in-crop mask of tap 0 and tap 1, and the float32 weight ``f`` of tap
+    1 (tap 0 weighs ``1 - f``), each (M, n_out)."""
     sp = size_p.float()[:, None]
     o = torch.arange(n_out, dtype=torch.float32, device=size_p.device)
     # a tensor divisor: CUDA divides by a Python scalar as a multiply by its
@@ -77,26 +78,31 @@ def _taps(size_p: torch.Tensor, lo: torch.Tensor, size: torch.Tensor,
         return torch.clamp(i - lo_ + org, 0, n_frame - 1).long(), inside
 
     (g0, in0), (g1, in1) = tap(i0), tap(i1)
-    return g0, in0, 1.0 - f, g1, in1, f
+    return g0, in0, g1, in1, f
 
 
 def sample_crops(frame: torch.Tensor, geo: Geometry,
-                 out_wh: Tuple[int, int] = IMAGE_SIZE) -> torch.Tensor:
-    """Bilinear crop + zero pad + resize of every box, in float32.
+                 out_wh: Tuple[int, int] = IMAGE_SIZE,
+                 sample_dtype=torch.float32) -> torch.Tensor:
+    """Bilinear crop + zero pad + resize of every box.
+
+    The lerps run in ``sample_dtype``, as JAX's ``sample_crops`` runs them:
+    in bfloat16 the tap weight ``f`` is rounded, then ``1 - f``, each product
+    and each sum (x pass, then y pass); float32 rounds nowhere.
 
     Args:
       frame: (H, W, 3) uint8 RGB frame.
       geo: :func:`crop_geometry` of M boxes.
     Returns:
-      (M, OH, OW, 3) float32 crops in [0, 255].
+      (M, OH, OW, 3) ``sample_dtype`` crops in [0, 255].
     """
     H, W = frame.shape[:2]
     OW, OH = out_wh
-    f = frame.float()
-    gx0, inx0, wx0, gx1, inx1, wx1 = _taps(geo["wp"], geo["left"], geo["wc"],
-                                           geo["x1"], OW, W)
-    gy0, iny0, wy0, gy1, iny1, wy1 = _taps(geo["hp"], geo["top"], geo["hc"],
-                                           geo["y1"], OH, H)
+    f = frame.to(sample_dtype)
+    gx0, inx0, gx1, inx1, fx = _taps(geo["wp"], geo["left"], geo["wc"], geo["x1"], OW, W)
+    gy0, iny0, gy1, iny1, fy = _taps(geo["hp"], geo["top"], geo["hc"], geo["y1"], OH, H)
+    wx1, wy1 = fx.to(sample_dtype), fy.to(sample_dtype)
+    wx0, wy0 = 1 - wx1, 1 - wy1
 
     def x_lerp(gy):       # (M, OH) frame rows -> (M, OH, OW, 3)
         rows = gy[:, :, None]

@@ -7,16 +7,19 @@ crop sampler that interpolates with one-hot matmuls on the MXU.
 On Hopper the natural form is the direct gather (``csrc/sampler.cu``): one
 thread per output pixel computes its two x and two y taps from the integer
 crop geometry exactly as :func:`..ops.preprocess.sample_crops` does, lerps
-the four uint8 taps in float32, normalizes and writes the backbone's NHWC
-input in the working dtype.  What bounds it on the H100 is bytes: the frame
+the four uint8 taps in the working dtype, normalizes and writes the
+backbone's NHWC input in that dtype.  What bounds it on the H100 is bytes: the frame
 is read once through L2 (6.2 MB at 1080p) and the crops are written once
 (18.9 MB in bf16 at 64 slots), about 8 us at 3.35 TB/s; it does ~40 flops
 per output value.  Neighbouring threads take neighbouring output pixels, so
 the writes coalesce and the taps of a warp fall on a few frame rows.
 
-Numerics: the kernel rounds once, after the normalize.  The JAX bf16 gather
-rounds after each lerp pass (about 0.5/255 per pass); at float32 the two
-agree to float32 rounding.
+Numerics: the working dtype is the sampling dtype, as on JAX's main path
+(``pipeline/pose_step.py``, ``sample_dtype=compute_dtype``).  In bfloat16
+the kernel rounds where JAX's ``sample_crops`` rounds: the tap weight ``f``,
+``1 - f``, each product and each sum of the x pass and of the y pass; it
+then normalizes the bf16 crop value in float32 and rounds once more.  In
+float32 nothing rounds before the normalize.
 """
 from __future__ import annotations
 
@@ -35,8 +38,9 @@ KERNEL = "sampler"
 def sample_normalize_plain(frame: torch.Tensor, geo: Geometry,
                            out_wh: Tuple[int, int] = IMAGE_SIZE,
                            dtype=torch.float32) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (M, OH, OW, 3) normalized crops."""
-    return normalize_crops(sample_crops(frame, geo, out_wh), dtype)
+    """Plain PyTorch version of the kernel: (M, OH, OW, 3) normalized crops,
+    sampled in ``dtype``."""
+    return normalize_crops(sample_crops(frame, geo, out_wh, sample_dtype=dtype), dtype)
 
 
 def sample_normalize(frame: torch.Tensor, geo: Geometry,

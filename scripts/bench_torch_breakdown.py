@@ -12,7 +12,11 @@ int8 and bf16:
   does: the median of five windows of at least 50 ms;
 * the device's busy share over a few steps and the kernels that take the
   most device time, from ``torch.profiler``;
-* the peak device memory one step allocates beyond the weights.
+* the peak device memory one step allocates beyond the weights;
+* the ViT-B train step as ``chip_smoke.py`` drives it (64 crops, AMP,
+  drop-path, fused Adam): device time of the step's own phases (render,
+  forward + loss, backward, optimizer; ``train/step.py``'s helpers) between
+  CUDA events, its busy share and top kernels.
 
 Usage (repository root, one CUDA card):
     python3 scripts/bench_torch_breakdown.py [--seed 0] [--reps 20] [--out FILE]
@@ -126,6 +130,18 @@ def block_parts(torch, copies, dev):
     return out
 
 
+def kernel_rows(prof, steps):
+    """(name, device ms per step, launches per step) of each device-side
+    event, longest first.  The profiler also credits kernel time to the CPU
+    ops and autograd ranges that launched the kernels; those rows are left
+    out, so the sum is the device's busy time."""
+    from torch.autograd import DeviceType
+    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return sorted(rows, key=lambda r: -r[1])
+
+
 def profile_step(torch, model, frame, boxes, mask, steps=5):
     from torch.profiler import ProfilerActivity, profile
     from easy_vitpose_tpu_torch.pipeline.pose_step import pose_step
@@ -141,14 +157,61 @@ def profile_step(torch, model, frame, boxes, mask, steps=5):
         for _ in range(steps):
             pose_step(model, frame, boxes, mask)
         torch.cuda.synchronize()
-    rows = [(e.key, e.self_device_time_total / 1e3 / steps, e.count // steps)
-            for e in prof.key_averages() if e.self_device_time_total > 0]
-    rows.sort(key=lambda r: -r[1])
+    rows = kernel_rows(prof, steps)
     device_ms = sum(r[1] for r in rows)
     return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": n}
                             for k, ms, n in rows[:10]]}
+
+
+def train_parts(torch, model, seed, dev, steps=3):
+    """The train step's phases (device time between CUDA events, mean over
+    ``steps``), wall time, busy share and top kernels of the whole step."""
+    from torch.profiler import ProfilerActivity, profile
+    from easy_vitpose_tpu_torch.train import fused_opt, step as tstep
+
+    cfg = model.cfg
+    batch = cs.train_batch(torch, np.random.default_rng(seed), cs.SLOTS, dev)
+    tx = fused_opt.make_fused_adam(cs.TRAIN_LR, max_grad_norm=cs.TRAIN_CLIP)
+    state = tstep.init_train_state(model, tx)
+    step = tstep.make_train_step(cfg, tx)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    for _ in range(2):                                        # warm-up
+        state, _ = step(state, batch, gen)
+    names = ("render", "forward_loss", "backward", "optimizer")
+    total = dict.fromkeys(names, 0.0)
+    for _ in range(steps):          # the step's own helpers, with events between them
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev[0].record()
+        rendered = tstep.render_batch_on_device(batch, dev)
+        ev[1].record()
+        loss, _, leaves = tstep.forward_loss(cfg, state["params"], state["bn_state"], rendered,
+                                             generator=gen)
+        ev[2].record()
+        grads = tstep.backward(loss, leaves)
+        ev[3].record()
+        tstep.apply_optimizer(tx, grads, state["opt_state"], state["params"])
+        ev[4].record()
+        torch.cuda.synchronize()
+        for i, n in enumerate(names):
+            total[n] += ev[i].elapsed_time(ev[i + 1]) / steps
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        state, _ = step(state, batch, gen)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            state, _ = step(state, batch, gen)
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof, steps)
+    device_ms = sum(r[1] for r in rows)
+    return {"phases_ms": total, "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+            "device_busy_share": device_ms / wall_ms,
+            "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": n}
+                            for k, ms, n in rows[:14]]}
 
 
 def main():
@@ -190,6 +253,7 @@ def main():
             result[f"step_peak_mib_{d}"] = (torch.cuda.max_memory_allocated() - base) / 2**20
             result[f"profile_{d}"] = profile_step(torch, sm, frame, boxes, mask)
         result["block_parts"] = block_parts(torch, copies, dev)
+    result["train_step"] = train_parts(torch, model, args.seed, dev)
     for k, v in result.items():
         print(k + ":", json.dumps(v))
     if args.out:

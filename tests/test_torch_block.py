@@ -61,6 +61,58 @@ def test_block_bf16_close_to_jax_kernel(setup):
     assert np.abs(got - kern).max() < 0.02 * np.ptp(kern)
 
 
+def port_block(layer, cfg) -> vit.Block:
+    """A float32 port Block holding one JAX block's params (linears (in, out))."""
+    from easy_vitpose_tpu_torch import configs as tc
+    blk = vit.Block(tc.BackboneConfig(embed_dim=cfg.embed_dim, depth=1, num_heads=cfg.num_heads,
+                                      layer_norm_eps=cfg.layer_norm_eps))
+    m = layer["mlp"]
+    sd = {"norm1.weight": layer["ln1_s"], "norm1.bias": layer["ln1_b"],
+          "attn.qkv.weight": layer["qkv_w"].T, "attn.qkv.bias": layer["qkv_b"],
+          "attn.proj.weight": layer["proj_w"].T, "attn.proj.bias": layer["proj_b"],
+          "norm2.weight": layer["ln2_s"], "norm2.bias": layer["ln2_b"],
+          "mlp.fc1.weight": m["fc1_w"].T, "mlp.fc1.bias": m["fc1_b"],
+          "mlp.fc2.weight": m["fc2_w"].T, "mlp.fc2.bias": m["fc2_b"]}
+    blk.load_state_dict({k: torch.from_numpy(np.array(v, np.float32)) for k, v in sd.items()})
+    return blk
+
+
+def test_block_bf16_head_dim_32_rounds_the_scale():
+    """At head_dim 32 the scale 32**-0.5 is not exact in bf16, and JAX rounds
+    it to bf16 before q*scale.  A bf16 block at D=64 with 2 heads, its qkv
+    weights scaled up so the logits span several units and the MLP branch
+    zeroed so the output is the attention residual: the port agrees with the
+    Pallas kernel (interpret) to at most one bf16 ulp, in under 0.5% of the
+    elements (sums in another order; an ulp of the larger of the output and
+    the input it adds to), and with the XLA block (bf16 logits) to two ulps
+    of the largest output.  An unrounded scale flips ~7% of the elements."""
+    from easy_vitpose_tpu.configs import BackboneConfig
+    from easy_vitpose_tpu.models.vit import init_vit_params
+
+    cfg = BackboneConfig(embed_dim=64, depth=1, num_heads=2)
+    layer = jax.tree.map(lambda a: a[0], init_vit_params(jax.random.PRNGKey(3), cfg)["blocks"])
+    layer["qkv_w"] = layer["qkv_w"] * 12.0
+    layer["mlp"]["fc2_w"] = layer["mlp"]["fc2_w"] * 0.0
+    p16 = jax.tree.map(lambda a: a.astype(jnp.bfloat16), layer)
+    x = np.random.default_rng(0).standard_normal((3, 192, 64)).astype(np.float32)
+    xj = jnp.asarray(x, jnp.bfloat16)
+    kern = np.asarray(jax_fused_block(xj, p16, cfg, interpret=True), np.float32)
+    xla = np.asarray(jax_block(xj, p16, cfg.num_heads, cfg.layer_norm_eps), np.float32)
+    blk = port_block(layer, cfg).to(torch.bfloat16)
+    with torch.no_grad():
+        got = fused_block.fused_block(torch.from_numpy(x).bfloat16(), blk).float().numpy()
+
+    xb = np.asarray(xj, np.float32)
+
+    def ulp(a, b):     # bf16 keeps 8 significant bits
+        mag = np.maximum(np.maximum(np.abs(a), np.abs(b)), np.abs(xb))
+        return 2.0 ** (np.floor(np.log2(mag + 1e-30)) - 7)
+
+    d = np.abs(got - kern)
+    assert np.all(d <= ulp(got, kern)) and np.mean(d > 0) < 0.005
+    assert np.abs(got - xla).max() <= 2 * ulp(np.abs(xla).max(), 0.0).max()
+
+
 def test_quantized_weights_bit_equal_to_jax(setup):
     params, model, _, _ = setup
     jq = jquant.quantize_vit_params(params)["backbone"]["blocks"]

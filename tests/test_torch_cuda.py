@@ -190,3 +190,112 @@ def test_block_at_each_vit_width(dev, size):
     qb = quant.QBlock(blk.float())
     got = quant.fused_block_q8(x.bfloat16(), qb)
     assert rel_err(got, quant.block_q8(x.bfloat16(), qb)) <= 2e-2
+
+
+# ------------------------------------------------------------ training (K5-K8)
+def block_weights(dev, D, hidden, dtype, seed=0):
+    from easy_vitpose_tpu_torch.models.vit import BlockWeights
+    shapes = [(D,), (D,), (3 * D, D), (3 * D,), (D, D), (D,), (D,), (D,),
+              (hidden, D), (hidden,), (D, hidden), (D,)]
+    scales = [0.1, 0.05, 0.15, 0.05, 0.1, 0.05, 0.1, 0.05, 0.1, 0.05, 0.06, 0.05]
+    ws = [randn(dev, *s, scale=sc, seed=seed + i) for i, (s, sc) in enumerate(zip(shapes, scales))]
+    ws[0], ws[6] = ws[0] + 1, ws[6] + 1                 # LN scales around 1
+    return BlockWeights(*(w.to(dtype) for w in ws))
+
+
+@pytest.mark.parametrize("layout", ["nt", "nn", "tn"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_train_gemm_layouts(dev, layout, dtype, tol):
+    """The training GEMM in its three layouts at ragged sizes (multiples of
+    8, not of the 64 tile), against float32 matmul of the same operands."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    R, K, N = 200, 136, 72
+    if layout == "nt":
+        a, w = randn(dev, R, K, dtype=dtype), randn(dev, N, K, scale=0.1, dtype=dtype)
+        b = randn(dev, N, scale=0.1, dtype=dtype)
+        got = fbt.gemm_nt(a, w, fbt.TE_NONE, bias=b)[0]
+        ref = a.float() @ w.float().t() + b.float()
+    elif layout == "nn":
+        a, w = randn(dev, R, K, dtype=dtype), randn(dev, K, N, scale=0.1, dtype=dtype)
+        got = fbt.gemm_nn(a, w, fbt.TE_F32)[1]
+        ref = a.float() @ w.float()
+    else:
+        a, b = randn(dev, R, K, dtype=dtype), randn(dev, R, N, dtype=dtype, seed=1)
+        got = fbt.gemm_tn(a, b)
+        ref = a.float().t() @ b.float()
+    assert rel_err(got, ref.to(got.dtype)) <= tol
+
+
+@pytest.mark.parametrize("D,heads,N", [(128, 2, 192), (64, 2, 50)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_train_block_kernels(dev, D, heads, N, dtype, tol):
+    """K5, K6a and K7 against their plain versions at three crops, one of
+    them dropped, head dims 64 and 32, a partial attention tile at N=50:
+    each output and gradient relative to its largest plain value (float32
+    sums in another order; at bf16 a rounding may flip)."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    B, eps = 3, 1e-6
+    w = block_weights(dev, D, 4 * D, dtype)
+    x = randn(dev, B, N, D, dtype=dtype)
+    keep = torch.tensor([1.25, 0.0, 1.25], device=dev)
+    dout = randn(dev, B, N, D, dtype=dtype, seed=2)
+    kernels.reset_launch_counts()
+    out, x1 = fbt.train_forward(x, keep, w, heads, eps)
+    ref_out, ref_x1 = fbt.train_forward_plain(x, keep, w, heads, eps)
+    assert rel_err(out, ref_out) <= tol and rel_err(x1, ref_x1) <= tol
+    dx1, gm = fbt.mlp_backward(ref_x1, dout, keep, w, eps)
+    rdx1, rgm = fbt.mlp_backward_plain(ref_x1, dout, keep, w, eps)
+    dx, ga = fbt.attn_backward(x, rdx1, keep, w, heads, eps)
+    rdx, rga = fbt.attn_backward_plain(x, rdx1, keep, w, heads, eps)
+    for got, ref in zip((dx1, dx, *gm, *ga), (rdx1, rdx, *rgm, *rga)):
+        assert got.dtype == ref.dtype and got.shape == ref.shape
+        assert rel_err(got, ref) <= tol
+    assert kernels.launch_counts() == {fbt.FWD: 1, fbt.BWD_MLP: 1, fbt.BWD_ATTN: 1}
+
+
+@pytest.mark.parametrize("n", [1, 1000, 768 * 3072 + 5])
+def test_adam_kernel_bit_equal(dev, n):
+    """K8 on leaves of any length is bit-equal to its plain version."""
+    from easy_vitpose_tpu_torch.train.fused_opt import adam_leaf, adam_leaf_plain
+    g, mu = randn(dev, n, scale=1e-3), randn(dev, n, scale=1e-3, seed=1)
+    nu, p = randn(dev, n, scale=1e-3, seed=2).square(), randn(dev, n, seed=3)
+    scal = torch.tensor([0.7, 3.75e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=dev)
+    for got, ref in zip(adam_leaf(g, mu, nu, p, scal), adam_leaf_plain(g, mu, nu, p, scal)):
+        assert torch.equal(got, ref)
+
+
+def test_train_step_through_the_kernels(dev):
+    """Two AMP steps of a small model through the kernels: each block's K5,
+    K6a and K7 once per step, K8 once per leaf, and the loss and every
+    gradient against the plain step on the card."""
+    from easy_vitpose_tpu_torch.configs import BackboneConfig, HeadConfig, ModelConfig
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.train import step as tstep
+    from easy_vitpose_tpu_torch.train.fused_opt import make_fused_adam
+
+    cfg = ModelConfig("small", "coco", BackboneConfig(embed_dim=128, depth=2, num_heads=2,
+                                                      drop_path_rate=0.3),
+                      HeadConfig(in_channels=128, num_keypoints=17, deconv_filters=(64, 64)))
+    rng = np.random.default_rng(0)
+    batch = {"images_u8": rng.integers(0, 256, (3, 256, 192, 3), dtype=np.uint8),
+             "joints": rng.uniform(0, 190, (3, 17, 2)).astype(np.float32),
+             "joints_vis": np.ones((3, 17, 2), np.float32)}
+    tx = make_fused_adam(3.75e-4)
+    state = tstep.init_train_state(init_params(cfg, 0).to(dev), tx)
+    step = tstep.make_train_step(cfg, tx)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        state, metrics = step(state, batch, gen)
+        assert kernels.launch_counts() == {"train_fwd": 2, "train_bwd_mlp": 2,
+                                           "train_bwd_attn": 2, "adam": len(state["params"])}
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    rendered = tstep.render_batch_on_device(batch, dev)
+    masks = torch.tensor([[1.0, 0.0, 1.0], [1.43, 1.43, 0.0]], device=dev).reshape(2, 3, 1, 1)
+    lk, _, gk = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered,
+                                     drop_path_masks=masks)
+    lp, _, gp = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered,
+                                     drop_path_masks=masks, plain=True)
+    assert abs(float(lk) - float(lp)) <= 1e-2 * float(lp)
+    for k in gp:
+        assert rel_err(gk[k], gp[k]) <= 0.1, k

@@ -19,6 +19,7 @@ MODULES = [
     "easy_vitpose_tpu_torch.convert.from_jax",
     "easy_vitpose_tpu_torch.models.vit",
     "easy_vitpose_tpu_torch.models.fused_block",
+    "easy_vitpose_tpu_torch.models.fused_block_train",
     "easy_vitpose_tpu_torch.models.quant",
     "easy_vitpose_tpu_torch.models.head",
     "easy_vitpose_tpu_torch.models.vitpose",
@@ -27,7 +28,12 @@ MODULES = [
     "easy_vitpose_tpu_torch.ops.decode",
     "easy_vitpose_tpu_torch.ops.modulate",
     "easy_vitpose_tpu_torch.ops.affine",
+    "easy_vitpose_tpu_torch.ops.heatmap",
     "easy_vitpose_tpu_torch.pipeline.pose_step",
+    "easy_vitpose_tpu_torch.train",
+    "easy_vitpose_tpu_torch.train.losses",
+    "easy_vitpose_tpu_torch.train.fused_opt",
+    "easy_vitpose_tpu_torch.train.step",
 ]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|easy_vitpose_tpu)\b(?!_torch)", re.M)
 

@@ -84,21 +84,25 @@ def test_sampler_plain_matches_jax_pallas_sampler():
 
 
 def test_sampler_bf16_rounds_once(g):
-    """The port rounds the normalized crop to bf16 once; the JAX bf16 gather
-    rounds after each lerp pass.  Both stay within a few 1/255 levels."""
+    """At bf16 the port samples as JAX's main path does (``sample_crops`` in
+    bf16, rounding the weights, each product and each sum of both lerp
+    passes, then ``normalize_crops`` in float32 and one more rounding): the
+    crops are bit-equal to JAX's.  Against float32 sampling they stay within
+    four 1/255 levels: about 1.5 per pass where bf16 spaces values 1 apart."""
     frame, boxes = g["frame"], g["boxes"]
-    geo = preprocess.crop_geometry(torch.from_numpy(boxes), frame.shape[:2])
+    H, W = frame.shape[:2]
+    boxes = np.concatenate([boxes, awkward_boxes(H, W)])
+    geo = preprocess.crop_geometry(torch.from_numpy(boxes), (H, W))
     f32 = sampler.sample_normalize(torch.from_numpy(frame), geo).numpy()
     b16 = sampler.sample_normalize(torch.from_numpy(frame), geo,
                                    dtype=torch.bfloat16).float().numpy()
-    # one bf16 rounding of values up to |2.7|: half an ulp, 2^-8 of the value
-    assert np.all(np.abs(b16 - f32) <= np.abs(f32) * 2.0 ** -8 + 1e-6)
-    jgeo = jpre.crop_geometry(jnp.asarray(boxes), frame.shape[:2])
+    jgeo = jpre.crop_geometry(jnp.asarray(boxes), (H, W))
     jb16 = np.asarray(jpre.normalize_crops(
         jpre.sample_crops(jnp.asarray(frame), jgeo, IMAGE_SIZE, sample_dtype=jnp.bfloat16),
         jnp.bfloat16), np.float32)
+    np.testing.assert_array_equal(b16, jb16)
     level = 1.0 / (255.0 * 0.225)          # one 1/255 step, normalized
-    assert np.abs(b16 - jb16).max() < 3.0 * level
+    assert np.abs(b16 - f32).max() < 4.0 * level
 
 
 def test_normalize_matches_jax():
