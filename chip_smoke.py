@@ -32,7 +32,15 @@ toolkit:
    once per leaf), that the loss falls over 20 steps on the batch, one
    step's loss and gradients against the plain step on the card, and times
    it (median of five windows, images/s, peak memory);
-7. prints one JSON line per kernel set (``kernels``), the card line, and
+7. holds the wide MLP backward (K6b, K6c; against their plain versions and
+   K6a) on ViT-L's block 0 at bf16 and fp32, 64 crops and 3, and the
+   int8-moment Adam (K9) on every leaf of ViT-L and a ragged one, bit for
+   bit, and times each;
+8. drives the ViT-L finetune step (depth 24, D=1024, 64 crops, AMP bf16,
+   drop-path 0.5, int8 Adam moments, lr 3.75e-4, clip 1.0) as in 6: K5,
+   K6b, K6c and K7 24 times per step, K9 once per leaf, no K6a or K8;
+   ms/step, images/s, peak memory and the moments' bytes against float32;
+9. prints one JSON line per kernel set (``kernels``), the card line, and
    last ``{"ok": true, "device": {...}}``.
 
 Any failure raises: the script then exits non-zero and prints no result.
@@ -344,10 +352,11 @@ def train_block_work(B, N, D, hidden):
     return fwd, mlp, attn_bwd
 
 
-def sublayer_backward(torch, layer, x, dout, which: str):
+def sublayer_backward(torch, layer, x, dout, which: str, weights: bool = True):
     """A closure running the backward of one residual half of
     ``nn.TransformerEncoderLayer`` (``x + mlp(norm2(x))`` or ``x +
-    attn(norm1(x))``) for ``dout``: the yardstick of K6a or K7."""
+    attn(norm1(x))``) for ``dout``: the yardstick of K6a or K7; without
+    ``weights``, the grads of the input and the vector parameters only (K6b)."""
     import torch.nn.functional as F
     xg = x.detach().requires_grad_(True)
     if which == "mlp":
@@ -357,7 +366,7 @@ def sublayer_backward(torch, layer, x, dout, which: str):
         mods = (layer.norm1, layer.self_attn)
         h = layer.norm1(xg)
         out = xg + layer.self_attn(h, h, h, need_weights=False)[0]
-    params = [p for m in mods for p in m.parameters()]
+    params = [p for m in mods for p in m.parameters() if weights or p.dim() == 1]
     return lambda: torch.autograd.grad(out, [xg, *params], dout, retain_graph=True)
 
 
@@ -466,6 +475,109 @@ def check_train_kernels(torch, model, rng, dev):
     return out
 
 
+def check_wide_kernels(torch, model, rng, dev):
+    """K6b and K6c against their plain versions on ViT-L's block 0 at bf16
+    and fp32, at 64 crops and at 3, and against K6a on the same inputs; K9
+    on every leaf of the model and a ragged one, bit for bit (codes, scales
+    and params); returns measurements per kernel."""
+    import copy
+
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    from easy_vitpose_tpu_torch.models.vit import block_weights
+    from easy_vitpose_tpu_torch.train import fused_opt
+
+    cfg = model.cfg.backbone
+    D, N, eps = cfg.embed_dim, cfg.num_tokens, cfg.layer_norm_eps
+    hidden = int(D * cfg.mlp_ratio)
+    out = {}
+    for tdt in (torch.bfloat16, torch.float32):
+        blk = copy.deepcopy(model.backbone.blocks[0]).to(tdt)
+        w = block_weights({k: v.detach() for k, v in blk.named_parameters()}, "")
+        for B in (SLOTS, 3):
+            x1 = torch.from_numpy(rng.standard_normal((B, N, D)).astype(np.float32)).to(dev, tdt)
+            dout = torch.from_numpy((rng.standard_normal((B, N, D)) * 0.02).astype(np.float32)).to(dev, tdt)
+            keep = torch.from_numpy((np.floor(0.5 + rng.uniform(size=B)) / 0.5).astype(np.float32)).to(dev)
+            keep[0], keep[1] = 2.0, 0.0                       # one kept, one dropped crop
+            errs = {}
+
+            def hold(name, got, ref):
+                check(got.dtype == ref.dtype and got.shape == ref.shape, f"{name}: {got.dtype} {ref.dtype}")
+                err, rel = max_rel_err(torch, got, ref)
+                errs[name] = max(errs.get(name, (0.0, 0.0)), (rel, err))
+                check(rel <= TRAIN_TOL[str(tdt)], f"{name} {tdt} B={B} disagrees with its plain version: {rel}")
+
+            got = fbt.mlp_backward_dx_save(x1, dout, keep, w, eps)
+            ref = fbt.mlp_backward_dx_save_plain(x1, dout, keep, w, eps)
+            for g_, r_ in zip(got, ref):
+                hold("K6b", g_, r_)
+            dW = fbt.mlp_backward_dw_saved(*ref[1:5])
+            for g_, r_ in zip(dW, fbt.mlp_backward_dw_saved_plain(*ref[1:5])):
+                hold("K6c", g_, r_)
+            # K6b then K6c is K6a's function, launch for launch
+            k6a = fbt.mlp_backward(x1, dout, keep, w, eps)
+            wide = fbt.wide_mlp_backward(x1, dout, keep, w, eps)
+            check(all(torch.equal(a, b) for a, b in zip((k6a[0], *k6a[1]), (wide[0], *wide[1]))),
+                  f"K6b + K6c is not K6a's result at {tdt} B={B}")
+            print(f"check wide mlp {tdt} B={B}:", " ".join(f"{k} rel {v[0]:.3e} abs {v[1]:.3e}"
+                                                          for k, v in errs.items()),
+                  "K6b+K6c == K6a")
+            if B != SLOTS or tdt != torch.bfloat16:
+                continue
+            R = B * N
+            gemm = 2.0 * R * D * hidden
+            act, hid = R * D * 2, R * hidden * 2
+            layer = encoder_layer(torch, blk)
+            saved = ref[1:5]
+            out["K6b"] = {"max_abs_err": errs["K6b"][1],
+                          "ms": time_ms(torch, lambda: fbt.mlp_backward_dx_save(x1, dout, keep, w, eps)),
+                          "plain_ms": time_ms(torch, lambda: fbt.mlp_backward_dx_save_plain(x1, dout, keep, w, eps)),
+                          "bound": bound(5 * act + 2 * hid + 2 * D * hidden * 2, {"bf16": 3 * gemm}),
+                          "library_ms": time_ms(torch, sublayer_backward(torch, layer, x1, dout, "mlp",
+                                                                         weights=False))}
+            out["K6c"] = {"max_abs_err": errs["K6c"][1],
+                          "ms": time_ms(torch, lambda: fbt.mlp_backward_dw_saved(*saved)),
+                          "plain_ms": time_ms(torch, lambda: fbt.mlp_backward_dw_saved_plain(*saved)),
+                          "bound": bound(2 * act + 2 * hid + 2 * D * hidden * 2, {"bf16": 2 * gemm}),
+                          "library_ms": time_ms(torch, lambda: (torch.matmul(saved[2].t(), saved[0]),
+                                                                torch.matmul(saved[1].t(), saved[3])))}
+
+    # K9 on every float32 leaf of the model, and on a ragged leaf
+    leaves = [p.detach().float().contiguous() for p in model.parameters()]
+    leaves.append(torch.from_numpy(rng.standard_normal(2048 * 5 + 1001).astype(np.float32)).to(dev))
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))   # 308M draws: on the card
+
+    def state(p):
+        g, mu, vs = (torch.randn(p.numel(), generator=gen, device=dev) * 1e-3 for _ in range(3))
+        return (g.view_as(p), *fused_opt.q8_encode(mu, 127), *fused_opt.q8_encode(vs.abs(), 255))
+
+    states = [state(p) for p in leaves]
+    scal = torch.tensor([0.37, TRAIN_LR, 1 - 0.9 ** 7, 1 - 0.999 ** 7], device=dev)
+    for p, (g, mq, ms, nq, ns) in zip(leaves, states):
+        for got, ref in zip(fused_opt.adam_leaf_q8(g, mq, ms, nq, ns, p, scal),
+                            fused_opt.adam_leaf_q8_plain(g, mq, ms, nq, ns, p, scal)):
+            check(got.dtype == ref.dtype and torch.equal(got, ref),
+                  f"K9 is not bit-equal to its plain version on a leaf of {p.numel()}")
+    main, main_states = leaves[:-1], states[:-1]
+    n_params = sum(p.numel() for p in main)
+    n_blocks = sum(fused_opt.q8_blocks(p.numel()) for p in main)
+    print(f"check adam_q8: bit-equal on {len(leaves)} leaves ({n_params} model parameters)")
+    run_all = lambda: [fused_opt.adam_leaf_q8(*st, p, scal) for p, st in zip(main, main_states)]  # noqa: E731
+    run_all()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run_all()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    print(f"adam_q8: {len(main)} launches take {host_ms:.3f} ms of host time "
+          f"({host_ms * 1e3 / len(main):.1f} us each)")
+    out["K9"] = {"max_abs_err": 0.0, "ms": time_ms(torch, run_all),
+                 "plain_ms": time_ms(torch, lambda: [fused_opt.adam_leaf_q8_plain(*st, p, scal)
+                                                     for p, st in zip(main, main_states)]),
+                 "bound": bound(16.0 * n_params + 16.0 * n_blocks, {"f32": 50.0 * n_params}),
+                 "library_ms": None, "host_ms": host_ms}
+    return out
+
+
 def train_batch(torch, rng, B: int, dev) -> dict:
     """A device-input batch: B uint8 crops of noise and 17 joints each
     inside the crop, 85% visible."""
@@ -477,19 +589,20 @@ def train_batch(torch, rng, B: int, dev) -> dict:
                                            .astype(np.float32)).to(dev)}
 
 
-def run_train_step(torch, model, rng, seed, dev):
-    """The training step at full width; returns launches, losses, the
-    kernel-vs-plain errors and times."""
+def run_train_step(torch, model, rng, seed, dev, moments: str = "f32"):
+    """The training step at full width with Adam moments at ``moments``;
+    returns launches, losses, the kernel-vs-plain errors and times."""
     from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
     from easy_vitpose_tpu_torch.models.vit import draw_drop_path_masks
     from easy_vitpose_tpu_torch.train import fused_opt, step as tstep
 
     cfg = model.cfg
-    depth = cfg.backbone.depth
+    depth, name = cfg.backbone.depth, f"train step ViT-{cfg.name.upper()} {moments}"
     B = SLOTS
     batch = train_batch(torch, rng, B, dev)
-    tx = fused_opt.make_fused_adam(TRAIN_LR, max_grad_norm=TRAIN_CLIP)
-    state = tstep.init_train_state(model, tx)
+    tx = fused_opt.make_fused_adam(TRAIN_LR, max_grad_norm=TRAIN_CLIP, moment_dtype=moments)
+    state = tstep.init_train_state(model, tx, device=dev)
     step = tstep.make_train_step(cfg, tx, use_amp=True)
     gen = torch.Generator(device=dev).manual_seed(seed)
     state, m = step(state, batch, gen)                      # warm-up, the first step
@@ -498,18 +611,20 @@ def run_train_step(torch, model, rng, seed, dev):
     state, m = step(state, batch, gen)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = {"train_fwd": depth, "train_bwd_mlp": depth, "train_bwd_attn": depth,
-            "adam": len(state["params"])}
-    print(f"train step: launches {counts}")
-    check(counts == want, f"train step launched {counts}, expected {want}")
+    mlp = ((fbt.BWD_MLP_DX_SAVE, fbt.BWD_MLP_DW_SAVED) if cfg.backbone.embed_dim > fbt.WIDE_D
+           else (fbt.BWD_MLP,))
+    want = {fbt.FWD: depth, fbt.BWD_ATTN: depth, **dict.fromkeys(mlp, depth),
+            (fused_opt.KERNEL_Q8 if moments == "int8" else fused_opt.KERNEL): len(state["params"])}
+    print(f"{name}: launches {counts}")
+    check(counts == want, f"{name} launched {counts}, expected {want}")
     losses = [float(m["loss"])]
     for _ in range(TRAIN_STEPS - 2):
         state, m = step(state, batch, gen)
         losses.append(float(m["loss"]))
     check(all(math.isfinite(v) for v in losses) and math.isfinite(float(m["grad_norm"])),
-          f"train step: loss or grad norm not finite: {losses}")
-    print("train step: losses", " ".join(f"{v:.5f}" for v in losses))
-    check(losses[-1] < 0.9 * losses[0], f"train step: the loss did not fall: {losses}")
+          f"{name}: loss or grad norm not finite: {losses}")
+    print(f"{name}: losses", " ".join(f"{v:.5f}" for v in losses))
+    check(losses[-1] < 0.9 * losses[0], f"{name}: the loss did not fall: {losses}")
 
     rendered = tstep.render_batch_on_device(batch, dev)
     masks = draw_drop_path_masks(cfg.backbone, B, gen, dev)
@@ -520,10 +635,10 @@ def run_train_step(torch, model, rng, seed, dev):
     loss_err = abs(float(lk) - float(lp)) / abs(float(lp))
     grad_err = {k: max_rel_err(torch, gk[k], gp[k])[1] for k in gp}
     worst = sorted(grad_err.items(), key=lambda kv: kv[1])[-3:]
-    print(f"train step vs plain: loss {float(lk):.6f} vs {float(lp):.6f} (rel {loss_err:.3e}); "
+    print(f"{name} vs plain: loss {float(lk):.6f} vs {float(lp):.6f} (rel {loss_err:.3e}); "
           f"worst grads {worst}")
-    check(loss_err <= STEP_LOSS_TOL, f"train step loss disagrees with the plain step: {loss_err}")
-    check(max(grad_err.values()) <= STEP_GRAD_TOL, f"train step grads disagree: {worst}")
+    check(loss_err <= STEP_LOSS_TOL, f"{name} loss disagrees with the plain step: {loss_err}")
+    check(max(grad_err.values()) <= STEP_GRAD_TOL, f"{name} grads disagree: {worst}")
     del gk, gp
 
     torch.cuda.synchronize()
@@ -539,12 +654,16 @@ def run_train_step(torch, model, rng, seed, dev):
         return (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
 
     ms = statistics.median(window() for _ in range(5))
+    n_params = sum(p.numel() for p in state["params"].values())
     res = {"launches": counts, "ms_per_step": ms, "images_per_s": B / ms * 1e3,
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "loss_first": losses[0], "loss_last": losses[-1], "loss_rel_err_vs_plain": loss_err,
-           "max_grad_rel_err_vs_plain": max(grad_err.values())}
-    print(f"train step: {ms:.3f} ms/step, {res['images_per_s']:.1f} images/s, "
-          f"peak {res['max_memory_allocated_gib']:.2f} GiB")
+           "max_grad_rel_err_vs_plain": max(grad_err.values()), "parameters": n_params,
+           "moment_bytes": fused_opt.moment_bytes(state["opt_state"]),
+           "moment_bytes_f32": 8 * n_params}
+    print(f"{name}: {ms:.3f} ms/step, {res['images_per_s']:.1f} images/s, "
+          f"peak {res['max_memory_allocated_gib']:.2f} GiB, moments {res['moment_bytes']} B "
+          f"({moments}) against {res['moment_bytes_f32']} B at f32")
     return res
 
 
@@ -639,6 +758,10 @@ def main() -> int:
         steps = run_pose_steps(torch, model, rng, args.reps, dev)
     meas.update(check_train_kernels(torch, model, rng, dev))
     train = run_train_step(torch, model, rng, args.seed, dev)
+    del model
+    model_l = init_params(get_model_config("coco", "l"), args.seed).to(dev)
+    meas.update(check_wide_kernels(torch, model_l, rng, dev))
+    train_l = run_train_step(torch, model_l, rng, args.seed, dev, moments="int8")
 
     rows = []
     spec = (("K1 fused_block bf16", "bf16", "block.cu", "models/fused_block.py:51", "bf16", "block"),
@@ -655,20 +778,28 @@ def main() -> int:
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                      "library_ms": m["library_ms"]})
-    train_spec = (("K5 train_forward", "K5", "models/fused_block_train.py:95", "train_fwd"),
-                  ("K6a mlp_backward", "K6a", "models/fused_block_train.py:195", "train_bwd_mlp"),
-                  ("K7 attn_backward", "K7", "models/fused_block_train.py:404", "train_bwd_attn"),
-                  ("K8 adam_leaf", "K8", "train/fused_opt.py:154", "adam"))
-    for name, key, replaces, counter in train_spec:
+    train_spec = (("K5 train_forward", "K5", "models/fused_block_train.py:95", "train_fwd", train),
+                  ("K6a mlp_backward", "K6a", "models/fused_block_train.py:195", "train_bwd_mlp", train),
+                  ("K6b mlp_backward_dx_save", "K6b", "models/fused_block_train.py:280",
+                   "train_bwd_mlp_dx_save", train_l),
+                  ("K6c mlp_backward_dw_saved", "K6c", "models/fused_block_train.py:340",
+                   "train_bwd_mlp_dw_saved", train_l),
+                  ("K7 attn_backward", "K7", "models/fused_block_train.py:404", "train_bwd_attn", train),
+                  ("K8 adam_leaf", "K8", "train/fused_opt.py:154", "adam", train),
+                  ("K9 adam_leaf_q8", "K9", "train/fused_opt.py:266", "adam_q8", train_l))
+    for name, key, replaces, counter, run in train_spec:
         m = meas[key]
+        src = {"K8": "adam.cu", "K9": "adam_q8.cu"}.get(key, "train_block.cu")
         rows.append({"name": name, "route": "cuda",
-                     "source": "easy_vitpose_tpu_torch/csrc/" + ("adam.cu" if key == "K8" else "train_block.cu"),
+                     "source": f"easy_vitpose_tpu_torch/csrc/{src}",
                      "replaces": f"easy_vitpose_tpu/{replaces}",
-                     "launches": train["launches"].get(counter, 0),
+                     "launches": run["launches"].get(counter, 0),
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                      "library_ms": m["library_ms"]})
     print("train_step:", json.dumps({k: v for k, v in train.items() if k != "launches"}))
+    print("train_step_l_int8:", json.dumps({k: v for k, v in train_l.items() if k != "launches"}),
+          json.dumps({"K9_host_ms": meas["K9"]["host_ms"]}))
     print("pose_steps:", json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "launches"}
                                      for k, v in steps.items()}))
     print(json.dumps({"kernels": rows}))

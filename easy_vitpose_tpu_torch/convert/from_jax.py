@@ -12,10 +12,13 @@ The map is linear and elementwise, so it carries any tree of the params'
 layout across: with ``bn_state=False`` it maps a tree without the head's
 ``bn_state`` (the trainable tree of a training state, its gradients, or the
 Adam moments ``mu`` and ``nu``) to the port's trainable names.
+:func:`opt_state_from_jax` carries a whole fused-Adam state across, int8
+moments included, which are codes with per-block scales and so not
+elementwise.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping
+from typing import Any, Callable, Dict, Mapping
 
 import numpy as np
 import torch
@@ -78,3 +81,47 @@ def state_dict_from_jax(params: Mapping[str, Any], cfg: ModelConfig, *,
     sd["keypoint_head.final_layer.weight"] = conv_weight_to_torch(head["final_w"])
     sd["keypoint_head.final_layer.bias"] = _f32(head["final_b"])
     return {k: torch.from_numpy(v) for k, v in sd.items()}
+
+
+def _tree_map(fn: Callable, tree, *rest):
+    """``fn`` over the leaves of nested dicts and lists of arrays."""
+    if isinstance(tree, Mapping):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return [_tree_map(fn, *xs) for xs in zip(tree, *rest)]
+    return fn(tree, *rest)
+
+
+def opt_state_from_jax(opt_state, params: Mapping[str, Any], cfg: ModelConfig):
+    """A JAX ``FusedAdamState`` (f32, bf16 or int8 moments, leaves as numpy
+    or JAX arrays) -> the port's :class:`..train.fused_opt.FusedAdamState`
+    on the CPU.  ``params`` is the JAX trainable tree the state belongs to
+    (for the shapes of int8 leaves).
+
+    f32 and bf16 moments map elementwise, bit for bit.  int8 moments are
+    decoded (``_q8_decode``), mapped, and coded again in the port's blocks:
+    each torch-layout leaf flattened and padded to whole 2048-element
+    blocks, where JAX codes its depth-stacked (in, out) leaves.  A block's
+    new absmax puts the values on another grid of levels, so the re-encode
+    can move a code by one level, and a value under 1e-6 of its new block's
+    absmax codes to 0."""
+    from ..train.fused_opt import FusedAdamState, q8_decode, q8_encode
+
+    def moments(tree, levels):
+        if isinstance(tree, Mapping) and "q_tree" in tree:
+            values = _tree_map(lambda q, sc, p: q8_decode(
+                torch.from_numpy(np.array(q)), torch.from_numpy(np.array(sc, np.float32)),
+                levels, np.shape(p)).numpy(), tree["q_tree"], tree["s_tree"], params)
+            codes = {"q_tree": {}, "s_tree": {}}
+            for k, v in state_dict_from_jax(values, cfg, bn_state=False).items():
+                codes["q_tree"][k], codes["s_tree"][k] = q8_encode(v, levels)
+            return codes
+        bf16 = str(np.asarray(tree["backbone"]["pos_embed"]).dtype) == "bfloat16"
+        return {k: v.to(torch.bfloat16) if bf16 else v
+                for k, v in state_dict_from_jax(tree, cfg, bn_state=False).items()}
+
+    return FusedAdamState(
+        count=torch.tensor(int(np.asarray(opt_state.count)), dtype=torch.int32),
+        mu=moments(opt_state.mu, 127), nu=moments(opt_state.nu, 255),
+        hyperparams={"learning_rate": torch.tensor(
+            np.float32(np.asarray(opt_state.hyperparams["learning_rate"])))})

@@ -1,4 +1,4 @@
-// K5, K6a and K7: the training block's forward and its two backward halves,
+// K5, K6a, K6b, K6c and K7: the training block's forward and its backward,
 // as sequences of launches driven by models/fused_block_train.py.  LayerNorm
 // and the forward attention come from block.cu (K1); this file adds
 //
@@ -9,7 +9,9 @@
 //     cores (mma.sync m16n8k16, float32 accumulation; an operand that is not
 //     K-contiguous is read with ldmatrix.trans) or float32 FMA.  One
 //     block owns one 64x64 output tile for the whole K loop, so a weight
-//     grad is one deterministic sum with no atomics;
+//     grad is one deterministic sum with no atomics.  The TN products come
+//     in pairs, a backward's two weight grads in one launch whose grid
+//     covers the tiles of both (K6c; K6a's and K7's weight grads too);
 //   * epilogues: bias, GELU, the drop-path residual round(x + dp * (acc + b))
 //     with the branch kept in float32, GELU saving the float32 pre-activation,
 //     and the GELU derivative;
@@ -18,9 +20,12 @@
 //     order sum per column);
 //   * the attention backward for one (crop, head) split over two kernels by
 //     query tiles (o, dq, softmax statistics) and key tiles (dk, dv), each
-//     recomputing the logits, so that K, V, Q and dO fit shared memory.
+//     recomputing the logits, so that K, V, Q and dO fit shared memory;
+//   * K6b is K6a's launch sequence up to dx1, and K6c the pair launch of
+//     its two weight grads, both driven from Python.
 // Replaces easy_vitpose_tpu/models/fused_block_train.py::_fwd_kernel,
-// _bwd_mlp_kernel and _bwd_attn_kernel.
+// _bwd_mlp_kernel, _bwd_mlp_dx_save_kernel, _bwd_mlp_dw_saved_kernel and
+// _bwd_attn_kernel.
 #include <cfloat>
 
 #include "common.cuh"
@@ -156,13 +161,13 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
         : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// one block's 64x64 output tile at (bm, bn), summed over all of K
 template <bool AK, bool BKM>
-__global__ void __launch_bounds__(THREADS)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N, int K,
-                 int lda, int ldb, Epi ep) {
+__device__ __forceinline__ void gemm_bf16_tile(const bf16* __restrict__ A,
+                                               const bf16* __restrict__ B, int M, int N, int K,
+                                               int lda, int ldb, const Epi& ep, int bm, int bn) {
     __shared__ __align__(16) bf16 As[tile_elems<AK>()];
     __shared__ __align__(16) bf16 Bs[tile_elems<BKM>()];
-    const int bm = blockIdx.y * BM, bn = blockIdx.x * BM;
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
     const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
     const int g = lane >> 2, t = lane & 3;
@@ -205,6 +210,13 @@ gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, 
             }
 }
 
+template <bool AK, bool BKM>
+__global__ void __launch_bounds__(THREADS)
+gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N, int K,
+                 int lda, int ldb, Epi ep) {
+    gemm_bf16_tile<AK, BKM>(A, B, M, N, K, lda, ldb, ep, blockIdx.y * BM, blockIdx.x * BM);
+}
+
 // ------------------------------------------------------------ f32 GEMM
 // float32 training is the parity mode: FMA, no TF32.  64x64 tile, k-tile 16,
 // 256 threads with 4x4 outputs each; shared tiles are [k][row].
@@ -229,13 +241,12 @@ __device__ __forceinline__ void load_f32(float (*dst)[FPITCH], const float* src,
 }
 
 template <bool AK, bool BKM>
-__global__ void __launch_bounds__(256)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M, int N, int K,
-                int lda, int ldb, Epi ep) {
+__device__ __forceinline__ void gemm_f32_tile(const float* __restrict__ A,
+                                              const float* __restrict__ B, int M, int N, int K,
+                                              int lda, int ldb, const Epi& ep, int bm, int bn) {
     __shared__ __align__(16) float As[FK][FPITCH];
     __shared__ __align__(16) float Bs[FK][FPITCH];
     const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
-    const int bm = blockIdx.y * BM, bn = blockIdx.x * BM;
     float acc[4][4] = {};
     for (int k0 = 0; k0 < K; k0 += FK) {
         load_f32<AK>(As, A, bm, M, k0, K, lda);
@@ -262,6 +273,61 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M,
         }
 }
 
+template <bool AK, bool BKM>
+__global__ void __launch_bounds__(256)
+gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M, int N, int K,
+                int lda, int ldb, Epi ep) {
+    gemm_f32_tile<AK, BKM>(A, B, M, N, K, lda, ldb, ep, blockIdx.y * BM, blockIdx.x * BM);
+}
+
+// Two TN products over the same K rows, C_i (M_i, N_i) = A_i^T B_i
+// with A_i (K, M_i) and B_i (K, N_i) row-major, in one launch.  Block t
+// takes tile t of product 0 while t < tiles0, else tile t - tiles0 of
+// product 1; tiles run along N first.
+struct TnPair {
+    const void* a[2];
+    const void* b[2];
+    void* out[2];
+    int M[2], N[2];
+    int tiles0, K;
+};
+
+// The product's operands are picked with selects, not by indexing the
+// parameter arrays with a runtime index, which would copy them to the stack.
+struct TnTile {
+    const void *a, *b;
+    int M, N, bm, bn;
+    Epi ep;
+};
+
+__device__ __forceinline__ TnTile tn_pair_tile(const TnPair& pr) {
+    const bool second = static_cast<int>(blockIdx.x) >= pr.tiles0;
+    const int t = second ? blockIdx.x - pr.tiles0 : blockIdx.x;
+    TnTile tl;
+    tl.a = second ? pr.a[1] : pr.a[0];
+    tl.b = second ? pr.b[1] : pr.b[0];
+    tl.M = second ? pr.M[1] : pr.M[0];
+    tl.N = second ? pr.N[1] : pr.N[0];
+    const int tiles_n = (tl.N + BM - 1) / BM;
+    tl.bm = (t / tiles_n) * BM;
+    tl.bn = (t % tiles_n) * BM;
+    tl.ep = Epi{TE_NONE, 1, tl.N, nullptr, nullptr, nullptr, nullptr,
+                second ? pr.out[1] : pr.out[0], nullptr};
+    return tl;
+}
+
+__global__ void __launch_bounds__(THREADS) gemm_tn2_bf16_kernel(TnPair pr) {
+    const TnTile tl = tn_pair_tile(pr);
+    gemm_bf16_tile<false, false>(static_cast<const bf16*>(tl.a), static_cast<const bf16*>(tl.b),
+                                 tl.M, tl.N, pr.K, tl.M, tl.N, tl.ep, tl.bm, tl.bn);
+}
+
+__global__ void __launch_bounds__(256) gemm_tn2_f32_kernel(TnPair pr) {
+    const TnTile tl = tn_pair_tile(pr);
+    gemm_f32_tile<false, false>(static_cast<const float*>(tl.a), static_cast<const float*>(tl.b),
+                                tl.M, tl.N, pr.K, tl.M, tl.N, tl.ep, tl.bm, tl.bn);
+}
+
 template <typename T, bool AK, bool BKM>
 void launch(const void* a, const void* b, int M, int N, int K, int lda, int ldb, const Epi& ep,
             cudaStream_t st) {
@@ -276,22 +342,20 @@ void launch(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
 
 template <typename T>
 cudaError_t dispatch(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
-                     int a_kmaj, int b_kmaj, const Epi& ep, cudaStream_t st) {
-    if (a_kmaj && b_kmaj) launch<T, true, true>(a, b, M, N, K, lda, ldb, ep, st);
-    else if (a_kmaj) launch<T, true, false>(a, b, M, N, K, lda, ldb, ep, st);
-    else if (!b_kmaj) launch<T, false, false>(a, b, M, N, K, lda, ldb, ep, st);
-    else return cudaErrorInvalidValue;
+                     int b_kmaj, const Epi& ep, cudaStream_t st) {
+    if (b_kmaj) launch<T, true, true>(a, b, M, N, K, lda, ldb, ep, st);
+    else launch<T, true, false>(a, b, M, N, K, lda, ldb, ep, st);
     return cudaGetLastError();
 }
 }  // namespace tg
 
-// C (M, N) = epilogue(sum_k A[m, k] B[n, k]).  A[m, k] sits at a[m*lda + k]
-// (a_kmaj) or a[k*lda + m]; B[n, k] at b[n*ldb + k] (b_kmaj) or b[k*ldb + n].
-// The (not K-contiguous, K-contiguous) pair is refused.  The caller
-// guarantees that each operand's contiguous dim (K, or M / N) and the
-// leading dims are multiples of 8; the other dims are ragged.
+// The NT and NN products: C (M, N) = epilogue(sum_k A[m, k] B[n, k]).
+// A[m, k] sits at a[m*lda + k]; B[n, k] at b[n*ldb + k] (b_kmaj) or
+// b[k*ldb + n].  The caller guarantees that each operand's contiguous dim
+// (K, or N) and the leading dims are multiples of 8; the other dims are
+// ragged.  TN products go through evt_train_gemm_tn2.
 EVT_EXPORT int evt_train_gemm(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
-                              int a_kmaj, int b_kmaj, int is_bf16, int mode, const void* bias,
+                              int b_kmaj, int is_bf16, int mode, const void* bias,
                               const void* res, const void* dp, int tokens, const void* aux,
                               void* out, void* out_f, int ldo, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -300,8 +364,27 @@ EVT_EXPORT int evt_train_gemm(const void* a, const void* b, int M, int N, int K,
     ep.dp = static_cast<const float*>(dp); ep.aux = static_cast<const float*>(aux);
     ep.out = out; ep.out_f = static_cast<float*>(out_f);
     return static_cast<int>(is_bf16
-        ? tg::dispatch<bf16>(a, b, M, N, K, lda, ldb, a_kmaj, b_kmaj, ep, st)
-        : tg::dispatch<float>(a, b, M, N, K, lda, ldb, a_kmaj, b_kmaj, ep, st));
+        ? tg::dispatch<bf16>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st)
+        : tg::dispatch<float>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st));
+}
+
+// A backward's two weight grads: out0 (M0, N0) = a0^T b0 and out1 (M1,
+// N1) = a1^T b1, a_i (K, M_i) and b_i (K, N_i) row-major, M_i and N_i
+// multiples of 8; out_i in the operands' type.
+EVT_EXPORT int evt_train_gemm_tn2(const void* a0, const void* b0, int M0, int N0, void* out0,
+                                  const void* a1, const void* b1, int M1, int N1, void* out1,
+                                  int K, int is_bf16, void* stream) {
+    cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const auto tiles = [](int M, int N) {
+        return ((M + tg::BM - 1) / tg::BM) * ((N + tg::BM - 1) / tg::BM);
+    };
+    tg::TnPair pr{{a0, a1}, {b0, b1}, {out0, out1}, {M0, M1}, {N0, N1}, tiles(M0, N0), K};
+    const int blocks = pr.tiles0 + tiles(M1, N1);
+    if (is_bf16)
+        tg::gemm_tn2_bf16_kernel<<<blocks, tg::THREADS, 0, st>>>(pr);
+    else
+        tg::gemm_tn2_f32_kernel<<<blocks, 256, 0, st>>>(pr);
+    return static_cast<int>(cudaGetLastError());
 }
 
 // ------------------------------------------------------ column sums

@@ -9,8 +9,9 @@ is not 0.  The libraries land in ``easy_vitpose_tpu_torch/_build`` (listed in
 so an edited source is rebuilt and an unchanged one is reused.
 
 No ``--use_fast_math``: the int8 row quantisation needs IEEE division and
-``rint`` (``models/quant.py``), the fused Adam (``train/fused_opt.py``)
-IEEE division and square root to agree with its plain version bit for bit,
+``rint`` (``models/quant.py``), the fused Adam and its int8-moment flavor
+(``train/fused_opt.py``) IEEE division, square root, ``expf`` and ``logf``
+to agree with their plain versions bit for bit,
 and the plain versions compare at 1e-5.
 
 The launch counters are plain integers per kernel: a wrapper adds one where
@@ -73,9 +74,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "evt_udp_modulate": [_P, Taps, _P, _I, _I, _I, _I, _P],
     },
     "train_block": {
-        # a, b, M, N, K, lda, ldb, a_kmaj, b_kmaj, bf16, mode, bias, res, dp,
-        # tokens, aux, out, out_f, ldo, stream
-        "evt_train_gemm": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
+        # a, b, M, N, K, lda, ldb, b_kmaj, bf16, mode, bias, res, dp, tokens,
+        # aux, out, out_f, ldo, stream
+        "evt_train_gemm": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _I, _P, _P, _P, _I, _P],
         # src, src_bf16, dp, tokens, dst, dst_bf16, partial, R, C, chunk, stream
         "evt_scale_colsum": [_P, _I, _P, _I, _P, _I, _P, _I, _I, _I, _P],
@@ -85,10 +86,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "evt_ln_backward": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _I, _P],
         # qkv, dO, o, dqkv, stats, B, N, D, heads, qscale, scale, bf16, stream
         "evt_attn_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
+        # a0, b0, M0, N0, out0, a1, b1, M1, N1, out1, K, bf16, stream
+        "evt_train_gemm_tn2": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P],
     },
     "adam": {
         # g, mu, nu, p, scal, mu_o, nu_o, p_o, n, b1, 1-b1, b2, 1-b2, eps, stream
         "evt_adam": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _P],
+    },
+    "adam_q8": {
+        # g, p, mq, ms, nq, ns, scal, p_o, mq_o, ms_o, nq_o, ns_o, n, b1, 1-b1,
+        # b2, 1-b2, eps, ln_eps, 1/ln_eps, 1/126, 1/254, tiny, zero_below, stream
+        "evt_adam_q8": [_P] * 12 + [_L] + [_F] * 11 + [_P],
     },
 }
 SOURCES = tuple(SIGNATURES)
@@ -200,3 +208,19 @@ def require_cuda(*tensors: torch.Tensor) -> torch.device:
     if dev.type != "cuda":
         raise ValueError(f"expected CUDA tensors, got {dev}")
     return dev
+
+
+def resolve_device(device=None, like=None) -> torch.device:
+    """The device an entry point runs on: ``device`` if given, else
+    ``like``'s if it is a tensor, else CUDA.  Raises when that is CUDA and
+    there is none: nothing falls back to the CPU unless asked."""
+    if device is None:
+        device = like.device if isinstance(like, torch.Tensor) else "cuda"
+    device = torch.device(device)
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("this step runs on CUDA and no CUDA device is available; "
+                               "pass device='cpu' to run on the CPU")
+        if device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    return device

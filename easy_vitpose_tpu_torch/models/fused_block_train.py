@@ -1,37 +1,55 @@
-"""K5, K6a and K7: the pre-LN transformer block for training.
+"""K5, K6a, K6b, K6c and K7: the pre-LN transformer block for training.
 
-Port of ``easy_vitpose_tpu/models/fused_block_train.py`` at the flavor its
-defaults pick for ViT-S/B (D <= 768, recompute in both backward halves):
+Port of ``easy_vitpose_tpu/models/fused_block_train.py`` at the flavors its
+defaults pick (recompute in the attention backward; the MLP backward by
+width, as ``_mlp_backward_padded`` picks it):
 
 * K5, the forward (``_fwd_kernel``): the serving block with a per-crop
   drop-path keep factor ``dp`` (already scaled by 1/keep_prob) on both
   residual branches, each branch kept in float32 until the residual add,
   ``round(x + dp * (acc + b))``; it also returns ``x1``, the output of the
   attention residual, which the backward starts from.
-* K6a, the MLP backward (``_bwd_mlp_kernel``): from (x1, dout) it recomputes
-  LN2, fc1 and the GELU and gives dx1 and the fc1, fc2 and LN2 grads.
+* K6a, the MLP backward at D <= 768 (``_bwd_mlp_kernel``): from (x1, dout)
+  it recomputes LN2, fc1 and the GELU and gives dx1 and the fc1, fc2 and
+  LN2 grads.
+* K6b and K6c, the MLP backward at D > 768 (ViT-L/H), saved-operand flavor:
+  K6b (``_bwd_mlp_dx_save_kernel``) runs K6a's work up to dx1 and the
+  vector grads and keeps the four bf16 operands of the weight grads, h2,
+  dm2c, dm1c and g; K6c (``_bwd_mlp_dw_saved_kernel``) forms dW1 and dW2
+  from them.  The TPU splits the two, and chunks K6c over the hidden dim
+  (``nj``), because a Pallas TPU output block may only be revisited on
+  consecutive grid steps and the float32 weight-grad accumulators of a wide
+  MLP do not fit VMEM.  CUDA has neither rule: K6c is one launch whose grid
+  covers every 64x64 tile of both weight grads, each block summing its tile
+  over all rows, so it needs no chunks.
 * K7, the attention backward (``_bwd_attn_kernel``): from (x, dx1) it
   recomputes LN1, qkv and the softmax and gives dx and the qkv, proj and
   LN1 grads.
 
 :class:`FusedBlockTrain` is the ``torch.autograd.Function`` in place of
 ``make_fused_block_train``'s ``jax.custom_vjp``: its forward saves (x, x1)
-and the keep mask (which gets no gradient), its backward runs K6a, then K7.
+and the keep mask (which gets no gradient), its backward runs K6a (or K6b
+then K6c above D = 768), then K7.  There is no switch: the opt-in flavors
+of the JAX package (saved m, saved qkv, the wide recompute) are not ported.
 Weight grads come back in the dtype of the weights passed in (bf16 under
 AMP, as ``like()`` casts them), and the cast's own backward carries them to
 the float32 master weights.
 
 On the card each is a sequence of launches from ``csrc/train_block.cu``
-(GEMMs in the NT, NN and TN layouts with their epilogues, the LayerNorm
-backward, column sums and the attention backward) and K1's LayerNorm and
-attention (``csrc/block.cu``).  What bounds them on the H100 is operations:
-at ViT-B and 64 crops the forward is 181 GFLOP (as K1), the MLP backward
-five 58-GFLOP products and the attention backward 181 GFLOP (five linear
-products of 14.5 or 43.5 GFLOP and the attention's recompute); 0.18, 0.29
-and 0.18 ms at the bf16 tensor peak.  This first version keeps every GEMM
-simple (one 64x64 tile per block, no pipelining, no ``wgmma``/TMA) and the
-attention backward on float32 FMA, so it sits far from that bound; the times
-are in PERF.md.
+(GEMMs in the NT and NN layouts with their epilogues, the LayerNorm
+backward, column sums, the attention backward, and one launch of a pair of
+TN GEMMs for each backward's two weight grads) and K1's LayerNorm and
+attention (``csrc/block.cu``).  K6a is K6b's launches followed by K6c's,
+counted as one kernel: the two flavors differ only in which of them the
+TPU can run at a width.  What bounds them on
+the H100 is operations: at ViT-B and 64 crops the forward is 181 GFLOP (as
+K1), the MLP backward five 58-GFLOP products and the attention backward 181
+GFLOP (five linear products of 14.5 or 43.5 GFLOP and the attention's
+recompute); 0.18, 0.29 and 0.18 ms at the bf16 tensor peak.  At ViT-L K6b
+is three 103-GFLOP products (0.31 ms) and K6c two (0.21 ms).  This first
+version keeps every GEMM simple (one 64x64 tile per block, no pipelining,
+no ``wgmma``/TMA) and the attention backward on float32 FMA, so it sits far
+from that bound; the times are in PERF.md.
 
 Each kernel has a plain version here (``*_plain``), written step by step as
 the kernel's math, rounding to the working dtype where the TPU kernels
@@ -52,6 +70,8 @@ from .vit import (BlockWeights, attention_core, erf_as, gelu, layer_norm,
 
 KERNEL = "train_block"
 FWD, BWD_MLP, BWD_ATTN = "train_fwd", "train_bwd_mlp", "train_bwd_attn"
+BWD_MLP_DX_SAVE, BWD_MLP_DW_SAVED = "train_bwd_mlp_dx_save", "train_bwd_mlp_dw_saved"
+WIDE_D = 768             # D above this takes the wide MLP backward (K6b, K6c)
 TE_NONE, TE_GELU, TE_DP_RES, TE_GELU_SAVE, TE_GELU_GRAD, TE_F32 = range(6)
 COLSUM_CHUNK = 64        # rows per partial of the column sums
 LN_ROWS, LN_MAXJ = 64, 48
@@ -107,9 +127,11 @@ def train_forward_plain(x: torch.Tensor, keep: torch.Tensor, w: BlockWeights,
     return out.reshape(B, N, D), x1.reshape(B, N, D)
 
 
-def mlp_backward_plain(x1: torch.Tensor, dout: torch.Tensor, keep: torch.Tensor,
-                       w: BlockWeights, eps: float):
-    """Plain version of K6a: -> (dx1, (dW1, db1, dW2, db2, dln2_w, dln2_b))."""
+def mlp_backward_dx_save_plain(x1: torch.Tensor, dout: torch.Tensor, keep: torch.Tensor,
+                               w: BlockWeights, eps: float):
+    """Plain version of K6b: -> (dx1, h2, dm2c, dm1c, g, db1, db2, dln2_w,
+    dln2_b), the four saved operands as (B*N, D or hidden) rows in the
+    working dtype and the vector grads in it too."""
     B, N, D = x1.shape
     dt = x1.dtype
     x1r, dp = _rows(x1, keep)
@@ -125,10 +147,28 @@ def mlp_backward_plain(x1: torch.Tensor, dout: torch.Tensor, keep: torch.Tensor,
     dh2 = torch.matmul(dm1c.float(), w.fc1_w.float())
     dx_ln, dln_w, dln_b = ln_backward(dh2, xhat, inv, w.ln2_w)
     dx1 = (doutf + dx_ln).to(dt)
-    dW2 = torch.matmul(dm2c.float().t(), g.float())
+    return (dx1.reshape(B, N, D), h2, dm2c, dm1c, g,
+            *(v.to(dt) for v in (dm1.sum(0), dm2.sum(0), dln_w, dln_b)))
+
+
+def mlp_backward_dw_saved_plain(h2: torch.Tensor, dm2c: torch.Tensor, dm1c: torch.Tensor,
+                                g: torch.Tensor):
+    """Plain version of K6c: the saved operands -> (dW1 (hidden, D), dW2
+    (D, hidden)), float32 sums over all rows rounded to the working dtype."""
+    dt = h2.dtype
     dW1 = torch.matmul(dm1c.float().t(), h2.float())
-    grads = (dW1, dm1.sum(0), dW2, dm2.sum(0), dln_w, dln_b)
-    return dx1.reshape(B, N, D), tuple(g_.to(dt) for g_ in grads)
+    dW2 = torch.matmul(dm2c.float().t(), g.float())
+    return dW1.to(dt), dW2.to(dt)
+
+
+def mlp_backward_plain(x1: torch.Tensor, dout: torch.Tensor, keep: torch.Tensor,
+                       w: BlockWeights, eps: float):
+    """Plain version of K6a: -> (dx1, (dW1, db1, dW2, db2, dln2_w, dln2_b)).
+    The same function as K6b then K6c, in one piece."""
+    dx1, h2, dm2c, dm1c, g, db1, db2, dln_w, dln_b = mlp_backward_dx_save_plain(
+        x1, dout, keep, w, eps)
+    dW1, dW2 = mlp_backward_dw_saved_plain(h2, dm2c, dm1c, g)
+    return dx1, (dW1, db1, dW2, db2, dln_w, dln_b)
 
 
 def attention_backward_core(qkv: torch.Tensor, do: torch.Tensor, num_heads: int):
@@ -186,12 +226,12 @@ def _ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _gemm(a, b, M, N, K, lda, ldb, a_kmaj, b_kmaj, mode, *, bias=None, res=None, dp=None,
+def _gemm(a, b, M, N, K, lda, ldb, b_kmaj, mode, *, bias=None, res=None, dp=None,
           tokens=1, aux=None):
     """``epilogue(sum_k A[m, k] B[n, k])`` (see ``evt_train_gemm``) in the
     dtype of ``a``; returns (out in that dtype or None, float32 out or None)."""
     # 16-byte loads run along the contiguous dim of each operand
-    contiguous = (K if a_kmaj else M, lda, K if b_kmaj else N, ldb)
+    contiguous = (K, lda, K if b_kmaj else N, ldb)
     if any(v % 8 for v in contiguous):
         raise ValueError(f"GEMM dims {(M, N, K)}, leading dims {(lda, ldb)}: each operand's "
                          f"contiguous dim must be a multiple of 8")
@@ -201,28 +241,46 @@ def _gemm(a, b, M, N, K, lda, ldb, a_kmaj, b_kmaj, mode, *, bias=None, res=None,
     out_f = (torch.empty((M, N), dtype=torch.float32, device=dev)
              if mode in (TE_GELU_SAVE, TE_GELU_GRAD, TE_F32) else None)
     kernels.call(KERNEL, "evt_train_gemm", dev, a.data_ptr(), b.data_ptr(), M, N, K, lda, ldb,
-                 int(a_kmaj), int(b_kmaj), int(dt == torch.bfloat16), mode, _ptr(bias),
+                 int(b_kmaj), int(dt == torch.bfloat16), mode, _ptr(bias),
                  _ptr(res), _ptr(dp), tokens, _ptr(aux), _ptr(out), _ptr(out_f), N)
     return out, out_f
 
 
 def gemm_nt(a, w, mode, **epi):
     """a (M, K) . w (N, K)^T: the forward's products."""
-    return _gemm(a, w, a.shape[0], w.shape[0], a.shape[1], a.shape[1], w.shape[1], 1, 1,
+    return _gemm(a, w, a.shape[0], w.shape[0], a.shape[1], a.shape[1], w.shape[1], 1,
                  mode, **epi)
 
 
 def gemm_nn(a, w, mode, **epi):
     """a (M, K) . w (K, N): activation grads through a Linear weight."""
-    return _gemm(a, w, a.shape[0], w.shape[1], a.shape[1], a.shape[1], w.shape[1], 1, 0,
+    return _gemm(a, w, a.shape[0], w.shape[1], a.shape[1], a.shape[1], w.shape[1], 0,
                  mode, **epi)
 
 
-def gemm_tn(a, b):
-    """a (R, M)^T . b (R, N), contracted over all R rows: a weight grad, in
-    the dtype of ``a``."""
-    return _gemm(a, b, a.shape[1], b.shape[1], a.shape[0], a.shape[1], b.shape[1], 0, 0,
-                 TE_NONE)[0]
+def gemm_tn2(a0, b0, a1, b1):
+    """A block's two weight grads, a0 (R, M0)^T . b0 (R, N0) and a1 (R, M1)^T
+    . b1 (R, N1), in one launch whose grid covers the 64x64 output tiles of
+    both; each block sums its tile over all R rows, so the result is
+    deterministic without atomics.  One launch fills the card where two
+    would each leave a partial wave (PERF.md).  -> (out0, out1) in the
+    operands' dtype."""
+    ops = (a0, b0, a1, b1)
+    dev = kernels.require_cuda(*ops)
+    dt = a0.dtype
+    if dt not in (torch.float32, torch.bfloat16) or any(t.dtype != dt for t in ops):
+        raise ValueError(f"TN operands must share one float32 or bfloat16 dtype, got "
+                         f"{[t.dtype for t in ops]}")
+    R = a0.shape[0]
+    if any(t.dim() != 2 or t.shape[0] != R for t in ops) or any(t.shape[1] % 8 for t in ops):
+        raise ValueError(f"TN operands {[tuple(t.shape) for t in ops]}: each (R, multiple of 8)")
+    a0, b0, a1, b1 = (t.contiguous() for t in ops)
+    out0 = torch.empty((a0.shape[1], b0.shape[1]), dtype=dt, device=dev)
+    out1 = torch.empty((a1.shape[1], b1.shape[1]), dtype=dt, device=dev)
+    kernels.call(KERNEL, "evt_train_gemm_tn2", dev, a0.data_ptr(), b0.data_ptr(), *out0.shape,
+                 out0.data_ptr(), a1.data_ptr(), b1.data_ptr(), *out1.shape, out1.data_ptr(), R,
+                 int(dt == torch.bfloat16))
+    return out0, out1
 
 
 def colsum_cuda(src, dt, dp=None, tokens=1):
@@ -328,7 +386,9 @@ def train_forward_cuda(x, keep, w: BlockWeights, num_heads: int, eps: float):
     return out.reshape(B, N, D), x1.reshape(B, N, D)
 
 
-def mlp_backward_cuda(x1, dout, keep, w: BlockWeights, eps: float):
+def _mlp_dx_launches(x1, dout, keep, w: BlockWeights, eps: float):
+    """The launches of the MLP backward up to dx1, shared by K6a and K6b:
+    -> (dx1 rows, h2, dm2c, dm1c, g, db1, db2, dln2_w, dln2_b)."""
     B, N, D, dt = _check(x1, keep, w)
     kernels.require_cuda(dout)
     x1r = x1.contiguous().reshape(B * N, D)
@@ -338,13 +398,35 @@ def mlp_backward_cuda(x1, dout, keep, w: BlockWeights, eps: float):
     g, m = gemm_nt(h2, w.fc1_w, TE_GELU_SAVE, bias=w.fc1_b)
     dm2c, db2 = colsum_cuda(doutr, dt, dp, N)
     dm1 = gemm_nn(dm2c, w.fc2_w, TE_GELU_GRAD, aux=m)[1]
+    del m
     dm1c, db1 = colsum_cuda(dm1, dt)
+    del dm1
     dh2 = gemm_nn(dm1c, w.fc1_w, TE_F32)[1]
     dx1, dln_w, dln_b = ln_backward_cuda(x1r, w.ln2_w, dh2, doutr, eps)
-    dW2 = gemm_tn(dm2c, g)
-    dW1 = gemm_tn(dm1c, h2)
+    return dx1, h2, dm2c, dm1c, g, db1, db2, dln_w, dln_b
+
+
+def mlp_backward_cuda(x1, dout, keep, w: BlockWeights, eps: float):
+    dx1, h2, dm2c, dm1c, g, db1, db2, dln_w, dln_b = _mlp_dx_launches(x1, dout, keep, w, eps)
+    dW1, dW2 = gemm_tn2(dm1c, h2, dm2c, g)
     kernels.count_launch(BWD_MLP)
-    return dx1.reshape(B, N, D), (dW1, db1, dW2, db2, dln_w, dln_b)
+    return dx1.reshape(x1.shape), (dW1, db1, dW2, db2, dln_w, dln_b)
+
+
+def mlp_backward_dx_save_cuda(x1, dout, keep, w: BlockWeights, eps: float):
+    dx1, *rest = _mlp_dx_launches(x1, dout, keep, w, eps)
+    kernels.count_launch(BWD_MLP_DX_SAVE)
+    return (dx1.reshape(x1.shape), *rest)
+
+
+def mlp_backward_dw_saved_cuda(h2, dm2c, dm1c, g):
+    R, D = h2.shape
+    H = g.shape[1]
+    if dm2c.shape != (R, D) or dm1c.shape != (R, H) or g.shape != (R, H):
+        raise ValueError(f"saved operands {[tuple(t.shape) for t in (h2, dm2c, dm1c, g)]}")
+    dW1, dW2 = gemm_tn2(dm1c, h2, dm2c, g)
+    kernels.count_launch(BWD_MLP_DW_SAVED)
+    return dW1, dW2
 
 
 def attn_backward_cuda(x, dx1, keep, w: BlockWeights, num_heads: int, eps: float):
@@ -361,8 +443,7 @@ def attn_backward_cuda(x, dx1, keep, w: BlockWeights, num_heads: int, eps: float
     dqkvc, dbqkv = colsum_cuda(dqkv, dt)
     dh1 = gemm_nn(dqkvc, w.qkv_w, TE_F32)[1]
     dx, dln_w, dln_b = ln_backward_cuda(xr, w.ln1_w, dh1, dx1r, eps)
-    dWqkv = gemm_tn(dqkvc, h1)
-    dWp = gemm_tn(dac, o)
+    dWqkv, dWp = gemm_tn2(dqkvc, h1, dac, o)
     kernels.count_launch(BWD_ATTN)
     return dx.reshape(B, N, D), (dWqkv, dbqkv, dWp, dbp, dln_w, dln_b)
 
@@ -391,10 +472,34 @@ def attn_backward(x, dx1, keep, w: BlockWeights, num_heads: int, eps: float,
     return attn_backward_cuda(x, dx1, keep, w, num_heads, eps)
 
 
+def mlp_backward_dx_save(x1, dout, keep, w: BlockWeights, eps: float, plain: bool = False):
+    """K6b: -> (dx1, h2, dm2c, dm1c, g, db1, db2, dln2_w, dln2_b)."""
+    if plain or x1.device.type == "cpu":
+        return mlp_backward_dx_save_plain(x1, dout, keep, w, eps)
+    return mlp_backward_dx_save_cuda(x1, dout, keep, w, eps)
+
+
+def mlp_backward_dw_saved(h2, dm2c, dm1c, g, plain: bool = False):
+    """K6c: the saved operands -> (dW1, dW2)."""
+    if plain or h2.device.type == "cpu":
+        return mlp_backward_dw_saved_plain(h2, dm2c, dm1c, g)
+    return mlp_backward_dw_saved_cuda(h2, dm2c, dm1c, g)
+
+
+def wide_mlp_backward(x1, dout, keep, w: BlockWeights, eps: float, plain: bool = False):
+    """K6b then K6c, with K6a's signature: -> (dx1, (dW1, db1, dW2, db2,
+    dln2_w, dln2_b))."""
+    dx1, h2, dm2c, dm1c, g, db1, db2, dln_w, dln_b = mlp_backward_dx_save(
+        x1, dout, keep, w, eps, plain)
+    dW1, dW2 = mlp_backward_dw_saved(h2, dm2c, dm1c, g, plain)
+    return dx1, (dW1, db1, dW2, db2, dln_w, dln_b)
+
+
 class FusedBlockTrain(torch.autograd.Function):
     """``FusedBlockTrain.apply(x, keep, num_heads, eps, plain, *weights)``:
-    the training block with the forward of K5 and the backward of K6a then
-    K7; ``weights`` in :class:`..models.vit.BlockWeights` order."""
+    the training block with the forward of K5 and the backward of K6a (or
+    K6b then K6c at D > 768) then K7; ``weights`` in
+    :class:`..models.vit.BlockWeights` order."""
 
     @staticmethod
     def forward(ctx, x, keep, num_heads, eps, plain, *weights):
@@ -408,7 +513,8 @@ class FusedBlockTrain(torch.autograd.Function):
     def backward(ctx, dout):
         x, x1, keep, *weights = ctx.saved_tensors
         w = BlockWeights(*weights)
-        dx1, (dW1, db1, dW2, db2, dln2_w, dln2_b) = mlp_backward(
+        mlp = wide_mlp_backward if x.shape[-1] > WIDE_D else mlp_backward
+        dx1, (dW1, db1, dW2, db2, dln2_w, dln2_b) = mlp(
             x1, dout.contiguous(), keep, w, ctx.eps, ctx.plain)
         dx, (dWqkv, dbqkv, dWp, dbp, dln1_w, dln1_b) = attn_backward(
             x, dx1, keep, w, ctx.num_heads, ctx.eps, ctx.plain)

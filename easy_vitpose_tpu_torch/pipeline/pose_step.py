@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from ..configs import IMAGE_SIZE
+from ..kernels import resolve_device
 from ..models.vitpose import ViTPose, compute_dtype, vitpose_forward
 from ..ops.affine import flip_back_heatmaps
 from ..ops.decode import keypoints_from_heatmaps_udp
@@ -29,21 +30,6 @@ from ..ops.preprocess import Geometry, crop_geometry
 from ..ops.sampler import sample_normalize, sample_normalize_plain
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
-
-
-def resolve_device(device, frame: ArrayLike) -> torch.device:
-    """The device a step runs on: ``device`` if given, else the frame's if it
-    is a tensor, else CUDA.  Raises when that is CUDA and there is none."""
-    if device is None:
-        device = frame.device if isinstance(frame, torch.Tensor) else "cuda"
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("the pose step runs on CUDA and no CUDA device is "
-                               "available; pass device='cpu' to run on the CPU")
-        if device.index is None:
-            device = torch.device("cuda", torch.cuda.current_device())
-    return device
 
 
 def _to(x: ArrayLike, device: torch.device, dtype=None) -> torch.Tensor:

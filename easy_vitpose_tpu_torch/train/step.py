@@ -2,11 +2,12 @@
 
 Port of ``easy_vitpose_tpu/train/step.py`` for one device, one micro-batch
 and no EMA (``make_train_step`` with ``grad_accum=1``, ``ema_decay=0``):
-bf16 AMP, the fused clip + Adam optimizer (``train/fused_opt.py``, K8), the
+bf16 AMP, the fused clip + Adam optimizer (``train/fused_opt.py``), the
 head's BatchNorm running statistics carried outside the trainable tree, and
 the device-input batch (uint8 crops and joints, rendered on the device).
 
-State is a plain dict of tensors on one device, where the step runs:
+State is a plain dict of tensors on one device, where the step runs; it is
+CUDA unless :func:`init_train_state` is asked for the CPU:
 
   params     float32 master weights, by state-dict name
   opt_state  :class:`..train.fused_opt.FusedAdamState`
@@ -17,10 +18,12 @@ Under AMP the step casts the master weights to bf16 with ``Tensor.to``, so
 gradients flow back through the cast to the float32 masters, and the BN
 running statistics stay float32, as ``cast_params`` keeps them.  Each
 backbone block is the training block of ``models/fused_block_train.py``:
-on the card its forward is K5 and its backward K6a then K7.  The references
-go through :func:`loss_and_grads`: ``plain=True`` takes the kernels' plain
-versions on any device (the on-card reference), ``block_impl="xla"`` the
-JAX package's XLA block under autograd (a second reference for the tests).
+on the card its forward is K5 and its backward K6a (K6b then K6c at
+D > 768) then K7; the optimizer runs K8 per leaf, or K9 for int8 moments.
+The references go through :func:`loss_and_grads`: ``plain=True`` takes the
+kernels' plain versions on any device (the on-card reference),
+``block_impl="xla"`` the JAX package's XLA block under autograd (a second
+reference for the tests).
 """
 from __future__ import annotations
 
@@ -31,6 +34,7 @@ import torch
 from torch import nn
 
 from ..configs import IMAGENET_MEAN, IMAGENET_STD, ModelConfig
+from ..kernels import resolve_device
 from ..models.vitpose import BN_STATS, vitpose_forward_train
 from ..ops.heatmap import generate_gaussian_targets
 from .losses import joints_mse_loss
@@ -55,15 +59,16 @@ def merge_bn_state(trainable: Mapping[str, torch.Tensor],
     return {**trainable, **bn_state}
 
 
-def init_train_state(params, tx) -> Dict[str, Any]:
+def init_train_state(params, tx, device=None) -> Dict[str, Any]:
     """The training state of a :class:`..models.vitpose.ViTPose` or its
-    state dict: float32 copies of its weights, on their device."""
+    state dict: float32 copies of its weights on ``device``, which is CUDA
+    unless the caller passes ``device="cpu"``; raises when that is CUDA and
+    there is none."""
+    dev = resolve_device(device)
     if isinstance(params, nn.Module):
         params = params.state_dict()
-    trainable, bn_state = split_bn_state(params)
-    trainable = {k: v.detach().float().clone() for k, v in trainable.items()}
-    bn_state = {k: v.detach().float().clone() for k, v in bn_state.items()}
-    dev = next(iter(trainable.values())).device
+    trainable, bn_state = ({k: v.detach().to(device=dev, dtype=torch.float32, copy=True)
+                            for k, v in part.items()} for part in split_bn_state(params))
     return {"params": trainable, "opt_state": tx.init(trainable), "bn_state": bn_state,
             "step": torch.zeros((), dtype=torch.int32, device=dev)}
 

@@ -13,13 +13,27 @@ int8 and bf16:
 * the device's busy share over a few steps and the kernels that take the
   most device time, from ``torch.profiler``;
 * the peak device memory one step allocates beyond the weights;
-* the ViT-B train step as ``chip_smoke.py`` drives it (64 crops, AMP,
-  drop-path, fused Adam): device time of the step's own phases (render,
-  forward + loss, backward, optimizer; ``train/step.py``'s helpers) between
-  CUDA events, its busy share and top kernels.
+* the train step as ``chip_smoke.py`` drives it (64 crops, AMP, drop-path,
+  fused Adam) at ``--size`` (ViT-B by default) with Adam moments at
+  ``--moments``: device time of the step's own phases (render, forward +
+  loss, backward, optimizer; ``train/step.py``'s helpers) between CUDA
+  events, its busy share and top kernels;
+* a backward's two weight grads (the MLP's, K6a and K6c, and the
+  attention's, K7) as one pair launch, as the port runs them, beside two
+  launches of the same kernel with one product each, on the same bf16
+  operands at ViT-B's and ViT-L's widths and 64 crops;
+* with ``--moments int8``, K9 on each distinct leaf size of that model,
+  beside K8 on the same size: device time per launch from
+  ``torch.profiler`` (so the host's launch gaps do not count), the rate
+  over each kernel's bytes (16 per element for K9, 28 for K8), and K9's
+  device time per step split between one-block leaves and the rest.  It
+  tells a kernel body that cannot keep up with memory (a low rate on the
+  largest leaves, where K8 is fast) from launches too small to fill the
+  card (a low rate only on the small leaves).
 
 Usage (repository root, one CUDA card):
-    python3 scripts/bench_torch_breakdown.py [--seed 0] [--reps 20] [--out FILE]
+    python3 scripts/bench_torch_breakdown.py [--seed 0] [--reps 20] [--out FILE] \
+        [--size l --moments int8]
 Prints one JSON object per part, and writes them all to ``--out`` as JSON.
 """
 import argparse
@@ -165,7 +179,7 @@ def profile_step(torch, model, frame, boxes, mask, steps=5):
                             for k, ms, n in rows[:10]]}
 
 
-def train_parts(torch, model, seed, dev, steps=3):
+def train_parts(torch, model, seed, dev, moments="f32", steps=3):
     """The train step's phases (device time between CUDA events, mean over
     ``steps``), wall time, busy share and top kernels of the whole step."""
     from torch.profiler import ProfilerActivity, profile
@@ -173,8 +187,8 @@ def train_parts(torch, model, seed, dev, steps=3):
 
     cfg = model.cfg
     batch = cs.train_batch(torch, np.random.default_rng(seed), cs.SLOTS, dev)
-    tx = fused_opt.make_fused_adam(cs.TRAIN_LR, max_grad_norm=cs.TRAIN_CLIP)
-    state = tstep.init_train_state(model, tx)
+    tx = fused_opt.make_fused_adam(cs.TRAIN_LR, max_grad_norm=cs.TRAIN_CLIP, moment_dtype=moments)
+    state = tstep.init_train_state(model, tx, device=dev)
     step = tstep.make_train_step(cfg, tx)
     gen = torch.Generator(device=dev).manual_seed(seed)
     for _ in range(2):                                        # warm-up
@@ -208,10 +222,72 @@ def train_parts(torch, model, seed, dev, steps=3):
         torch.cuda.synchronize()
     rows = kernel_rows(prof, steps)
     device_ms = sum(r[1] for r in rows)
-    return {"phases_ms": total, "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
+    return {"config": f"ViT-{cfg.name.upper()}, {cs.SLOTS} crops, AMP, {moments} moments",
+            "phases_ms": total, "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
             "device_busy_share": device_ms / wall_ms,
             "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": n}
                             for k, ms, n in rows[:14]]}
+
+
+def weight_grad_pairs(torch, dev):
+    """ms of a backward's two weight grads as one pair launch (``gemm_tn2``)
+    and as two launches of the same kernel with one product each, bf16,
+    R = 64 * 192 rows: the MLP's (dm1c^T h2, dm2c^T g; K6a, K6c) and the
+    attention's (dqkvc^T h1, dac^T o; K7)."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+
+    out = {}
+    R = cs.SLOTS * 192
+    gen = torch.Generator(device=dev).manual_seed(0)
+    none = torch.empty((R, 0), dtype=torch.bfloat16, device=dev)
+    for name, D in (("vit_b", 768), ("vit_l", 1024)):
+        for part, (m0, n0, m1, n1) in (("mlp", (4 * D, D, D, 4 * D)), ("attn", (3 * D, D, D, D))):
+            a0, b0, a1, b1 = (torch.randn(R, c, device=dev, generator=gen).bfloat16()
+                              for c in (m0, n0, m1, n1))
+            pair = cs.time_ms(torch, lambda: fbt.gemm_tn2(a0, b0, a1, b1))
+            two = cs.time_ms(torch, lambda: (fbt.gemm_tn2(a0, b0, none, none),
+                                             fbt.gemm_tn2(a1, b1, none, none)))
+            out[f"{name}_{part}"] = {"pair_launch_ms": pair, "two_launches_ms": two,
+                                     "gflop": 2 * R * (m0 * n0 + m1 * n1) / 1e9}
+    return out
+
+
+def adam_leaf_sizes(torch, params, dev, reps=10):
+    """K9 and K8 per distinct leaf size of ``params`` (see the module doc)."""
+    from collections import Counter
+
+    from torch.profiler import ProfilerActivity, profile
+    from easy_vitpose_tpu_torch.train import fused_opt
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda n, sc: torch.randn(n, device=dev, generator=gen) * sc  # noqa: E731
+    scal = torch.tensor([0.7, 3.75e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=dev)
+    rows = []
+    for n, leaves in sorted(Counter(v.numel() for v in params.values()).items()):
+        g, p = rnd(n, 1e-3), rnd(n, 1.0)
+        mq, ms = fused_opt.q8_encode(rnd(n, 1e-3), 127)
+        nq, ns = fused_opt.q8_encode(rnd(n, 1e-3).abs(), 255)
+        mu, nu = rnd(n, 1e-3), rnd(n, 1e-3).square()
+        calls = {"adam_q8": lambda: fused_opt.adam_leaf_q8(g, mq, ms, nq, ns, p, scal),
+                 "adam": lambda: fused_opt.adam_leaf(g, mu, nu, p, scal)}
+        row = {"n": n, "leaves": leaves}
+        for name, fn in calls.items():
+            fn()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(reps):
+                    fn()
+                torch.cuda.synchronize()
+            us = sum(ms_ for key, ms_, _ in kernel_rows(prof, reps)
+                     if f"{name}_kernel(" in key) * 1e3
+            row[f"{name}_us"] = us
+            row[f"{name}_tb_s"] = (16 if name == "adam_q8" else 28) * n / (us * 1e-6) / 1e12
+        rows.append(row)
+    k9 = sum(r["adam_q8_us"] * r["leaves"] for r in rows) / 1e3
+    one = sum(r["adam_q8_us"] * r["leaves"] for r in rows if r["n"] <= 2048) / 1e3
+    return {"k9_ms_per_step": k9, "k9_ms_one_block_leaves": one,
+            "k8_ms_per_step": sum(r["adam_us"] * r["leaves"] for r in rows) / 1e3,
+            "sizes": rows}
 
 
 def main():
@@ -219,6 +295,10 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--out", help="write the whole result here as JSON")
+    ap.add_argument("--size", default="b", choices=("s", "b", "l", "h"),
+                    help="ViT size of the train step (the pose step stays ViT-B)")
+    ap.add_argument("--moments", default="f32", choices=("f32", "bf16", "int8"),
+                    help="Adam moment dtype of the train step")
     args = ap.parse_args()
 
     import torch
@@ -253,7 +333,15 @@ def main():
             result[f"step_peak_mib_{d}"] = (torch.cuda.max_memory_allocated() - base) / 2**20
             result[f"profile_{d}"] = profile_step(torch, sm, frame, boxes, mask)
         result["block_parts"] = block_parts(torch, copies, dev)
-    result["train_step"] = train_parts(torch, model, args.seed, dev)
+        result["weight_grad_pairs"] = weight_grad_pairs(torch, dev)
+    if args.size != "b":
+        del model, copies
+        model = init_params(get_model_config("coco", args.size), args.seed).to(dev)
+    result["train_step"] = train_parts(torch, model, args.seed, dev, args.moments)
+    if args.moments == "int8":
+        from easy_vitpose_tpu_torch.train.step import split_bn_state
+        result["adam_leaf_sizes"] = adam_leaf_sizes(
+            torch, split_bn_state(model.state_dict())[0], dev)
     for k, v in result.items():
         print(k + ":", json.dumps(v))
     if args.out:

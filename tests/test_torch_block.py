@@ -154,6 +154,21 @@ def test_block_q8_matches_jax(setup, dtype):
     assert np.abs(got - kern).max() < 0.02 * span
 
 
+def test_resolve_device_never_falls_back_to_the_cpu():
+    """The entry points' device rule: the device asked for, else that of the
+    tensor given, else CUDA, which raises where there is none."""
+    from easy_vitpose_tpu_torch.kernels import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert resolve_device(None, torch.zeros(2)) == torch.device("cpu")
+    assert resolve_device("cpu", np.zeros(2)) == torch.device("cpu")
+    if not torch.cuda.is_available():
+        for like in (None, np.zeros(2)):
+            with pytest.raises(RuntimeError, match="runs on CUDA.*device='cpu'"):
+                resolve_device(None, like)
+    else:
+        assert resolve_device(None, np.zeros(2)).type == "cuda"
+
+
 def test_cuda_wrappers_refuse_cpu_only_and_bad_shapes():
     from easy_vitpose_tpu_torch import kernels
     with pytest.raises(ValueError, match="CUDA"):

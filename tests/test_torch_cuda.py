@@ -207,7 +207,8 @@ def block_weights(dev, D, hidden, dtype, seed=0):
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 def test_train_gemm_layouts(dev, layout, dtype, tol):
     """The training GEMM in its three layouts at ragged sizes (multiples of
-    8, not of the 64 tile), against float32 matmul of the same operands."""
+    8, not of the 64 tile), against float32 matmul of the same operands; TN
+    as the pair launch of two products with different shapes."""
     from easy_vitpose_tpu_torch.models import fused_block_train as fbt
     R, K, N = 200, 136, 72
     if layout == "nt":
@@ -221,18 +222,21 @@ def test_train_gemm_layouts(dev, layout, dtype, tol):
         ref = a.float() @ w.float()
     else:
         a, b = randn(dev, R, K, dtype=dtype), randn(dev, R, N, dtype=dtype, seed=1)
-        got = fbt.gemm_tn(a, b)
+        a1, b1 = randn(dev, R, 24, dtype=dtype, seed=2), randn(dev, R, K, dtype=dtype, seed=3)
+        got, got1 = fbt.gemm_tn2(a, b, a1, b1)
+        assert rel_err(got1, (a1.float().t() @ b1.float()).to(dtype)) <= tol
         ref = a.float().t() @ b.float()
     assert rel_err(got, ref.to(got.dtype)) <= tol
 
 
-@pytest.mark.parametrize("D,heads,N", [(128, 2, 192), (64, 2, 50)])
+@pytest.mark.parametrize("D,heads,N", [(128, 2, 192), (64, 2, 50), (1280, 16, 50)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_train_block_kernels(dev, D, heads, N, dtype, tol):
     """K5, K6a and K7 against their plain versions at three crops, one of
-    them dropped, head dims 64 and 32, a partial attention tile at N=50:
-    each output and gradient relative to its largest plain value (float32
-    sums in another order; at bf16 a rounding may flip)."""
+    them dropped, head dims 64, 32 and 80 (ViT-H's 1280 / 16), a partial
+    attention tile at N=50: each output and gradient relative to its
+    largest plain value (float32 sums in another order; at bf16 a rounding
+    may flip)."""
     from easy_vitpose_tpu_torch.models import fused_block_train as fbt
     B, eps = 3, 1e-6
     w = block_weights(dev, D, 4 * D, dtype)
@@ -251,6 +255,48 @@ def test_train_block_kernels(dev, D, heads, N, dtype, tol):
         assert got.dtype == ref.dtype and got.shape == ref.shape
         assert rel_err(got, ref) <= tol
     assert kernels.launch_counts() == {fbt.FWD: 1, fbt.BWD_MLP: 1, fbt.BWD_ATTN: 1}
+
+
+@pytest.mark.parametrize("D,N", [(1024, 50), (1280, 77)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_wide_mlp_backward_kernels(dev, D, N, dtype, tol):
+    """K6b and K6c against their plain versions at ViT-L's and ViT-H's
+    widths with ragged row counts (3 * 50, 3 * 77), one crop dropped; K6c
+    fed the plain K6b's operands.  K6b then K6c gives K6a's result bit for
+    bit (the same launches, and the same tile loop in K6c)."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    B, eps = 3, 1e-6
+    w = block_weights(dev, D, 4 * D, dtype)
+    x1 = randn(dev, B, N, D, dtype=dtype)
+    keep = torch.tensor([2.0, 0.0, 2.0], device=dev)
+    dout = randn(dev, B, N, D, scale=0.1, dtype=dtype, seed=2)
+    kernels.reset_launch_counts()
+    got = fbt.mlp_backward_dx_save(x1, dout, keep, w, eps)
+    ref = fbt.mlp_backward_dx_save_plain(x1, dout, keep, w, eps)
+    dW = fbt.mlp_backward_dw_saved(*ref[1:5])
+    rdW = fbt.mlp_backward_dw_saved_plain(*ref[1:5])
+    for g, r in zip((*got, *dW), (*ref, *rdW)):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert rel_err(g, r) <= tol
+    assert kernels.launch_counts() == {fbt.BWD_MLP_DX_SAVE: 1, fbt.BWD_MLP_DW_SAVED: 1}
+    k6a = fbt.mlp_backward(x1, dout, keep, w, eps)
+    wide = fbt.wide_mlp_backward(x1, dout, keep, w, eps)
+    for a, b in zip((k6a[0], *k6a[1]), (wide[0], *wide[1])):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("n", [1, 2048, 2048 * 3 + 5, (1 << 20) + 7])
+def test_adam_q8_kernel_bit_equal(dev, n):
+    """K9 on leaves of any length, from moments the codec wrote, is bit-equal
+    to its plain version on the card: codes, scales and params."""
+    from easy_vitpose_tpu_torch.train.fused_opt import adam_leaf_q8, adam_leaf_q8_plain, q8_encode
+    g, p = randn(dev, n, scale=1e-3), randn(dev, n, seed=3)
+    mq, ms = q8_encode(randn(dev, n, scale=1e-3, seed=1), 127)
+    nq, ns = q8_encode(randn(dev, n, scale=1e-3, seed=2).abs(), 255)
+    scal = torch.tensor([0.7, 3.75e-4, 1 - 0.9 ** 3, 1 - 0.999 ** 3], device=dev)
+    for a, b in zip(adam_leaf_q8(g, mq, ms, nq, ns, p, scal),
+                    adam_leaf_q8_plain(g, mq, ms, nq, ns, p, scal)):
+        assert a.dtype == b.dtype and torch.equal(a, b)
 
 
 @pytest.mark.parametrize("n", [1, 1000, 768 * 3072 + 5])
@@ -292,6 +338,46 @@ def test_train_step_through_the_kernels(dev):
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     rendered = tstep.render_batch_on_device(batch, dev)
     masks = torch.tensor([[1.0, 0.0, 1.0], [1.43, 1.43, 0.0]], device=dev).reshape(2, 3, 1, 1)
+    lk, _, gk = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered,
+                                     drop_path_masks=masks)
+    lp, _, gp = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered,
+                                     drop_path_masks=masks, plain=True)
+    assert abs(float(lk) - float(lp)) <= 1e-2 * float(lp)
+    for k in gp:
+        assert rel_err(gk[k], gp[k]) <= 0.1, k
+
+
+def test_wide_train_step_with_int8_moments(dev):
+    """Two AMP steps of a small wide model (D=1024, the ViT-L width) with
+    int8 moments through the kernels: K5, K6b, K6c and K7 once per block,
+    K9 once per leaf and no K6a or K8; the loss and every gradient against
+    the plain step on the card."""
+    from easy_vitpose_tpu_torch.configs import BackboneConfig, HeadConfig, ModelConfig
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.train import step as tstep
+    from easy_vitpose_tpu_torch.train.fused_opt import make_fused_adam
+
+    cfg = ModelConfig("wide", "coco", BackboneConfig(embed_dim=1024, depth=2, num_heads=16,
+                                                     drop_path_rate=0.5),
+                      HeadConfig(in_channels=1024, num_keypoints=17, deconv_filters=(64, 64)))
+    rng = np.random.default_rng(1)
+    batch = {"images_u8": rng.integers(0, 256, (3, 256, 192, 3), dtype=np.uint8),
+             "joints": rng.uniform(0, 190, (3, 17, 2)).astype(np.float32),
+             "joints_vis": np.ones((3, 17, 2), np.float32)}
+    tx = make_fused_adam(3.75e-4, moment_dtype="int8")
+    state = tstep.init_train_state(init_params(cfg, 0), tx)
+    assert state["step"].is_cuda and state["opt_state"].mu["q_tree"]["backbone.pos_embed"].is_cuda
+    step = tstep.make_train_step(cfg, tx)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        state, metrics = step(state, batch, gen)
+        assert kernels.launch_counts() == {"train_fwd": 2, "train_bwd_mlp_dx_save": 2,
+                                           "train_bwd_mlp_dw_saved": 2, "train_bwd_attn": 2,
+                                           "adam_q8": len(state["params"])}
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    rendered = tstep.render_batch_on_device(batch, dev)
+    masks = torch.tensor([[2.0, 0.0, 2.0], [2.0, 2.0, 0.0]], device=dev).reshape(2, 3, 1, 1)
     lk, _, gk = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered,
                                      drop_path_masks=masks)
     lp, _, gp = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered,

@@ -127,9 +127,13 @@ def test_learning_rate_controls(monkeypatch):
 
 
 def test_moments_other_than_f32_are_not_ported_and_leaves_check():
+    """bf16 and int8 moments are ported now (tests/test_torch_fused_opt_q8.py
+    holds them to JAX): both build and step; any other dtype raises."""
+    params = {"a": torch.ones(5)}
     for md in ("bf16", "int8"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_fused_adam(1e-3, moment_dtype=md)
+        tx = make_fused_adam(1e-3, moment_dtype=md)
+        new, state, _ = tx.fused_apply({"a": torch.full((5,), 0.1)}, tx.init(params), params)
+        assert int(state.count) == 1 and torch.all(new["a"] < 1)
     with pytest.raises(ValueError):
         make_fused_adam(1e-3, moment_dtype="fp8")
     t = torch.ones(4)
