@@ -40,8 +40,28 @@ toolkit:
    drop-path 0.5, int8 Adam moments, lr 3.75e-4, clip 1.0) as in 6: K5,
    K6b, K6c and K7 24 times per step, K9 once per leaf, no K6a or K8;
    ms/step, images/s, peak memory and the moments' bytes against float32;
-9. prints one JSON line per kernel set (``kernels``), the card line, and
-   last ``{"ok": true, "device": {...}}``.
+9. holds the opt-in flavors of the training block against their plain
+   versions at bf16 and fp32, 64 crops and 3: on ViT-B's block 0 K5's saved
+   qkv and m, K6a ``_ms`` and K7 ``_saved`` (K7 ``_saved`` on K5's own qkv
+   equal to K7 bit for bit; at fp32 K6a ``_ms`` within 1e-6 of K6a); on
+   ViT-L's block 0 K6b ``_ms``, K6d and K6e (K6d then K6e equal to K6b then
+   K6c bit for bit; at fp32 K6b ``_ms`` within 1e-6 of K6b); and times each;
+10. drives three flavored AMP train steps as in 6, with the ``EVT_TRAIN_*``
+   switches set around each step's use and restored after: ViT-B with
+   ``ATTN=saved`` and ``MLP=saved`` (K5, K6a ``_ms`` and K7 ``_saved`` 12
+   times, no K6a or K7), ViT-L int8 with ``WIDE=recompute`` (K5, K6d, K6e,
+   K7 24 times, no K6b or K6c) and ViT-L int8 with ``MLP=saved`` (K6b
+   ``_ms`` and K6c 24 times, no K6b); each with its falling loss over 20
+   steps, grads against the plain step under the same switches, ms/step and
+   peak memory;
+11. drives one ViT-B step with ``grad_accum=2`` and ``ema_decay=0.999``
+   through the kernels (K5, K6a, K7 24 times, K8 once per leaf) against
+   the plain step with the same settings and drop-path masks;
+12. prints one JSON line per kernel set (``kernels``, 17 rows), the card
+   line, and last ``{"ok": true, "device": {...}}``.
+
+The A/B of each flavor against the default, interleaved in one process,
+is ``scripts/bench_torch_breakdown.py --flavors``.
 
 Any failure raises: the script then exits non-zero and prints no result.
 It exits non-zero at once when no CUDA device is available.
@@ -49,8 +69,10 @@ It exits non-zero at once when no CUDA device is available.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
+import os
 import statistics
 import subprocess
 import sys
@@ -352,11 +374,13 @@ def train_block_work(B, N, D, hidden):
     return fwd, mlp, attn_bwd
 
 
-def sublayer_backward(torch, layer, x, dout, which: str, weights: bool = True):
+def sublayer_backward(torch, layer, x, dout, which: str, weights=True):
     """A closure running the backward of one residual half of
     ``nn.TransformerEncoderLayer`` (``x + mlp(norm2(x))`` or ``x +
     attn(norm1(x))``) for ``dout``: the yardstick of K6a or K7; without
-    ``weights``, the grads of the input and the vector parameters only (K6b)."""
+    ``weights``, the grads of the input and the vector parameters only (K6b,
+    K6d); with ``weights="only"``, the grads of the two linears' weights and
+    the first one's bias only (K6e)."""
     import torch.nn.functional as F
     xg = x.detach().requires_grad_(True)
     if which == "mlp":
@@ -366,18 +390,48 @@ def sublayer_backward(torch, layer, x, dout, which: str, weights: bool = True):
         mods = (layer.norm1, layer.self_attn)
         h = layer.norm1(xg)
         out = xg + layer.self_attn(h, h, h, need_weights=False)[0]
-    params = [p for m in mods for p in m.parameters() if weights or p.dim() == 1]
-    return lambda: torch.autograd.grad(out, [xg, *params], dout, retain_graph=True)
+    if weights == "only":
+        wrt = [layer.linear1.weight, layer.linear1.bias, layer.linear2.weight]
+    else:
+        wrt = [xg, *(p for m in mods for p in m.parameters() if weights or p.dim() == 1)]
+    return lambda: torch.autograd.grad(out, wrt, dout, retain_graph=True)
+
+
+def block_inputs(torch, model, rng, dev, tdt, B, keep_prob):
+    """Block 0's weights in ``tdt``, tokens, an output grad and a keep mask
+    with one kept and one dropped crop."""
+    import copy
+
+    from easy_vitpose_tpu_torch.models.vit import block_weights
+
+    D, N = model.cfg.backbone.embed_dim, model.cfg.backbone.num_tokens
+    blk = copy.deepcopy(model.backbone.blocks[0]).to(tdt)
+    w = block_weights({k: v.detach() for k, v in blk.named_parameters()}, "")
+    x = torch.from_numpy(rng.standard_normal((B, N, D)).astype(np.float32)).to(dev, tdt)
+    dout = torch.from_numpy((rng.standard_normal((B, N, D)) * 0.02).astype(np.float32)).to(dev, tdt)
+    keep = torch.from_numpy((np.floor(keep_prob + rng.uniform(size=B)) / keep_prob)
+                            .astype(np.float32)).to(dev)
+    keep[0], keep[1] = 1 / keep_prob, 0.0
+    return blk, w, x, dout, keep
+
+
+def holder(torch, errs, tdt, B):
+    """``hold(name, got, ref)``: ``got`` against its plain version ``ref``
+    within ``TRAIN_TOL``, the worst (relative, absolute) error per name
+    kept in ``errs``."""
+    def hold(name, got, ref):
+        check(got.dtype == ref.dtype and got.shape == ref.shape, f"{name}: {got.dtype} {ref.dtype}")
+        err, rel = max_rel_err(torch, got, ref)
+        errs[name] = max(errs.get(name, (0.0, 0.0)), (rel, err))
+        check(rel <= TRAIN_TOL[str(tdt)], f"{name} {tdt} B={B} disagrees with its plain version: {rel}")
+    return hold
 
 
 def check_train_kernels(torch, model, rng, dev):
     """K5, K6a and K7 against their plain versions on block 0 at bf16 and
     fp32, at the main path's 64 crops and at 3, and K8 on every leaf of the
     model, bit for bit; returns measurements per kernel."""
-    import copy
-
     from easy_vitpose_tpu_torch.models import fused_block_train as fbt
-    from easy_vitpose_tpu_torch.models.vit import block_weights
     from easy_vitpose_tpu_torch.train import fused_opt
 
     cfg = model.cfg.backbone
@@ -385,23 +439,13 @@ def check_train_kernels(torch, model, rng, dev):
     hidden = int(D * cfg.mlp_ratio)
     out = {}
     for tdt in (torch.bfloat16, torch.float32):
-        blk = copy.deepcopy(model.backbone.blocks[0]).to(tdt)
-        w = block_weights({k: v.detach() for k, v in blk.named_parameters()}, "")
         for B in (SLOTS, 3):
-            x = torch.from_numpy(rng.standard_normal((B, N, D)).astype(np.float32)).to(dev, tdt)
-            dout = torch.from_numpy((rng.standard_normal((B, N, D)) * 0.02).astype(np.float32)).to(dev, tdt)
-            keep = torch.from_numpy((np.floor(0.7 + rng.uniform(size=B)) / 0.7).astype(np.float32)).to(dev)
-            keep[0], keep[1] = 1 / 0.7, 0.0                   # one kept, one dropped crop
+            blk, w, x, dout, keep = block_inputs(torch, model, rng, dev, tdt, B, 0.7)
             errs = {}
+            hold = holder(torch, errs, tdt, B)
 
-            def hold(name, got, ref):
-                check(got.dtype == ref.dtype and got.shape == ref.shape, f"{name}: {got.dtype} {ref.dtype}")
-                err, rel = max_rel_err(torch, got, ref)
-                errs[name] = max(errs.get(name, (0.0, 0.0)), (rel, err))
-                check(rel <= TRAIN_TOL[str(tdt)], f"{name} {tdt} B={B} disagrees with its plain version: {rel}")
-
-            o, x1 = fbt.train_forward(x, keep, w, heads, eps)
-            ro, rx1 = fbt.train_forward_plain(x, keep, w, heads, eps)
+            o, x1, _, _ = fbt.train_forward(x, keep, w, heads, eps)
+            ro, rx1, _, _ = fbt.train_forward_plain(x, keep, w, heads, eps)
             hold("K5", o, ro)
             hold("K5", x1, rx1)
             dx1, gm = fbt.mlp_backward(rx1, dout, keep, w, eps)
@@ -480,10 +524,7 @@ def check_wide_kernels(torch, model, rng, dev):
     and fp32, at 64 crops and at 3, and against K6a on the same inputs; K9
     on every leaf of the model and a ragged one, bit for bit (codes, scales
     and params); returns measurements per kernel."""
-    import copy
-
     from easy_vitpose_tpu_torch.models import fused_block_train as fbt
-    from easy_vitpose_tpu_torch.models.vit import block_weights
     from easy_vitpose_tpu_torch.train import fused_opt
 
     cfg = model.cfg.backbone
@@ -491,20 +532,10 @@ def check_wide_kernels(torch, model, rng, dev):
     hidden = int(D * cfg.mlp_ratio)
     out = {}
     for tdt in (torch.bfloat16, torch.float32):
-        blk = copy.deepcopy(model.backbone.blocks[0]).to(tdt)
-        w = block_weights({k: v.detach() for k, v in blk.named_parameters()}, "")
         for B in (SLOTS, 3):
-            x1 = torch.from_numpy(rng.standard_normal((B, N, D)).astype(np.float32)).to(dev, tdt)
-            dout = torch.from_numpy((rng.standard_normal((B, N, D)) * 0.02).astype(np.float32)).to(dev, tdt)
-            keep = torch.from_numpy((np.floor(0.5 + rng.uniform(size=B)) / 0.5).astype(np.float32)).to(dev)
-            keep[0], keep[1] = 2.0, 0.0                       # one kept, one dropped crop
+            blk, w, x1, dout, keep = block_inputs(torch, model, rng, dev, tdt, B, 0.5)
             errs = {}
-
-            def hold(name, got, ref):
-                check(got.dtype == ref.dtype and got.shape == ref.shape, f"{name}: {got.dtype} {ref.dtype}")
-                err, rel = max_rel_err(torch, got, ref)
-                errs[name] = max(errs.get(name, (0.0, 0.0)), (rel, err))
-                check(rel <= TRAIN_TOL[str(tdt)], f"{name} {tdt} B={B} disagrees with its plain version: {rel}")
+            hold = holder(torch, errs, tdt, B)
 
             got = fbt.mlp_backward_dx_save(x1, dout, keep, w, eps)
             ref = fbt.mlp_backward_dx_save_plain(x1, dout, keep, w, eps)
@@ -578,6 +609,162 @@ def check_wide_kernels(torch, model, rng, dev):
     return out
 
 
+def equal_to(torch, got, ref, what):
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)), f"{what} is not bit for bit")
+
+
+def f32_close(torch, got, ref, what):
+    """Each tensor within 1e-6 of the largest |ref| of its kind."""
+    worst = max(max_rel_err(torch, a, b)[1] for a, b in zip(got, ref))
+    check(worst <= 1e-6, f"{what} at float32: {worst}")
+    return worst
+
+
+def flat(res):
+    """(dx, (grads...)) -> (dx, grads...)"""
+    return (res[0], *res[1])
+
+
+def check_flavor_kernels(torch, model, rng, dev):
+    """The saved flavors on ViT-B's block 0 at bf16 and fp32, 64 crops and
+    3: K5's saved qkv and m, K6a ``_ms`` and K7 ``_saved`` against their
+    plain versions (on the plain forward's x1, m and qkv); K7 ``_saved`` on
+    K5's own qkv equal to K7 bit for bit; at fp32 K6a ``_ms`` on K5's own x1
+    and m within 1e-6 of K6a.  Returns measurements per kernel."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+
+    cfg = model.cfg.backbone
+    D, N, heads, eps = cfg.embed_dim, cfg.num_tokens, cfg.num_heads, cfg.layer_norm_eps
+    hidden = int(D * cfg.mlp_ratio)
+    out = {}
+    for tdt in (torch.bfloat16, torch.float32):
+        for B in (SLOTS, 3):
+            blk, w, x, dout, keep = block_inputs(torch, model, rng, dev, tdt, B, 0.7)
+            errs = {}
+            hold = holder(torch, errs, tdt, B)
+
+            got = fbt.train_forward(x, keep, w, heads, eps, save_qkv=True, save_m=True)
+            ref = fbt.train_forward_plain(x, keep, w, heads, eps, save_qkv=True, save_m=True)
+            for g_, r_ in zip(got, ref):
+                hold("K5 saves", g_, r_)
+            _, rx1, rqkv, rm = ref
+            dx1 = dout * 5                                  # the grad into x1, rounded
+            equal_to(torch, flat(fbt.attn_backward(x, dx1, keep, w, heads, eps, qkv=got[2])),
+                     flat(fbt.attn_backward(x, dx1, keep, w, heads, eps)), "K7_saved = K7")
+            for g_, r_ in zip(flat(fbt.attn_backward(x, dx1, keep, w, heads, eps, qkv=rqkv)),
+                              flat(fbt.attn_backward_plain(x, dx1, keep, w, heads, eps, rqkv))):
+                hold("K7_saved", g_, r_)
+            ms_got = flat(fbt.mlp_backward(rx1, dout, keep, w, eps, m=rm))
+            for g_, r_ in zip(ms_got, flat(fbt.mlp_backward_plain(rx1, dout, keep, w, eps, rm))):
+                hold("K6a_ms", g_, r_)
+            note = ""
+            if tdt == torch.float32:      # on K5's own x1 and m: the m K6a recomputes
+                worst = f32_close(torch, flat(fbt.mlp_backward(got[1], dout, keep, w, eps, m=got[3])),
+                                  flat(fbt.mlp_backward(got[1], dout, keep, w, eps)), "K6a_ms vs K6a")
+                note = f" K6a_ms vs K6a {worst:.2e}"
+            print(f"check flavors {tdt} B={B}:", " ".join(f"{k} rel {v[0]:.3e} abs {v[1]:.3e}"
+                                                         for k, v in errs.items()),
+                  f"K7_saved == K7{note}")
+            if B != SLOTS or tdt != torch.bfloat16:
+                continue
+            fwd_ops, mlp_ops, attn_ops = train_block_work(B, N, D, hidden)
+            R = B * N
+            act, mlp_w, attn_w = R * D * 2, 2 * D * hidden * 2, 4 * D * D * 2
+            layer = encoder_layer(torch, blk)
+            out["K6a_ms"] = {
+                "max_abs_err": errs["K6a_ms"][1],
+                "ms": time_ms(torch, lambda: fbt.mlp_backward(rx1, dout, keep, w, eps, m=rm)),
+                "plain_ms": time_ms(torch, lambda: fbt.mlp_backward_plain(rx1, dout, keep, w, eps, rm)),
+                "bound": bound(3 * act + R * hidden * 2 + 2 * mlp_w, {"bf16": mlp_ops * 4 / 5}),
+                "library_ms": time_ms(torch, sublayer_backward(torch, layer, rx1, dout, "mlp"))}
+            out["K7_saved"] = {
+                "max_abs_err": errs["K7_saved"][1],
+                "ms": time_ms(torch, lambda: fbt.attn_backward(x, dx1, keep, w, heads, eps, qkv=rqkv)),
+                "plain_ms": time_ms(torch, lambda: fbt.attn_backward_plain(x, dx1, keep, w, heads, eps, rqkv)),
+                "bound": bound(6 * act + 2 * attn_w, {"bf16": attn_ops - 2.0 * R * D * 3 * D}),
+                "library_ms": time_ms(torch, sublayer_backward(torch, layer, x, dx1, "attn"))}
+    return out
+
+
+def saved_m_cuda(x1, w, eps):
+    """The pre-GELU m that K5's launches save for ``x1`` (its LN2 and fc1
+    GEMM), (B, N, hidden) in x1's dtype."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+
+    B, N, D = x1.shape
+    h2 = fbt.layernorm_cuda(x1.reshape(B * N, D), w.ln2_w, w.ln2_b, eps, x1.dtype)
+    return fbt.gemm_nt(h2, w.fc1_w, fbt.TE_GELU_SAVE_T, bias=w.fc1_b)[1].reshape(B, N, -1)
+
+
+def check_wide_flavor_kernels(torch, model, rng, dev):
+    """The wide flavors on ViT-L's block 0 at bf16 and fp32, 64 crops and
+    3: K6b ``_ms`` (on a saved m from the plain forward's chain), K6d and
+    K6e against their plain versions; K6d then K6e equal to K6b then K6c
+    bit for bit; at fp32 K6b ``_ms`` on the m K5 saves for that x1 within
+    1e-6 of K6b.  Returns measurements per kernel."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    from easy_vitpose_tpu_torch.models.vit import layer_norm, linear_f32
+
+    cfg = model.cfg.backbone
+    D, N, eps = cfg.embed_dim, cfg.num_tokens, cfg.layer_norm_eps
+    hidden = int(D * cfg.mlp_ratio)
+    out = {}
+    for tdt in (torch.bfloat16, torch.float32):
+        for B in (SLOTS, 3):
+            blk, w, x1, dout, keep = block_inputs(torch, model, rng, dev, tdt, B, 0.5)
+            m = linear_f32(layer_norm(x1, w.ln2_w, w.ln2_b, eps), w.fc1_w, w.fc1_b).to(tdt)
+            errs = {}
+            hold = holder(torch, errs, tdt, B)
+
+            got = fbt.mlp_backward_dx_save(x1, dout, keep, w, eps, m=m)
+            for g_, r_ in zip(got, fbt.mlp_backward_dx_save_plain(x1, dout, keep, w, eps, m)):
+                hold("K6b_ms", g_, r_)
+            for g_, r_ in zip(fbt.mlp_backward_dx(x1, dout, keep, w, eps),
+                              fbt.mlp_backward_dx_plain(x1, dout, keep, w, eps)):
+                hold("K6d", g_, r_)
+            for g_, r_ in zip(fbt.mlp_backward_dw(x1, dout, keep, w, eps),
+                              fbt.mlp_backward_dw_plain(x1, dout, keep, w, eps)):
+                hold("K6e", g_, r_)
+            equal_to(torch, flat(fbt.wide_mlp_backward_recompute(x1, dout, keep, w, eps)),
+                     flat(fbt.wide_mlp_backward(x1, dout, keep, w, eps)), "K6d + K6e = K6b + K6c")
+            note = ""
+            if tdt == torch.float32:      # on the m that K5 would save for this x1
+                worst = f32_close(torch, fbt.mlp_backward_dx_save(x1, dout, keep, w, eps,
+                                                                  m=saved_m_cuda(x1, w, eps)),
+                                  fbt.mlp_backward_dx_save(x1, dout, keep, w, eps), "K6b_ms vs K6b")
+                note = f" K6b_ms vs K6b {worst:.2e}"
+            print(f"check wide flavors {tdt} B={B}:", " ".join(
+                f"{k} rel {v[0]:.3e} abs {v[1]:.3e}" for k, v in errs.items()),
+                f"K6d+K6e == K6b+K6c{note}")
+            if B != SLOTS or tdt != torch.bfloat16:
+                continue
+            R = B * N
+            gemm = 2.0 * R * D * hidden
+            act, hid, wts = R * D * 2, R * hidden * 2, 2 * D * hidden * 2
+            layer = encoder_layer(torch, blk)
+            inputs = sublayer_backward(torch, layer, x1, dout, "mlp", weights=False)
+            out["K6b_ms"] = {
+                "max_abs_err": errs["K6b_ms"][1],
+                "ms": time_ms(torch, lambda: fbt.mlp_backward_dx_save(x1, dout, keep, w, eps, m=m)),
+                "plain_ms": time_ms(torch, lambda: fbt.mlp_backward_dx_save_plain(x1, dout, keep, w, eps, m)),
+                "bound": bound(5 * act + 3 * hid + wts, {"bf16": 2 * gemm}),
+                "library_ms": time_ms(torch, inputs)}
+            out["K6d"] = {
+                "max_abs_err": errs["K6d"][1],
+                "ms": time_ms(torch, lambda: fbt.mlp_backward_dx(x1, dout, keep, w, eps)),
+                "plain_ms": time_ms(torch, lambda: fbt.mlp_backward_dx_plain(x1, dout, keep, w, eps)),
+                "bound": bound(3 * act + wts, {"bf16": 3 * gemm}),
+                "library_ms": time_ms(torch, inputs)}
+            out["K6e"] = {
+                "max_abs_err": errs["K6e"][1],
+                "ms": time_ms(torch, lambda: fbt.mlp_backward_dw(x1, dout, keep, w, eps)),
+                "plain_ms": time_ms(torch, lambda: fbt.mlp_backward_dw_plain(x1, dout, keep, w, eps)),
+                "bound": bound(2 * act + 2 * wts, {"bf16": 4 * gemm}),
+                "library_ms": time_ms(torch, sublayer_backward(torch, layer, x1, dout, "mlp",
+                                                               weights="only"))}
+    return out
+
+
 def train_batch(torch, rng, B: int, dev) -> dict:
     """A device-input batch: B uint8 crops of noise and 17 joints each
     inside the crop, 85% visible."""
@@ -589,16 +776,46 @@ def train_batch(torch, rng, B: int, dev) -> dict:
                                            .astype(np.float32)).to(dev)}
 
 
-def run_train_step(torch, model, rng, seed, dev, moments: str = "f32"):
-    """The training step at full width with Adam moments at ``moments``;
-    returns launches, losses, the kernel-vs-plain errors and times."""
+FLAVOR_VARS = ("EVT_TRAIN_ATTN", "EVT_TRAIN_MLP", "EVT_TRAIN_WIDE")
+
+
+@contextlib.contextmanager
+def flavor_env(flavor: dict):
+    """The ``EVT_TRAIN_*`` switches set to ``flavor`` (the others unset)
+    inside the block, and restored after it."""
+    saved = {k: os.environ.get(k) for k in FLAVOR_VARS}
+    try:
+        for k in FLAVOR_VARS:
+            os.environ.pop(k, None)
+        os.environ.update(flavor)
+        yield
+    finally:
+        for k, v in saved.items():
+            os.environ.pop(k, None)
+            if v is not None:
+                os.environ[k] = v
+
+
+def run_train_step(torch, model, rng, seed, dev, block_kernels, moments: str = "f32",
+                   flavor: dict = None):
+    """The training step at full width with Adam moments at ``moments``
+    under the ``EVT_TRAIN_*`` switches ``flavor``; each counter of
+    ``block_kernels`` must count one launch per block and no other block
+    kernel may launch.  Returns launches, losses, the kernel-vs-plain
+    errors and times."""
+    with flavor_env(flavor or {}):
+        return _run_train_step(torch, model, rng, seed, dev, block_kernels, moments, flavor)
+
+
+def _run_train_step(torch, model, rng, seed, dev, block_kernels, moments, flavor):
     from easy_vitpose_tpu_torch import kernels
-    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
     from easy_vitpose_tpu_torch.models.vit import draw_drop_path_masks
     from easy_vitpose_tpu_torch.train import fused_opt, step as tstep
 
     cfg = model.cfg
     depth, name = cfg.backbone.depth, f"train step ViT-{cfg.name.upper()} {moments}"
+    if flavor:
+        name += " " + " ".join(f"{k[10:]}={v}" for k, v in flavor.items())
     B = SLOTS
     batch = train_batch(torch, rng, B, dev)
     tx = fused_opt.make_fused_adam(TRAIN_LR, max_grad_norm=TRAIN_CLIP, moment_dtype=moments)
@@ -611,9 +828,7 @@ def run_train_step(torch, model, rng, seed, dev, moments: str = "f32"):
     state, m = step(state, batch, gen)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    mlp = ((fbt.BWD_MLP_DX_SAVE, fbt.BWD_MLP_DW_SAVED) if cfg.backbone.embed_dim > fbt.WIDE_D
-           else (fbt.BWD_MLP,))
-    want = {fbt.FWD: depth, fbt.BWD_ATTN: depth, **dict.fromkeys(mlp, depth),
+    want = {**dict.fromkeys(block_kernels, depth),
             (fused_opt.KERNEL_Q8 if moments == "int8" else fused_opt.KERNEL): len(state["params"])}
     print(f"{name}: launches {counts}")
     check(counts == want, f"{name} launched {counts}, expected {want}")
@@ -665,6 +880,66 @@ def run_train_step(torch, model, rng, seed, dev, moments: str = "f32"):
           f"peak {res['max_memory_allocated_gib']:.2f} GiB, moments {res['moment_bytes']} B "
           f"({moments}) against {res['moment_bytes_f32']} B at f32")
     return res
+
+
+def run_accum_step(torch, model, rng, seed, dev, accum: int = 2, ema: float = 0.999):
+    """One ViT-B AMP step of 64 crops in ``accum`` micro-batches with an EMA
+    of decay ``ema``, through the kernels and as the plain step, from one
+    state and the same drop-path masks: launches (the blocks' kernels once
+    per block and micro-batch, K8 once per leaf), the loss, the grads (from
+    the first Adam moment, mu = 0.1 s g with each side's clip scale s), the
+    BN running statistics chained through the micro-batches, and each EMA
+    against ``ema * e + (1 - ema) * p'`` of its own step."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    from easy_vitpose_tpu_torch.models.vit import draw_drop_path_masks
+    from easy_vitpose_tpu_torch.train import fused_opt, step as tstep
+
+    cfg, B = model.cfg, SLOTS
+    name = f"train step ViT-{cfg.name.upper()} grad_accum={accum} ema_decay={ema}"
+    batch = train_batch(torch, rng, B, dev)
+    masks = draw_drop_path_masks(cfg.backbone, B, torch.Generator(device=dev).manual_seed(seed), dev)
+    res = {}
+    for plain in (False, True):
+        tx = fused_opt.make_fused_adam(TRAIN_LR, max_grad_norm=TRAIN_CLIP)
+        state = tstep.init_train_state(model, tx, ema_decay=ema, device=dev)
+        step = tstep.make_train_step(cfg, tx, use_amp=True, ema_decay=ema, grad_accum=accum,
+                                     plain=plain)
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        new, m = step(state, batch, drop_path_masks=masks)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        counts = kernels.launch_counts()
+        depth = cfg.backbone.depth
+        want = ({fused_opt.KERNEL: len(state["params"])} if plain else
+                {fbt.FWD: accum * depth, fbt.BWD_MLP: accum * depth, fbt.BWD_ATTN: accum * depth,
+                 fused_opt.KERNEL: len(state["params"])})
+        print(f"{name}{' plain' if plain else ''}: launches {counts}, {ms:.1f} ms (first call)")
+        check(counts == want, f"{name} launched {counts}, expected {want}")
+        for k, e in new["ema_params"].items():
+            ref = state["ema_params"][k] * ema + new["params"][k] * (1.0 - ema)
+            check(torch.allclose(e, ref, rtol=2 ** -22, atol=1e-12),
+                  f"{name}: the EMA of {k} is not e' = d e + (1 - d) p'")
+        scale = 0.1 * min(1.0, TRAIN_CLIP / float(m["grad_norm"]))
+        res[plain] = {"loss": float(m["loss"]), "grad_norm": float(m["grad_norm"]),
+                      "grads": {k: v / scale for k, v in new["opt_state"].mu.items()},
+                      "bn": new["bn_state"], "launches": counts}
+        del state, new
+    k, p = res[False], res[True]
+    loss_err = abs(k["loss"] - p["loss"]) / abs(p["loss"])
+    grad_err = {n: max_rel_err(torch, k["grads"][n], p["grads"][n])[1] for n in p["grads"]}
+    bn_err = max(max_rel_err(torch, k["bn"][n], p["bn"][n])[1] for n in p["bn"])
+    worst = sorted(grad_err.items(), key=lambda kv: kv[1])[-3:]
+    print(f"{name} vs plain: loss {k['loss']:.6f} vs {p['loss']:.6f} (rel {loss_err:.3e}); "
+          f"grad norm {k['grad_norm']:.5f} vs {p['grad_norm']:.5f}; worst grads {worst}; "
+          f"BN statistics {bn_err:.3e}")
+    check(loss_err <= STEP_LOSS_TOL, f"{name} loss disagrees with the plain step: {loss_err}")
+    check(max(grad_err.values()) <= STEP_GRAD_TOL, f"{name} grads disagree: {worst}")
+    check(bn_err <= TRAIN_TOL["torch.bfloat16"], f"{name} BN statistics disagree: {bn_err}")
+    return {"launches": k["launches"], "loss_rel_err_vs_plain": loss_err,
+            "max_grad_rel_err_vs_plain": max(grad_err.values()), "bn_rel_err_vs_plain": bn_err}
 
 
 def run_pose_steps(torch, model, rng, reps, dev):
@@ -741,6 +1016,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from easy_vitpose_tpu_torch import kernels
     from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
     from easy_vitpose_tpu_torch.models.vitpose import init_params
 
     card = host_record(torch)
@@ -757,11 +1033,29 @@ def main() -> int:
         meas = check_kernels(torch, model, rng, dev)
         steps = run_pose_steps(torch, model, rng, args.reps, dev)
     meas.update(check_train_kernels(torch, model, rng, dev))
-    train = run_train_step(torch, model, rng, args.seed, dev)
+    train = run_train_step(torch, model, rng, args.seed, dev,
+                           (fbt.FWD, fbt.BWD_MLP, fbt.BWD_ATTN))
+    rng2 = np.random.default_rng(args.seed + 1)        # the flavors' phases draw apart
+    meas.update(check_flavor_kernels(torch, model, rng2, dev))
+    train_b_saved = run_train_step(torch, model, rng2, args.seed, dev,
+                                   (fbt.FWD, fbt.BWD_MLP_MS, fbt.BWD_ATTN_SAVED),
+                                   flavor={"EVT_TRAIN_ATTN": "saved", "EVT_TRAIN_MLP": "saved"})
+    accum = run_accum_step(torch, model, rng2, args.seed, dev)
     del model
     model_l = init_params(get_model_config("coco", "l"), args.seed).to(dev)
     meas.update(check_wide_kernels(torch, model_l, rng, dev))
-    train_l = run_train_step(torch, model_l, rng, args.seed, dev, moments="int8")
+    train_l = run_train_step(torch, model_l, rng, args.seed, dev,
+                             (fbt.FWD, fbt.BWD_MLP_DX_SAVE, fbt.BWD_MLP_DW_SAVED, fbt.BWD_ATTN),
+                             moments="int8")
+    meas.update(check_wide_flavor_kernels(torch, model_l, rng2, dev))
+    train_l_recompute = run_train_step(
+        torch, model_l, rng2, args.seed, dev,
+        (fbt.FWD, fbt.BWD_MLP_DX, fbt.BWD_MLP_DW, fbt.BWD_ATTN), moments="int8",
+        flavor={"EVT_TRAIN_WIDE": "recompute"})
+    train_l_saved_m = run_train_step(
+        torch, model_l, rng2, args.seed, dev,
+        (fbt.FWD, fbt.BWD_MLP_DX_SAVE_MS, fbt.BWD_MLP_DW_SAVED, fbt.BWD_ATTN), moments="int8",
+        flavor={"EVT_TRAIN_MLP": "saved"})
 
     rows = []
     spec = (("K1 fused_block bf16", "bf16", "block.cu", "models/fused_block.py:51", "bf16", "block"),
@@ -786,7 +1080,17 @@ def main() -> int:
                    "train_bwd_mlp_dw_saved", train_l),
                   ("K7 attn_backward", "K7", "models/fused_block_train.py:404", "train_bwd_attn", train),
                   ("K8 adam_leaf", "K8", "train/fused_opt.py:154", "adam", train),
-                  ("K9 adam_leaf_q8", "K9", "train/fused_opt.py:266", "adam_q8", train_l))
+                  ("K9 adam_leaf_q8", "K9", "train/fused_opt.py:266", "adam_q8", train_l),
+                  ("K6a_ms mlp_backward saved m", "K6a_ms", "models/fused_block_train.py:267",
+                   fbt.BWD_MLP_MS, train_b_saved),
+                  ("K6b_ms mlp_backward_dx_save saved m", "K6b_ms",
+                   "models/fused_block_train.py:327", fbt.BWD_MLP_DX_SAVE_MS, train_l_saved_m),
+                  ("K6d mlp_backward_dx", "K6d", "models/fused_block_train.py:237", fbt.BWD_MLP_DX,
+                   train_l_recompute),
+                  ("K6e mlp_backward_dw", "K6e", "models/fused_block_train.py:368", fbt.BWD_MLP_DW,
+                   train_l_recompute),
+                  ("K7_saved attn_backward saved qkv", "K7_saved", "models/fused_block_train.py:507",
+                   fbt.BWD_ATTN_SAVED, train_b_saved))
     for name, key, replaces, counter, run in train_spec:
         m = meas[key]
         src = {"K8": "adam.cu", "K9": "adam_q8.cu"}.get(key, "train_block.cu")
@@ -800,6 +1104,11 @@ def main() -> int:
     print("train_step:", json.dumps({k: v for k, v in train.items() if k != "launches"}))
     print("train_step_l_int8:", json.dumps({k: v for k, v in train_l.items() if k != "launches"}),
           json.dumps({"K9_host_ms": meas["K9"]["host_ms"]}))
+    for label, run in (("train_step_b_saved_qkv_m", train_b_saved),
+                       ("train_step_l_int8_wide_recompute", train_l_recompute),
+                       ("train_step_l_int8_saved_m", train_l_saved_m),
+                       ("train_step_b_grad_accum2_ema", accum)):
+        print(label + ":", json.dumps({k: v for k, v in run.items() if k != "launches"}))
     print("pose_steps:", json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "launches"}
                                      for k, v in steps.items()}))
     print(json.dumps({"kernels": rows}))

@@ -14,7 +14,8 @@ layout across: with ``bn_state=False`` it maps a tree without the head's
 Adam moments ``mu`` and ``nu``) to the port's trainable names.
 :func:`opt_state_from_jax` carries a whole fused-Adam state across, int8
 moments included, which are codes with per-block scales and so not
-elementwise.
+elementwise, and :func:`train_state_from_jax` a whole training state (its
+EMA weights too).
 """
 from __future__ import annotations
 
@@ -125,3 +126,31 @@ def opt_state_from_jax(opt_state, params: Mapping[str, Any], cfg: ModelConfig):
         mu=moments(opt_state.mu, 127), nu=moments(opt_state.nu, 255),
         hyperparams={"learning_rate": torch.tensor(
             np.float32(np.asarray(opt_state.hyperparams["learning_rate"])))})
+
+
+def train_state_from_jax(state: Mapping[str, Any], cfg: ModelConfig, device=None):
+    """A JAX training state (``init_train_state``'s dict after any steps,
+    with a fused-Adam ``opt_state``) -> the port's training state on
+    ``device``, CUDA unless the caller passes ``device="cpu"``: params, BN
+    running statistics, the optimizer state (:func:`opt_state_from_jax`),
+    the step count, and ``ema_params`` where the state keeps them."""
+    from ..kernels import resolve_device
+    from ..train.step import split_bn_state
+
+    dev = resolve_device(device)
+    params = state["params"]
+    full = state_dict_from_jax({"backbone": params["backbone"],
+                                "head": {**params["head"], "bn_state": state["bn_state"]}}, cfg)
+    trainable, bn_state = split_bn_state(full)
+    opt = opt_state_from_jax(state["opt_state"], params, cfg)
+    to = lambda t: t.to(dev)  # noqa: E731
+    out = {"params": {k: to(v) for k, v in trainable.items()},
+           "opt_state": opt._replace(count=to(opt.count),
+                                     mu=_tree_map(to, opt.mu), nu=_tree_map(to, opt.nu),
+                                     hyperparams=_tree_map(to, opt.hyperparams)),
+           "bn_state": {k: to(v) for k, v in bn_state.items()},
+           "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=dev)}
+    if "ema_params" in state:
+        out["ema_params"] = {k: to(v) for k, v in
+                             state_dict_from_jax(state["ema_params"], cfg, bn_state=False).items()}
+    return out

@@ -1,6 +1,7 @@
-// K5, K6a, K6b, K6c and K7: the training block's forward and its backward,
-// as sequences of launches driven by models/fused_block_train.py.  LayerNorm
-// and the forward attention come from block.cu (K1); this file adds
+// K5, K6a-K6e and K7: the training block's forward and its backward, in
+// every flavor of the JAX package, as sequences of launches driven by
+// models/fused_block_train.py.  LayerNorm and the forward attention come
+// from block.cu (K1); this file adds
 //
 //   * a GEMM for the three layouts a backward needs, C = A . B^T over K with
 //     A (M, K) and B (N, K) each stored K-contiguous or not: NT (the forward
@@ -11,32 +12,42 @@
 //     block owns one 64x64 output tile for the whole K loop, so a weight
 //     grad is one deterministic sum with no atomics.  The TN products come
 //     in pairs, a backward's two weight grads in one launch whose grid
-//     covers the tiles of both (K6c; K6a's and K7's weight grads too);
+//     covers the tiles of both (K6c, and the weight grads of K6a, K6e, K7);
 //   * epilogues: bias, GELU, the drop-path residual round(x + dp * (acc + b))
-//     with the branch kept in float32, GELU saving the float32 pre-activation,
-//     and the GELU derivative;
+//     with the branch kept in float32, GELU saving the pre-activation (in
+//     float32 for the recompute flavors, rounded to the working dtype for
+//     the saved-m flavor's forward), and the GELU derivative of a float32
+//     pre-activation or of a saved one (which also gives the saved flavor's
+//     GELU output, so saved m costs no launch of its own);
 //   * a row kernel for the LayerNorm backward and a two-stage column sum for
 //     the bias and LayerNorm grads (partials per row chunk, then one fixed-
 //     order sum per column);
 //   * the attention backward for one (crop, head) split over two kernels by
 //     query tiles (o, dq, softmax statistics) and key tiles (dk, dv), each
 //     recomputing the logits, so that K, V, Q and dO fit shared memory;
-//   * K6b is K6a's launch sequence up to dx1, and K6c the pair launch of
-//     its two weight grads, both driven from Python.
+//   * the flavors are launch sequences driven from Python: K6b is K6a's
+//     sequence up to dx1, K6c the pair launch of its two weight grads; K6d
+//     and K6e split K6a's sequence at dx1 with the recompute repeated; the
+//     saved flavors skip a recompute GEMM.
 // Replaces easy_vitpose_tpu/models/fused_block_train.py::_fwd_kernel,
-// _bwd_mlp_kernel, _bwd_mlp_dx_save_kernel, _bwd_mlp_dw_saved_kernel and
-// _bwd_attn_kernel.
+// _bwd_mlp_kernel, _bwd_mlp_kernel_ms, _bwd_mlp_dx_kernel,
+// _bwd_mlp_dx_save_kernel, _bwd_mlp_dx_save_kernel_ms,
+// _bwd_mlp_dw_saved_kernel, _bwd_mlp_dw_kernel, _bwd_attn_kernel and
+// _bwd_attn_saved_kernel.
 #include <cfloat>
 
 #include "common.cuh"
 
 enum {
-    TE_NONE = 0,       // out = round(acc + bias)
-    TE_GELU = 1,       // out = round(gelu(acc + bias))
-    TE_DP_RES = 2,     // out = round(res + dp[row / tokens] * (acc + bias))
-    TE_GELU_SAVE = 3,  // out_f = acc + bias; out = round(gelu(out_f))
-    TE_GELU_GRAD = 4,  // out_f = acc * gelu'(aux)
-    TE_F32 = 5,        // out_f = acc
+    TE_NONE = 0,          // out = round(acc + bias)
+    TE_GELU = 1,          // out = round(gelu(acc + bias))
+    TE_DP_RES = 2,        // out = round(res + dp[row / tokens] * (acc + bias))
+    TE_GELU_SAVE = 3,     // out2 (float32) = acc + bias; out = round(gelu(out2))
+    TE_GELU_GRAD = 4,     // out2 (float32) = acc * gelu'(aux), aux float32
+    TE_F32 = 5,           // out2 (float32) = acc + bias
+    TE_GELU_SAVE_T = 6,   // out = round(gelu(acc + bias)); out2 (T) = round(acc + bias)
+    TE_GELU_GRAD_T = 7,   // out = round(acc * gelu'(aux)), aux float32
+    TE_GELU_GRAD_MS = 8,  // aux T: out2 (float32) = acc * gelu'(aux); out = round(gelu(aux))
 };
 
 struct Epi {
@@ -44,9 +55,9 @@ struct Epi {
     const void* bias;   // T per column, or null
     const void* res;    // T (M, ldo)
     const float* dp;    // per crop
-    const float* aux;   // float32 (M, ldo)
+    const void* aux;    // (M, ldo): float32, or T for TE_GELU_GRAD_MS
     void* out;          // T
-    float* out_f;       // float32
+    void* out2;         // float32, or T for TE_GELU_SAVE_T
 };
 
 __device__ __forceinline__ float gelu_grad(float x) {
@@ -55,22 +66,51 @@ __device__ __forceinline__ float gelu_grad(float x) {
     return cdf + x * pdf;
 }
 
-template <typename T>
+// The epilogues come in two families, each compiled into GEMM kernels of its
+// own: the default path's (TE_NONE .. TE_F32) and the flavors' (TE_GELU_SAVE_T
+// .. TE_GELU_GRAD_MS).  One kernel holding all nine made the default path's
+// GELU epilogues 6-10% slower (PERF.md).
+constexpr int FLAVOR_EPI = TE_GELU_SAVE_T;
+
+template <typename T, int FAM>
 __device__ __forceinline__ void epi_store(const Epi& e, int row, int col, float acc) {
     const size_t idx = (size_t)row * e.ldo + col;
     float v = acc;
     if (e.bias) v = __fadd_rn(v, to_f(static_cast<const T*>(e.bias)[col]));
     T* out = static_cast<T*>(e.out);
-    switch (e.mode) {
-        case TE_NONE: out[idx] = from_f<T>(v); break;
-        case TE_GELU: out[idx] = from_f<T>(gelu_as(v)); break;
-        case TE_DP_RES:
-            out[idx] = from_f<T>(__fadd_rn(to_f(static_cast<const T*>(e.res)[idx]),
-                                           __fmul_rn(v, e.dp[row / e.tokens])));
-            break;
-        case TE_GELU_SAVE: e.out_f[idx] = v; out[idx] = from_f<T>(gelu_as(v)); break;
-        case TE_GELU_GRAD: e.out_f[idx] = __fmul_rn(v, gelu_grad(e.aux[idx])); break;
-        default: e.out_f[idx] = v; break;
+    float* out_f = static_cast<float*>(e.out2);
+    if constexpr (FAM == 0) {
+        switch (e.mode) {
+            case TE_NONE: out[idx] = from_f<T>(v); break;
+            case TE_GELU: out[idx] = from_f<T>(gelu_as(v)); break;
+            case TE_DP_RES:
+                out[idx] = from_f<T>(__fadd_rn(to_f(static_cast<const T*>(e.res)[idx]),
+                                               __fmul_rn(v, e.dp[row / e.tokens])));
+                break;
+            case TE_GELU_SAVE: out_f[idx] = v; out[idx] = from_f<T>(gelu_as(v)); break;
+            case TE_GELU_GRAD:
+                out_f[idx] = __fmul_rn(v, gelu_grad(static_cast<const float*>(e.aux)[idx]));
+                break;
+            default: out_f[idx] = v; break;
+        }
+    } else {
+        switch (e.mode) {
+            case TE_GELU_SAVE_T:
+                static_cast<T*>(e.out2)[idx] = from_f<T>(v);
+                out[idx] = from_f<T>(gelu_as(v));
+                break;
+            case TE_GELU_GRAD_T:
+                // the float32 value TE_GELU_GRAD stores, rounded: K6d's dm1c
+                // is bit for bit the rounding of K6b's dm1
+                out[idx] = from_f<T>(__fmul_rn(v, gelu_grad(static_cast<const float*>(e.aux)[idx])));
+                break;
+            default: {   // TE_GELU_GRAD_MS
+                const float m = to_f(static_cast<const T*>(e.aux)[idx]);
+                out_f[idx] = __fmul_rn(v, gelu_grad(m));
+                out[idx] = from_f<T>(gelu_as(m));
+                break;
+            }
+        }
     }
 }
 
@@ -162,7 +202,7 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint
 }
 
 // one block's 64x64 output tile at (bm, bn), summed over all of K
-template <bool AK, bool BKM>
+template <bool AK, bool BKM, int FAM>
 __device__ __forceinline__ void gemm_bf16_tile(const bf16* __restrict__ A,
                                                const bf16* __restrict__ B, int M, int N, int K,
                                                int lda, int ldb, const Epi& ep, int bm, int bn) {
@@ -206,15 +246,15 @@ __device__ __forceinline__ void gemm_bf16_tile(const bf16* __restrict__ A,
             for (int e = 0; e < 4; ++e) {
                 const int row = bm + wm + mi * 16 + g + 8 * (e >> 1);
                 const int col = bn + wn + ni * 8 + 2 * t + (e & 1);
-                if (row < M && col < N) epi_store<bf16>(ep, row, col, acc[mi][ni][e]);
+                if (row < M && col < N) epi_store<bf16, FAM>(ep, row, col, acc[mi][ni][e]);
             }
 }
 
-template <bool AK, bool BKM>
+template <bool AK, bool BKM, int FAM>
 __global__ void __launch_bounds__(THREADS)
 gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N, int K,
                  int lda, int ldb, Epi ep) {
-    gemm_bf16_tile<AK, BKM>(A, B, M, N, K, lda, ldb, ep, blockIdx.y * BM, blockIdx.x * BM);
+    gemm_bf16_tile<AK, BKM, FAM>(A, B, M, N, K, lda, ldb, ep, blockIdx.y * BM, blockIdx.x * BM);
 }
 
 // ------------------------------------------------------------ f32 GEMM
@@ -240,7 +280,7 @@ __device__ __forceinline__ void load_f32(float (*dst)[FPITCH], const float* src,
     }
 }
 
-template <bool AK, bool BKM>
+template <bool AK, bool BKM, int FAM>
 __device__ __forceinline__ void gemm_f32_tile(const float* __restrict__ A,
                                               const float* __restrict__ B, int M, int N, int K,
                                               int lda, int ldb, const Epi& ep, int bm, int bn) {
@@ -269,15 +309,15 @@ __device__ __forceinline__ void gemm_f32_tile(const float* __restrict__ A,
 #pragma unroll
         for (int j = 0; j < 4; ++j) {
             const int row = bm + ty * 4 + i, col = bn + tx * 4 + j;
-            if (row < M && col < N) epi_store<float>(ep, row, col, acc[i][j]);
+            if (row < M && col < N) epi_store<float, FAM>(ep, row, col, acc[i][j]);
         }
 }
 
-template <bool AK, bool BKM>
+template <bool AK, bool BKM, int FAM>
 __global__ void __launch_bounds__(256)
 gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B, int M, int N, int K,
                 int lda, int ldb, Epi ep) {
-    gemm_f32_tile<AK, BKM>(A, B, M, N, K, lda, ldb, ep, blockIdx.y * BM, blockIdx.x * BM);
+    gemm_f32_tile<AK, BKM, FAM>(A, B, M, N, K, lda, ldb, ep, blockIdx.y * BM, blockIdx.x * BM);
 }
 
 // Two TN products over the same K rows, C_i (M_i, N_i) = A_i^T B_i
@@ -318,33 +358,40 @@ __device__ __forceinline__ TnTile tn_pair_tile(const TnPair& pr) {
 
 __global__ void __launch_bounds__(THREADS) gemm_tn2_bf16_kernel(TnPair pr) {
     const TnTile tl = tn_pair_tile(pr);
-    gemm_bf16_tile<false, false>(static_cast<const bf16*>(tl.a), static_cast<const bf16*>(tl.b),
+    gemm_bf16_tile<false, false, 0>(static_cast<const bf16*>(tl.a), static_cast<const bf16*>(tl.b),
                                  tl.M, tl.N, pr.K, tl.M, tl.N, tl.ep, tl.bm, tl.bn);
 }
 
 __global__ void __launch_bounds__(256) gemm_tn2_f32_kernel(TnPair pr) {
     const TnTile tl = tn_pair_tile(pr);
-    gemm_f32_tile<false, false>(static_cast<const float*>(tl.a), static_cast<const float*>(tl.b),
+    gemm_f32_tile<false, false, 0>(static_cast<const float*>(tl.a), static_cast<const float*>(tl.b),
                                 tl.M, tl.N, pr.K, tl.M, tl.N, tl.ep, tl.bm, tl.bn);
 }
 
-template <typename T, bool AK, bool BKM>
+template <typename T, bool AK, bool BKM, int FAM>
 void launch(const void* a, const void* b, int M, int N, int K, int lda, int ldb, const Epi& ep,
             cudaStream_t st) {
     const dim3 grid((N + BM - 1) / BM, (M + BM - 1) / BM);
     if (sizeof(T) == 2)
-        gemm_bf16_kernel<AK, BKM><<<grid, THREADS, 0, st>>>(
+        gemm_bf16_kernel<AK, BKM, FAM><<<grid, THREADS, 0, st>>>(
             static_cast<const bf16*>(a), static_cast<const bf16*>(b), M, N, K, lda, ldb, ep);
     else
-        gemm_f32_kernel<AK, BKM><<<grid, 256, 0, st>>>(
+        gemm_f32_kernel<AK, BKM, FAM><<<grid, 256, 0, st>>>(
             static_cast<const float*>(a), static_cast<const float*>(b), M, N, K, lda, ldb, ep);
+}
+
+template <typename T, int FAM>
+void launch_layout(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
+                   int b_kmaj, const Epi& ep, cudaStream_t st) {
+    if (b_kmaj) launch<T, true, true, FAM>(a, b, M, N, K, lda, ldb, ep, st);
+    else launch<T, true, false, FAM>(a, b, M, N, K, lda, ldb, ep, st);
 }
 
 template <typename T>
 cudaError_t dispatch(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
                      int b_kmaj, const Epi& ep, cudaStream_t st) {
-    if (b_kmaj) launch<T, true, true>(a, b, M, N, K, lda, ldb, ep, st);
-    else launch<T, true, false>(a, b, M, N, K, lda, ldb, ep, st);
+    if (ep.mode >= FLAVOR_EPI) launch_layout<T, 1>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st);
+    else launch_layout<T, 0>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st);
     return cudaGetLastError();
 }
 }  // namespace tg
@@ -357,12 +404,12 @@ cudaError_t dispatch(const void* a, const void* b, int M, int N, int K, int lda,
 EVT_EXPORT int evt_train_gemm(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
                               int b_kmaj, int is_bf16, int mode, const void* bias,
                               const void* res, const void* dp, int tokens, const void* aux,
-                              void* out, void* out_f, int ldo, void* stream) {
+                              void* out, void* out2, int ldo, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     Epi ep;
     ep.mode = mode; ep.tokens = tokens; ep.ldo = ldo; ep.bias = bias; ep.res = res;
-    ep.dp = static_cast<const float*>(dp); ep.aux = static_cast<const float*>(aux);
-    ep.out = out; ep.out_f = static_cast<float*>(out_f);
+    ep.dp = static_cast<const float*>(dp); ep.aux = aux;
+    ep.out = out; ep.out2 = out2;
     return static_cast<int>(is_bf16
         ? tg::dispatch<bf16>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st)
         : tg::dispatch<float>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st));

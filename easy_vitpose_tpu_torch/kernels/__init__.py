@@ -75,7 +75,7 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     },
     "train_block": {
         # a, b, M, N, K, lda, ldb, b_kmaj, bf16, mode, bias, res, dp, tokens,
-        # aux, out, out_f, ldo, stream
+        # aux, out, out2, ldo, stream
         "evt_train_gemm": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _P,
                            _I, _P, _P, _P, _I, _P],
         # src, src_bf16, dp, tokens, dst, dst_bf16, partial, R, C, chunk, stream

@@ -15,7 +15,7 @@ its reciprocal, which is not JAX's division.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -24,14 +24,22 @@ from ..configs import HEATMAP_SIZE, IMAGE_SIZE
 SIGMA = 3.0     # of the target Gaussian, in heatmap cells (the JAX renderer's default)
 
 
-def generate_gaussian_targets(joints: torch.Tensor,
-                              joints_vis: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+def generate_gaussian_targets(joints: torch.Tensor, joints_vis: torch.Tensor,
+                              heatmap_size: Tuple[int, int] = HEATMAP_SIZE,
+                              image_size: Tuple[int, int] = IMAGE_SIZE,
+                              sigma: float = SIGMA,
+                              joints_weight: Optional[torch.Tensor] = None,
+                              use_different_joints_weight: bool = False
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(B, K, 2) joint xy in input pixels and (B, K, 2) visibility (first
-    column used) -> (B, K, 64, 48) float32 targets and (B, K, 1) weights."""
+    column used) -> (B, K, Hh, Wh) float32 targets and (B, K, 1) weights.
+    ``heatmap_size`` and ``image_size`` are (W, H); the weights are scaled by
+    the (K, 1) ``joints_weight`` only with ``use_different_joints_weight``,
+    as JAX's renderer does."""
     dev = joints.device
-    Wh, Hh = HEATMAP_SIZE
-    Wi, Hi = IMAGE_SIZE
-    tmp_size = SIGMA * 3
+    Wh, Hh = heatmap_size
+    Wi, Hi = image_size
+    tmp_size = sigma * 3
 
     stride = torch.tensor([Wi / Wh, Hi / Hh], dtype=torch.float32, device=dev)
     mu = torch.trunc(joints[..., :2].float() / stride + 0.5)
@@ -49,8 +57,11 @@ def generate_gaussian_targets(joints: torch.Tensor,
     gx = (xs - ulx - x0).float()
     gy = (ys - uly - x0).float()
     d2 = -(gx ** 2 + gy ** 2)
-    g = torch.exp(d2 / torch.full_like(d2[:1, :1, :1, :1], 2.0 * SIGMA ** 2))
+    g = torch.exp(d2 / torch.full_like(d2[:1, :1, :1, :1], 2.0 * sigma ** 2))
     inside = ((xs >= ulx) & (xs < br[..., 0][..., None, None])
               & (ys >= uly) & (ys < br[..., 1][..., None, None]))
     target = torch.where(inside & (weight[..., None, None] > 0.5), g, torch.zeros_like(g))
-    return target, weight[..., None]
+    weight = weight[..., None]
+    if use_different_joints_weight and joints_weight is not None:
+        weight = weight * torch.as_tensor(joints_weight, dtype=torch.float32, device=dev)
+    return target, weight

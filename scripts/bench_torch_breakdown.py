@@ -31,9 +31,17 @@ int8 and bf16:
   largest leaves, where K8 is fast) from launches too small to fill the
   card (a low rate only on the small leaves).
 
+With ``--flavors`` it runs only the A/B of the training block's opt-in
+flavors against the default, each pair in one process on one state, in
+turns (default, flavor, flavor, default; ``--reps`` steps a turn after a
+warm-up step of each): ViT-B (f32 moments) with ``EVT_TRAIN_ATTN=saved``
+and with ``EVT_TRAIN_MLP=saved``, ViT-L (int8 moments) with
+``EVT_TRAIN_WIDE=recompute`` and with ``EVT_TRAIN_MLP=saved``; ms/step on
+the host clock around synchronized steps and the peak memory of each.
+
 Usage (repository root, one CUDA card):
     python3 scripts/bench_torch_breakdown.py [--seed 0] [--reps 20] [--out FILE] \
-        [--size l --moments int8]
+        [--size l --moments int8] [--flavors]
 Prints one JSON object per part, and writes them all to ``--out`` as JSON.
 """
 import argparse
@@ -290,6 +298,52 @@ def adam_leaf_sizes(torch, params, dev, reps=10):
             "sizes": rows}
 
 
+FLAVOR_AB = (("vit_b_attn_saved", "b", "f32", {"EVT_TRAIN_ATTN": "saved"}),
+             ("vit_b_mlp_saved", "b", "f32", {"EVT_TRAIN_MLP": "saved"}),
+             ("vit_l_wide_recompute", "l", "int8", {"EVT_TRAIN_WIDE": "recompute"}),
+             ("vit_l_mlp_saved", "l", "int8", {"EVT_TRAIN_MLP": "saved"}))
+
+
+def flavor_ab(torch, seed, dev, reps):
+    """Each opt-in flavor against the default (see the module doc)."""
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.train import fused_opt, step as tstep
+
+    out, models = {}, {}
+    for name, size, moments, flavor in FLAVOR_AB:
+        if size not in models:
+            models.clear()
+            torch.cuda.empty_cache()
+            models[size] = init_params(get_model_config("coco", size), seed).to(dev)
+        model = models[size]
+        batch = cs.train_batch(torch, np.random.default_rng(seed), cs.SLOTS, dev)
+        tx = fused_opt.make_fused_adam(cs.TRAIN_LR, max_grad_norm=cs.TRAIN_CLIP, moment_dtype=moments)
+        state = tstep.init_train_state(model, tx, device=dev)
+        step = tstep.make_train_step(model.cfg, tx)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        times = {"default": [], "flavor": []}
+        peak = dict.fromkeys(times, 0.0)
+        for turn in ("default", "flavor", "flavor", "default"):
+            with cs.flavor_env(flavor if turn == "flavor" else {}):
+                if not times[turn]:
+                    state, _ = step(state, batch, gen)           # warm-up
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                for _ in range(reps):
+                    state, _ = step(state, batch, gen)
+                torch.cuda.synchronize()
+                times[turn].append((time.perf_counter() - t0) * 1e3 / reps)
+                peak[turn] = max(peak[turn], torch.cuda.max_memory_allocated() / 2 ** 30)
+        ms = {k: sum(v) / len(v) for k, v in times.items()}
+        out[name] = {"flavor": flavor, "moments": moments, "ms_per_step": ms, "turns_ms": times,
+                     "flavor_over_default": ms["flavor"] / ms["default"], "peak_gib": peak}
+        print(name + ":", json.dumps(out[name]))
+        del state
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -299,6 +353,8 @@ def main():
                     help="ViT size of the train step (the pose step stays ViT-B)")
     ap.add_argument("--moments", default="f32", choices=("f32", "bf16", "int8"),
                     help="Adam moment dtype of the train step")
+    ap.add_argument("--flavors", action="store_true",
+                    help="run only the A/B of the training block's flavors")
     args = ap.parse_args()
 
     import torch
@@ -313,6 +369,12 @@ def main():
                           text=True).stdout.strip().splitlines()[0]
     kernels.build()
     dev = torch.device("cuda")
+    if args.flavors:
+        result = {"card": card, "flavor_ab": flavor_ab(torch, args.seed, dev, args.reps)}
+        if args.out:
+            with open(args.out, "w") as f:
+                json.dump(result, f, indent=1)
+        return
     rng = np.random.default_rng(args.seed)
     model = init_params(get_model_config("coco", "b"), args.seed).to(dev)
     H, W = cs.FRAME_HW

@@ -1,0 +1,84 @@
+"""Time the default training path of one checkout of the PyTorch port.
+
+For the checkout at ``--root`` (default: this repository) it imports that
+checkout's ``chip_smoke.py`` and package, and on one CUDA card:
+
+* times K5, K6a, K7 and K8 on ViT-B's block 0 (``check_train_kernels``) and
+  K6b, K6c and K9 on ViT-L's (``check_wide_kernels``) at 64 crops, as that
+  checkout's smoke does (CUDA events, median of five windows);
+* times the ViT-B (float32 moments) and ViT-L (int8 moments) AMP train
+  steps of 64 crops with no ``EVT_TRAIN_*`` switch set: host clock around
+  synchronized steps, median of five windows of three steps after two
+  warm-up steps.
+
+It prints one JSON line.  To compare two checkouts on one card, run it on
+each in turns in one call, A, B, B, A:
+
+    python3 scripts/bench_torch_train_ab.py --root PARENT_DIR
+    python3 scripts/bench_torch_train_ab.py --root .
+"""
+import argparse
+import json
+import os
+import statistics
+import sys
+import time
+
+import numpy as np
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=os.path.join(os.path.dirname(__file__), ".."))
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    root = os.path.abspath(args.root)
+    sys.path.insert(0, root)
+    for var in ("EVT_TRAIN_ATTN", "EVT_TRAIN_MLP", "EVT_TRAIN_WIDE"):
+        os.environ.pop(var, None)
+
+    import torch
+    import chip_smoke as cs
+    cs.check(torch.cuda.is_available(), "no CUDA device")
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.train import fused_opt, step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cs.check(os.path.dirname(kernels.__file__).startswith(root), "imported another checkout")
+    kernels.build()
+    dev = torch.device("cuda")
+    out = {"root": root}
+    for size, moments, check in (("b", "f32", cs.check_train_kernels),
+                                 ("l", "int8", cs.check_wide_kernels)):
+        model = init_params(get_model_config("coco", size), args.seed).to(dev)
+        meas = check(torch, model, np.random.default_rng(args.seed), dev)
+        out.update({f"{k}_ms": v["ms"] for k, v in meas.items()})
+        batch = cs.train_batch(torch, np.random.default_rng(args.seed), cs.SLOTS, dev)
+        tx = fused_opt.make_fused_adam(cs.TRAIN_LR, max_grad_norm=cs.TRAIN_CLIP,
+                                       moment_dtype=moments)
+        state = tstep.init_train_state(model, tx, device=dev)
+        step = tstep.make_train_step(model.cfg, tx, use_amp=True)
+        gen = torch.Generator(device=dev).manual_seed(args.seed)
+        for _ in range(2):
+            state, _ = step(state, batch, gen)
+
+        def window():
+            nonlocal state
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(3):
+                state, _ = step(state, batch, gen)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / 3
+
+        out[f"step_vit_{size}_ms"] = statistics.median(window() for _ in range(5))
+        del model, state
+        torch.cuda.empty_cache()
+    print(json.dumps(out))
+
+
+if __name__ == "__main__":
+    main()

@@ -244,8 +244,8 @@ def test_train_block_kernels(dev, D, heads, N, dtype, tol):
     keep = torch.tensor([1.25, 0.0, 1.25], device=dev)
     dout = randn(dev, B, N, D, dtype=dtype, seed=2)
     kernels.reset_launch_counts()
-    out, x1 = fbt.train_forward(x, keep, w, heads, eps)
-    ref_out, ref_x1 = fbt.train_forward_plain(x, keep, w, heads, eps)
+    out, x1, _, _ = fbt.train_forward(x, keep, w, heads, eps)
+    ref_out, ref_x1, _, _ = fbt.train_forward_plain(x, keep, w, heads, eps)
     assert rel_err(out, ref_out) <= tol and rel_err(x1, ref_x1) <= tol
     dx1, gm = fbt.mlp_backward(ref_x1, dout, keep, w, eps)
     rdx1, rgm = fbt.mlp_backward_plain(ref_x1, dout, keep, w, eps)
@@ -283,6 +283,83 @@ def test_wide_mlp_backward_kernels(dev, D, N, dtype, tol):
     wide = fbt.wide_mlp_backward(x1, dout, keep, w, eps)
     for a, b in zip((k6a[0], *k6a[1]), (wide[0], *wide[1])):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("D,heads,N", [(128, 2, 192), (64, 2, 50), (1280, 16, 50)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_saved_flavor_kernels(dev, D, heads, N, dtype, tol):
+    """K5's saved qkv and m, K7 ``_saved`` and K6a ``_ms`` against their
+    plain versions (fed the plain forward's qkv, x1 and m); K7 ``_saved`` on
+    K5's own qkv is K7 bit for bit (the same GEMM on the same LN output); at
+    float32 K6a ``_ms`` is K6a's function within 1e-6."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    B, eps = 3, 1e-6
+    w = block_weights(dev, D, 4 * D, dtype)
+    x = randn(dev, B, N, D, dtype=dtype)
+    keep = torch.tensor([1.25, 0.0, 1.25], device=dev)
+    dout = randn(dev, B, N, D, dtype=dtype, seed=2)
+    kernels.reset_launch_counts()
+    got = fbt.train_forward(x, keep, w, heads, eps, save_qkv=True, save_m=True)
+    ref = fbt.train_forward_plain(x, keep, w, heads, eps, save_qkv=True, save_m=True)
+    for g, r in zip(got, ref):
+        assert g.dtype == r.dtype and g.shape == r.shape
+        assert rel_err(g, r) <= tol
+    _, rx1, rqkv, rm = ref
+    flat = lambda res: (res[0], *res[1])  # noqa: E731
+    saved = flat(fbt.attn_backward(x, dout, keep, w, heads, eps, qkv=got[2]))
+    for a, b in zip(saved, flat(fbt.attn_backward(x, dout, keep, w, heads, eps))):
+        assert torch.equal(a, b)
+    for g, r in zip(flat(fbt.attn_backward(x, dout, keep, w, heads, eps, qkv=rqkv)),
+                    flat(fbt.attn_backward_plain(x, dout, keep, w, heads, eps, rqkv))):
+        assert g.dtype == r.dtype and rel_err(g, r) <= tol
+    ms = flat(fbt.mlp_backward(rx1, dout, keep, w, eps, m=rm))
+    for g, r in zip(ms, flat(fbt.mlp_backward_plain(rx1, dout, keep, w, eps, rm))):
+        assert g.dtype == r.dtype and rel_err(g, r) <= tol
+    assert kernels.launch_counts() == {fbt.FWD: 1, fbt.BWD_ATTN_SAVED: 2, fbt.BWD_ATTN: 1,
+                                       fbt.BWD_MLP_MS: 1}
+    if dtype == torch.float32:          # on K5's own x1 and m: the m K6a recomputes
+        for g, r in zip(flat(fbt.mlp_backward(got[1], dout, keep, w, eps, m=got[3])),
+                        flat(fbt.mlp_backward(got[1], dout, keep, w, eps))):
+            assert rel_err(g, r) <= 1e-6
+
+
+@pytest.mark.parametrize("D,N", [(1024, 50), (1280, 77)])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_wide_flavor_kernels(dev, D, N, dtype, tol):
+    """K6b ``_ms``, K6d and K6e against their plain versions at ViT-L's and
+    ViT-H's widths with ragged row counts; K6d then K6e is K6b then K6c bit
+    for bit; at float32 K6b ``_ms`` on the m K5 saves is K6b within 1e-6."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    from easy_vitpose_tpu_torch.models.vit import layer_norm, linear_f32
+    B, eps = 3, 1e-6
+    w = block_weights(dev, D, 4 * D, dtype)
+    x1 = randn(dev, B, N, D, dtype=dtype)
+    keep = torch.tensor([2.0, 0.0, 2.0], device=dev)
+    dout = randn(dev, B, N, D, scale=0.1, dtype=dtype, seed=2)
+    m = linear_f32(layer_norm(x1, w.ln2_w, w.ln2_b, eps), w.fc1_w, w.fc1_b).to(dtype)
+    kernels.reset_launch_counts()
+    got = fbt.mlp_backward_dx_save(x1, dout, keep, w, eps, m=m)
+    pairs = [(got, fbt.mlp_backward_dx_save_plain(x1, dout, keep, w, eps, m)),
+             (fbt.mlp_backward_dx(x1, dout, keep, w, eps),
+              fbt.mlp_backward_dx_plain(x1, dout, keep, w, eps)),
+             (fbt.mlp_backward_dw(x1, dout, keep, w, eps),
+              fbt.mlp_backward_dw_plain(x1, dout, keep, w, eps))]
+    for gs, rs in pairs:
+        for g, r in zip(gs, rs):
+            assert g.dtype == r.dtype and g.shape == r.shape
+            assert rel_err(g, r) <= tol
+    assert kernels.launch_counts() == {fbt.BWD_MLP_DX_SAVE_MS: 1, fbt.BWD_MLP_DX: 1,
+                                       fbt.BWD_MLP_DW: 1}
+    rec = fbt.wide_mlp_backward_recompute(x1, dout, keep, w, eps)
+    sav = fbt.wide_mlp_backward(x1, dout, keep, w, eps)
+    for a, b in zip((rec[0], *rec[1]), (sav[0], *sav[1])):
+        assert torch.equal(a, b)
+    if dtype == torch.float32:          # on the m that K5's launches save for this x1
+        h2 = fb.layernorm_cuda(x1.reshape(B * N, D), w.ln2_w, w.ln2_b, eps, dtype)
+        m5 = fbt.gemm_nt(h2, w.fc1_w, fbt.TE_GELU_SAVE_T, bias=w.fc1_b)[1].reshape(B, N, -1)
+        for g, r in zip(fbt.mlp_backward_dx_save(x1, dout, keep, w, eps, m=m5),
+                        fbt.mlp_backward_dx_save(x1, dout, keep, w, eps)):
+            assert rel_err(g, r) <= 1e-6
 
 
 @pytest.mark.parametrize("n", [1, 2048, 2048 * 3 + 5, (1 << 20) + 7])
@@ -385,3 +462,109 @@ def test_wide_train_step_with_int8_moments(dev):
     assert abs(float(lk) - float(lp)) <= 1e-2 * float(lp)
     for k in gp:
         assert rel_err(gk[k], gp[k]) <= 0.1, k
+
+
+def small_model(D, heads, drop_path):
+    from easy_vitpose_tpu_torch.configs import BackboneConfig, HeadConfig, ModelConfig
+    return ModelConfig("small", "coco", BackboneConfig(embed_dim=D, depth=2, num_heads=heads,
+                                                       drop_path_rate=drop_path),
+                       HeadConfig(in_channels=D, num_keypoints=17, deconv_filters=(64, 64)))
+
+
+def small_batch(seed, n=4):
+    rng = np.random.default_rng(seed)
+    return {"images_u8": rng.integers(0, 256, (n, 256, 192, 3), dtype=np.uint8),
+            "joints": rng.uniform(0, 190, (n, 17, 2)).astype(np.float32),
+            "joints_vis": np.ones((n, 17, 2), np.float32)}
+
+
+@pytest.mark.parametrize("D,heads,moments,env,want", [
+    (128, 2, "f32", {"EVT_TRAIN_ATTN": "saved", "EVT_TRAIN_MLP": "saved"},
+     ("train_fwd", "train_bwd_mlp_ms", "train_bwd_attn_saved")),
+    (1024, 16, "int8", {"EVT_TRAIN_WIDE": "recompute"},
+     ("train_fwd", "train_bwd_mlp_dx", "train_bwd_mlp_dw", "train_bwd_attn")),
+    (1024, 16, "int8", {"EVT_TRAIN_MLP": "saved"},
+     ("train_fwd", "train_bwd_mlp_dx_save_ms", "train_bwd_mlp_dw_saved", "train_bwd_attn"))])
+def test_flavored_train_steps_through_the_kernels(dev, D, heads, moments, env, want, monkeypatch):
+    """Two AMP steps of a small model under each flavor's switches: each
+    block kernel of the flavor once per block and step, and no other; the
+    loss and every gradient against the plain step under the same switches."""
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.train import step as tstep
+    from easy_vitpose_tpu_torch.train.fused_opt import KERNEL, KERNEL_Q8, make_fused_adam
+
+    for k in ("EVT_TRAIN_ATTN", "EVT_TRAIN_MLP", "EVT_TRAIN_WIDE"):
+        monkeypatch.delenv(k, raising=False)
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    cfg = small_model(D, heads, 0.5)
+    batch = small_batch(2, 3)
+    tx = make_fused_adam(3.75e-4, moment_dtype=moments)
+    state = tstep.init_train_state(init_params(cfg, 0), tx)
+    step = tstep.make_train_step(cfg, tx)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for _ in range(2):
+        kernels.reset_launch_counts()
+        state, metrics = step(state, batch, gen)
+        assert kernels.launch_counts() == {**dict.fromkeys(want, 2),
+                                           (KERNEL_Q8 if moments == "int8" else KERNEL):
+                                           len(state["params"])}
+        assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
+    rendered = tstep.render_batch_on_device(batch, dev)
+    masks = torch.tensor([[2.0, 0.0, 2.0], [2.0, 2.0, 0.0]], device=dev).reshape(2, 3, 1, 1)
+    lk, _, gk = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered,
+                                     drop_path_masks=masks)
+    lp, _, gp = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered,
+                                     drop_path_masks=masks, plain=True)
+    assert abs(float(lk) - float(lp)) <= 1e-2 * float(lp)
+    for k in gp:
+        assert rel_err(gk[k], gp[k]) <= 0.1, k
+
+
+def test_grad_accum_ema_and_eval_steps_on_the_card(dev):
+    """A small model's AMP step with ``grad_accum=2`` and ``ema_decay`` on
+    the card: K5, K6a and K7 once per block and micro-batch; the loss, the
+    grads (from the first Adam moment) and the BN statistics against the
+    plain step; the EMA is d e + (1 - d) p'.  Then ``make_eval_step`` runs
+    the serving blocks (K1) and agrees with the same step on a CPU copy."""
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.train import step as tstep
+    from easy_vitpose_tpu_torch.train.fused_opt import make_fused_adam
+
+    cfg = small_model(128, 2, 0.3)
+    batch = small_batch(3)
+    masks = torch.tensor([[1.0, 1.43, 0.0, 1.43], [1.43, 0.0, 1.43, 1.43]],
+                         device=dev).reshape(2, 4, 1, 1)
+    out = {}
+    for plain in (False, True):
+        tx = make_fused_adam(3.75e-4)
+        state = tstep.init_train_state(init_params(cfg, 0), tx, ema_decay=0.99)
+        step = tstep.make_train_step(cfg, tx, ema_decay=0.99, grad_accum=2, plain=plain)
+        kernels.reset_launch_counts()
+        new, metrics = step(state, batch, drop_path_masks=masks)
+        counts = kernels.launch_counts()
+        assert counts.pop("adam") == len(state["params"])
+        assert counts == ({} if plain else {"train_fwd": 4, "train_bwd_mlp": 4,
+                                            "train_bwd_attn": 4})
+        for k, e in new["ema_params"].items():
+            ref = state["ema_params"][k] * 0.99 + new["params"][k] * (1.0 - 0.99)
+            assert torch.allclose(e, ref, rtol=2 ** -22, atol=1e-12), k
+        scale = 0.1 * min(1.0, 1.0 / float(metrics["grad_norm"]))
+        out[plain] = (float(metrics["loss"]), {k: v / scale for k, v in new["opt_state"].mu.items()},
+                      new)
+    assert abs(out[False][0] - out[True][0]) <= 1e-2 * out[True][0]
+    for k, g in out[True][1].items():
+        assert rel_err(out[False][1][k], g) <= 0.1, k
+    for k, v in out[True][2]["bn_state"].items():
+        assert rel_err(out[False][2]["bn_state"][k], v) <= 2e-2, k
+
+    state = out[False][2]
+    kernels.reset_launch_counts()
+    loss, heat = tstep.make_eval_step(cfg, return_heatmaps=True)(state, batch)
+    assert kernels.launch_counts() == {"block": 2}
+    assert heat.is_cuda and heat.dtype == torch.float32 and heat.shape == (4, 17, 64, 48)
+    cpu = {k: ({n: t.cpu() for n, t in v.items()} if isinstance(v, dict) else v)
+           for k, v in state.items() if k != "opt_state"}
+    cpu["step"] = state["step"].cpu()
+    ref = tstep.make_eval_step(cfg)(cpu, batch)
+    assert abs(float(loss) - float(ref)) <= 2e-2 * float(ref)

@@ -147,7 +147,7 @@ def test_plain_versions_split_like_the_kernels(case):
     x, layer = case
     w = port_weights(layer, torch.float32)
     xt, keep = torch.from_numpy(x), torch.from_numpy(KEEP)
-    out, x1 = fbt.train_forward_plain(xt, keep, w, 2, CFG.layer_norm_eps)
+    out, x1, _, _ = fbt.train_forward_plain(xt, keep, w, 2, CFG.layer_norm_eps)
     dout = torch.from_numpy(cotangent(out.shape))
     dx1, gm = fbt.mlp_backward_plain(x1, dout, keep, w, CFG.layer_norm_eps)
     dx, ga = fbt.attn_backward_plain(xt, dx1, keep, w, 2, CFG.layer_norm_eps)

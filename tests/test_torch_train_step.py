@@ -73,29 +73,39 @@ def port_tree(tree, cfg=PCFG):
     return state_dict_from_jax(tree, cfg, bn_state=False)
 
 
+def two_steps(amp, params, batch, keys, masks, **step_kw):
+    """JAX's and the port's (state, metrics) before and after each of two
+    steps from ``params``, JAX drawing drop-path from ``keys`` and the port
+    given ``masks``; ``step_kw`` go to both ``make_train_step``s."""
+    tx = jax_fused_adam(LR, max_grad_norm=1.0)
+    jf = jax.jit(jstep.make_train_step(CFG, tx, use_amp=amp, block_impl="pallas_train_interpret",
+                                       **step_kw))
+    js = jstep.init_train_state(params, tx, ema_decay=step_kw.get("ema_decay", 0.0))
+    ptx = make_fused_adam(LR, max_grad_norm=1.0)
+    pf = pstep.make_train_step(PCFG, ptx, use_amp=amp, **step_kw)
+    ps = pstep.init_train_state(state_dict_from_jax(params, PCFG), ptx,
+                                ema_decay=step_kw.get("ema_decay", 0.0), device="cpu")
+    seq = [(js, None, ps, None)]
+    for k, m in zip(keys, masks):
+        js, jm = jf(js, {n: jnp.asarray(v) for n, v in batch.items()}, k)
+        ps, pm = pf(ps, batch, drop_path_masks=torch.from_numpy(m))
+        seq.append((js, jm, ps, pm))
+    return seq
+
+
+def step_keys_and_masks(batch_rows=B):
+    keys = [jax.random.PRNGKey(10 + i) for i in range(STEPS)]
+    return keys, [np.array(draw_drop_path_masks(k, CFG.backbone, batch_rows)) for k in keys]
+
+
 @pytest.fixture(scope="module")
 def runs():
     """JAX's and the port's state and metrics after each of two steps, at
     float32 and AMP."""
     params = random_params()
     batch = raw_batch(np.random.default_rng(1))
-    keys = [jax.random.PRNGKey(10 + i) for i in range(STEPS)]
-    masks = [np.array(draw_drop_path_masks(k, CFG.backbone, B)) for k in keys]
-    out = {}
-    for amp in (False, True):
-        tx = jax_fused_adam(LR, max_grad_norm=1.0)
-        jf = jax.jit(jstep.make_train_step(CFG, tx, use_amp=amp,
-                                           block_impl="pallas_train_interpret"))
-        js = jstep.init_train_state(params, tx)
-        ptx = make_fused_adam(LR, max_grad_norm=1.0)
-        pf = pstep.make_train_step(PCFG, ptx, use_amp=amp)
-        ps = pstep.init_train_state(state_dict_from_jax(params, PCFG), ptx, device="cpu")
-        seq = [(js, None, ps, None)]
-        for k, m in zip(keys, masks):
-            js, jm = jf(js, {n: jnp.asarray(v) for n, v in batch.items()}, k)
-            ps, pm = pf(ps, batch, drop_path_masks=torch.from_numpy(m))
-            seq.append((js, jm, ps, pm))
-        out[amp] = seq
+    keys, masks = step_keys_and_masks()
+    out = {amp: two_steps(amp, params, batch, keys, masks) for amp in (False, True)}
     assert masks[0].min() == 0.0 and masks[0].max() > 1.0     # a dropped and a kept crop
     return out
 
@@ -169,8 +179,12 @@ def test_two_steps_amp_match_jax(runs):
     leaf's weights may differ by more than lr (measured 3%; 10% and 6% for
     the final bias, held to JAX's float32 step), and all the updates
     together agree to 0.3 in relative L2 (measured 0.18 and 0.13)."""
-    p0 = runs[True][0][2]["params"]
-    for (js, jm, ps, pm), (fs, fm, _, _) in zip(runs[True][1:], runs[False][1:]):
+    check_amp_steps(runs[True], runs[False])
+
+
+def check_amp_steps(amp_seq, f32_seq):
+    p0 = amp_seq[0][2]["params"]
+    for (js, jm, ps, pm), (fs, fm, _, _) in zip(amp_seq[1:], f32_seq[1:]):
         assert abs(float(pm["loss"]) - float(jm["loss"])) <= 1e-4 * float(jm["loss"])
         assert abs(float(pm["grad_norm"]) - float(fm["grad_norm"])) <= 2e-2 * float(fm["grad_norm"])
         jp, fp = port_tree(js["params"]), port_tree(fs["params"])
@@ -184,6 +198,32 @@ def test_two_steps_amp_match_jax(runs):
         jbn = jax_bn_state(js)
         for k, v in ps["bn_state"].items():
             assert rel(v.numpy(), jbn[k].numpy()) <= 1e-2, k
+
+
+@pytest.fixture(scope="module")
+def flavored_runs():
+    """Two AMP steps with ``EVT_TRAIN_ATTN=saved`` and ``EVT_TRAIN_MLP=saved``
+    on both sides (set while JAX traces its step and while the port runs),
+    from the ``runs`` fixture's params, batch and drop-path draws."""
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setenv("EVT_TRAIN_ATTN", "saved")
+        mp.setenv("EVT_TRAIN_MLP", "saved")
+        mp.delenv("EVT_TRAIN_WIDE", raising=False)
+        return two_steps(True, random_params(), raw_batch(np.random.default_rng(1)),
+                         *step_keys_and_masks())
+
+
+def test_flavored_amp_steps_match_jax(flavored_runs, runs):
+    """The saved-qkv and saved-m flavors (K7 ``_saved``, K6a ``_ms``) through
+    two AMP steps against JAX's step under the same switches: the first
+    step's gradients and both steps as the default flavor's AMP steps are
+    held (the final bias and the grad norm to JAX's float32 step)."""
+    jg, pg = first_grads(flavored_runs)
+    fg = first_grads(runs[False])[0]
+    for k in pg:
+        ref, tol = (fg[k], 2e-2) if k == FINAL_BIAS else (jg[k], 0.1)
+        assert rel(pg[k], ref) <= tol, k
+    check_amp_steps(flavored_runs, runs[False])
 
 
 def test_xla_block_step_matches_fused_block_step():
@@ -296,6 +336,145 @@ def test_init_train_state_runs_on_cuda_unless_asked():
     w = "backbone.blocks.0.attn.qkv.weight"
     assert torch.equal(state["params"][w], model.state_dict()[w])
     assert state["params"][w].data_ptr() != model.state_dict()[w].data_ptr()
+
+
+# ------------------------------- grad accumulation, EMA, loss, eval, render
+EMA, ACCUM, AB = 0.9, 2, 4
+
+
+@pytest.fixture(scope="module")
+def accum_runs():
+    """Two float32 steps of four crops in two micro-batches with an EMA of
+    decay 0.9, on both sides.  JAX splits each step's key in two and draws
+    each micro-batch's masks from its half; the port gets those masks, side
+    by side along B."""
+    keys = [jax.random.PRNGKey(30 + i) for i in range(STEPS)]
+    masks = [np.concatenate([np.array(draw_drop_path_masks(kk, CFG.backbone, AB // ACCUM))
+                             for kk in jax.random.split(k, ACCUM)], axis=1) for k in keys]
+    return two_steps(False, random_params(21), raw_batch(np.random.default_rng(22), AB), keys,
+                     masks, ema_decay=EMA, grad_accum=ACCUM)
+
+
+def test_grad_accum_and_ema_match_jax(accum_runs):
+    """``grad_accum=2`` with ``ema_decay=0.9`` at float32 against JAX's step,
+    after each step: loss and grad norm to 1e-5, the params to 2% of lr, the
+    BN running statistics (chained through both micro-batches) to 1e-6; and
+    the EMA's move (each EMA leaf minus its start) to 0.1 of 2% of lr, its
+    share of the params' bound, plus two float32 ulps of the EMA (a missing
+    update would part them by 0.1 lr)."""
+    e0 = accum_runs[0][2]["ema_params"]
+    for js, jm, ps, pm in accum_runs[1:]:
+        assert abs(float(pm["loss"]) - float(jm["loss"])) <= 1e-5 * float(jm["loss"])
+        assert abs(float(pm["grad_norm"]) - float(jm["grad_norm"])) <= 1e-5 * float(jm["grad_norm"])
+        jp, je = port_tree(js["params"]), port_tree(js["ema_params"])
+        assert set(ps["ema_params"]) == set(ps["params"]) == set(je)
+        for k, v in ps["params"].items():
+            assert float((v - jp[k]).abs().max()) <= 0.02 * LR, k
+            e = ps["ema_params"][k]
+            bound = (1 - EMA) * 0.02 * LR + 2 * 2 ** -23 * e.abs()
+            assert bool(((e - e0[k]) - (je[k] - e0[k])).abs().le(bound).all()), k
+        jbn = jax_bn_state(js)
+        for k, v in ps["bn_state"].items():
+            assert float((v - jbn[k]).abs().max()) <= 1e-6, k
+    assert float((accum_runs[-1][2]["ema_params"][FINAL_BIAS] - e0[FINAL_BIAS]).abs().max()) > 0.1 * LR
+
+
+def test_grad_accum_needs_a_divisible_batch():
+    """A batch that ``grad_accum`` does not divide raises, as JAX asserts."""
+    tx = make_fused_adam(LR)
+    state = pstep.init_train_state(ViTPose(PCFG), tx, device="cpu")
+    step = pstep.make_train_step(PCFG, tx, use_amp=False, grad_accum=2)
+    with pytest.raises(ValueError, match="batch 3 not divisible by grad_accum 2"):
+        step(state, raw_batch(np.random.default_rng(23), 3), torch.Generator())
+
+
+def test_loss_fn_is_the_steps_loss():
+    """``loss_fn`` is the loss the step reports and differentiates: twice
+    the MSE doubles the loss and the (unclipped) grad norm."""
+    params = state_dict_from_jax(random_params(24), PCFG)
+    batch = raw_batch(np.random.default_rng(25), 2)
+    masks = torch.ones((PCFG.backbone.depth, 2, 1, 1))
+    out = []
+    for fn in (joints_mse_loss, lambda h, t, w: 2.0 * joints_mse_loss(h, t, w)):
+        tx = make_fused_adam(LR, max_grad_norm=1e9)
+        step = pstep.make_train_step(PCFG, tx, use_amp=False, loss_fn=fn)
+        out.append(step(pstep.init_train_state(params, tx, device="cpu"), batch,
+                        drop_path_masks=masks)[1])
+    assert float(out[1]["loss"]) == 2.0 * float(out[0]["loss"])
+    assert abs(float(out[1]["grad_norm"]) - 2.0 * float(out[0]["grad_norm"])) \
+        <= 1e-6 * float(out[1]["grad_norm"])
+
+
+@pytest.mark.parametrize("return_heatmaps", [False, True])
+def test_eval_step_matches_jax(accum_runs, return_heatmaps):
+    """``make_eval_step`` (the serving forward, eval-mode BN) with a target
+    sigma of 2 against JAX's ``make_eval_step`` on the same float32 state:
+    the loss to 1e-4, the heatmaps as tests/test_torch_model.py holds the
+    forward (1e-5 of their largest value, 1e-4 relative)."""
+    from easy_vitpose_tpu_torch.convert.from_jax import train_state_from_jax
+
+    js = accum_runs[-1][0]
+    batch = raw_batch(np.random.default_rng(26), 2)
+    kw = {"use_amp": False, "return_heatmaps": return_heatmaps, "render_kwargs": {"sigma": 2.0}}
+    ref = jstep.make_eval_step(CFG, **kw)(js, {n: jnp.asarray(v) for n, v in batch.items()})
+    got = pstep.make_eval_step(PCFG, **kw)(train_state_from_jax(js, PCFG, device="cpu"), batch)
+    jl, pl = (ref[0], got[0]) if return_heatmaps else (ref, got)
+    assert abs(float(pl) - float(jl)) <= 1e-4 * float(jl)
+    if return_heatmaps:
+        r = np.asarray(ref[1])
+        assert got[1].dtype == torch.float32 and got[1].shape == r.shape
+        np.testing.assert_allclose(got[1].numpy(), r, atol=1e-5 * max(1.0, np.abs(r).max()),
+                                   rtol=1e-4)
+
+
+def test_render_kwargs_match_jax():
+    """The renderer's options against JAX's: other map and image sizes,
+    sigma 2 and per-joint weights (weights exact, targets to 1e-6); and
+    ``render_kwargs`` through the batch render (sigma 2)."""
+    rng = np.random.default_rng(27)
+    raw = raw_batch(rng, 3)
+    jw_ = rng.uniform(0.5, 1.5, (17, 1)).astype(np.float32)
+    kw = {"heatmap_size": (24, 32), "image_size": (96, 128), "sigma": 2.0,
+          "use_different_joints_weight": True}
+    jt, jw = generate_gaussian_targets_jnp(jnp.asarray(raw["joints"]) / 2,
+                                           jnp.asarray(raw["joints_vis"]),
+                                           joints_weight=jnp.asarray(jw_), **kw)
+    pt, pw = generate_gaussian_targets(torch.from_numpy(raw["joints"]) / 2,
+                                       torch.from_numpy(raw["joints_vis"]),
+                                       joints_weight=torch.from_numpy(jw_), **kw)
+    assert pt.shape == (3, 17, 32, 24)
+    np.testing.assert_array_equal(pw.numpy(), np.asarray(jw))
+    assert np.abs(pt.numpy() - np.asarray(jt)).max() <= 1e-6
+    got = pstep.render_batch_on_device(raw, render_kwargs={"sigma": 2.0})
+    ref = jstep.render_batch_on_device({k: jnp.asarray(v) for k, v in raw.items()},
+                                       {"sigma": 2.0})
+    np.testing.assert_array_equal(got["target_weights"].numpy(), np.asarray(ref["target_weights"]))
+    assert np.abs(got["targets"].numpy() - np.asarray(ref["targets"])).max() <= 1e-6
+    assert not torch.equal(got["targets"], pstep.render_batch_on_device(raw)["targets"])
+
+
+def test_train_state_from_jax_carries_the_ema(accum_runs):
+    """``train_state_from_jax`` carries JAX's whole state after two steps
+    across, bit for bit (params, EMA, BN statistics, f32 moments, count,
+    step), and the port's step takes it from there."""
+    from easy_vitpose_tpu_torch.convert.from_jax import train_state_from_jax
+
+    js = accum_runs[-1][0]
+    got = train_state_from_jax(js, PCFG, device="cpu")
+    for name in ("params", "ema_params"):
+        ref = port_tree(js[name])
+        assert set(got[name]) == set(ref)
+        assert all(torch.equal(got[name][k], ref[k]) for k in ref), name
+    jbn = jax_bn_state(js)
+    assert all(torch.equal(got["bn_state"][k], jbn[k]) for k in jbn)
+    assert int(got["step"]) == int(js["step"]) == int(got["opt_state"].count) == STEPS
+    assert all(torch.equal(got["opt_state"].mu[k], v)
+               for k, v in port_tree(js["opt_state"].mu).items())
+    tx = make_fused_adam(LR)
+    new, m = pstep.make_train_step(PCFG, tx, use_amp=False, ema_decay=EMA)(
+        got, raw_batch(np.random.default_rng(28), 2), torch.Generator().manual_seed(0))
+    assert int(new["step"]) == STEPS + 1 and torch.isfinite(m["loss"])
+    assert not torch.equal(new["ema_params"][FINAL_BIAS], got["ema_params"][FINAL_BIAS])
 
 
 # ------------------------------------------- the wide config, int8 moments
