@@ -427,6 +427,21 @@ def holder(torch, errs, tdt, B):
     return hold
 
 
+def mma_swap_bit_equal(torch, dev, N: int, hd: int) -> bool:
+    """Whether mma.sync forms X Y^T and Y X^T as the same bits transposed,
+    for bf16 (N, hd) operands summed in the same k order: K7's kernel B
+    recomputes the logits and dP of kernel A with the operands swapped, so
+    its P is A's bit for bit exactly when this holds.  Probed with the
+    training GEMM (the same m16n8k16 steps in k order, float32 out)."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    rng = np.random.default_rng(N * hd)      # apart from the smoke's own draws
+    x, y = (torch.from_numpy(rng.standard_normal((N, hd)).astype(np.float32)).to(dev, torch.bfloat16)
+            for _ in range(2))
+    xy = fbt.gemm_nt(x, y, fbt.TE_F32)[1]
+    yx = fbt.gemm_nt(y, x, fbt.TE_F32)[1]
+    return bool(torch.equal(xy, yx.t()))
+
+
 def check_train_kernels(torch, model, rng, dev):
     """K5, K6a and K7 against their plain versions on block 0 at bf16 and
     fp32, at the main path's 64 crops and at 3, and K8 on every leaf of the
@@ -460,6 +475,8 @@ def check_train_kernels(torch, model, rng, dev):
                                                        for k, v in errs.items()))
             if B != SLOTS or tdt != torch.bfloat16:
                 continue
+            print(f"check mma operand swap (K7's P in kernels A and B): "
+                  f"{'bit-equal' if mma_swap_bit_equal(torch, dev, N, D // heads) else 'differs'}")
             fwd_ops, mlp_ops, attn_ops = train_block_work(B, N, D, hidden)
             act, wts = B * N * D * 2, (4 * D * D + 2 * D * hidden) * 2
             layer = encoder_layer(torch, blk)

@@ -5,6 +5,7 @@
 // Replaces easy_vitpose_tpu/models/fused_block.py::_block_kernel.
 #include <cfloat>
 
+#include "attention_tc.cuh"
 #include "common.cuh"
 #include "gemm_mma.cuh"
 
@@ -113,8 +114,8 @@ EVT_EXPORT int evt_gemm(const void* a, const void* w, const void* bias, const vo
                         void* out, int M, int N, int K, int is_bf16, int epi, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (is_bf16) {
-        mma_gemm::launch<false, bf16, bf16>(a, w, nullptr, nullptr, bias, res, out, M, N,
-                                            K * 2, epi, st);
+        return static_cast<int>(mma_gemm::launch<false, bf16, bf16>(
+            a, w, nullptr, nullptr, bias, res, out, M, N, K * 2, epi, st));
     } else {
         dim3 grid(N / 64, (M + 63) / 64);
         gemm_f32_kernel<<<grid, 256, 0, st>>>(
@@ -126,16 +127,15 @@ EVT_EXPORT int evt_gemm(const void* a, const void* w, const void* bias, const vo
 }
 
 // ------------------------------------------------------------- attention
-// One block per (64-query tile, head, crop).  K and V of the head (rows
-// padded by one float against bank conflicts), the q tile and the 64 x N
-// float32 logits sit in shared memory.  q*scale, the probs and the output
-// are rounded to T, as the JAX kernel rounds them; logits, softmax and the
-// sums stay float32.  The caller passes the scale already rounded to T, as
-// JAX rounds a Python float that meets a bf16 array.
-template <typename T>
+// bf16: the tensor-core kernel of attention_tc.cuh.  float32 (the parity
+// mode) keeps this FMA kernel: one block per (64-query tile, head, crop);
+// K and V of the head (rows padded by one float against bank conflicts),
+// the q tile and the 64 x N float32 logits sit in shared memory.  Logits,
+// softmax and sums are float32.  The caller passes the scale already rounded
+// to the working dtype, as JAX rounds a Python float that meets a bf16 array.
 __global__ void __launch_bounds__(256)
-attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, int N, int D, int heads,
-                 float scale) {
+attention_f32_kernel(const float* __restrict__ qkv, float* __restrict__ o, int N, int D,
+                     int heads, float scale) {
     extern __shared__ float smem[];
     const int hd = D / heads, ld = hd + 1;
     const int q0 = blockIdx.x * 64, h = blockIdx.y, b = blockIdx.z;
@@ -145,17 +145,17 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, int N, int D, int
     float* Vs = Ks + N * ld;
     float* Qs = Vs + N * ld;
     float* P = Qs + 64 * hd;
-    const T* base = qkv + (size_t)b * N * 3 * D;
+    const float* base = qkv + (size_t)b * N * 3 * D;
 
     for (int idx = tid; idx < N * hd; idx += 256) {
         const int j = idx / hd, d = idx - j * hd;
-        const T* r = base + (size_t)j * 3 * D + h * hd + d;
-        Ks[j * ld + d] = to_f(r[D]);
-        Vs[j * ld + d] = to_f(r[2 * D]);
+        const float* r = base + (size_t)j * 3 * D + h * hd + d;
+        Ks[j * ld + d] = r[D];
+        Vs[j * ld + d] = r[2 * D];
     }
     for (int idx = tid; idx < nq * hd; idx += 256) {
         const int i = idx / hd, d = idx - i * hd;
-        Qs[idx] = round_to<T>(to_f(base[(size_t)(q0 + i) * 3 * D + h * hd + d]) * scale);
+        Qs[idx] = base[(size_t)(q0 + i) * 3 * D + h * hd + d] * scale;
     }
     __syncthreads();
 
@@ -181,7 +181,7 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, int N, int D, int
             s += e;
         }
         s = warp_sum(s);
-        for (int j = lane; j < N; j += 32) p[j] = round_to<T>(p[j] / s);
+        for (int j = lane; j < N; j += 32) p[j] = p[j] / s;
     }
     __syncthreads();
 
@@ -190,28 +190,33 @@ attention_kernel(const T* __restrict__ qkv, T* __restrict__ o, int N, int D, int
         const float* p = P + i * N;
         float acc = 0.f;
         for (int j = 0; j < N; ++j) acc = fmaf(p[j], Vs[j * ld + d], acc);
-        o[(size_t)(b * N + q0 + i) * D + h * hd + d] = from_f<T>(acc);
+        o[(size_t)(b * N + q0 + i) * D + h * hd + d] = acc;
     }
 }
 
-template <typename T>
-static cudaError_t attention_launch(const void* qkv, void* o, int B, int N, int D, int heads,
-                                    float scale, cudaStream_t st) {
+static cudaError_t attention_f32_launch(const void* qkv, void* o, int B, int N, int D,
+                                        int heads, float scale, cudaStream_t st) {
     const int hd = D / heads;
     const size_t smem = sizeof(float) * (2 * (size_t)N * (hd + 1) + 64 * hd + 64 * (size_t)N);
-    cudaError_t err = cudaFuncSetAttribute(attention_kernel<T>,
+    cudaError_t err = cudaFuncSetAttribute(attention_f32_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     dim3 grid((N + 63) / 64, heads, B);
-    attention_kernel<T><<<grid, 256, smem, st>>>(static_cast<const T*>(qkv),
-                                                 static_cast<T*>(o), N, D, heads, scale);
+    attention_f32_kernel<<<grid, 256, smem, st>>>(static_cast<const float*>(qkv),
+                                                  static_cast<float*>(o), N, D, heads, scale);
     return cudaGetLastError();
+}
+
+static cudaError_t attention_bf16_launch(const void* qkv, void* o, int B, int N, int D,
+                                         int heads, float scale, cudaStream_t st) {
+    if (N <= 0 || N > attn_tc::MAX_TOKENS) return cudaErrorInvalidValue;
+    ATTN_TC_DISPATCH(D / heads, attn_tc::fwd_launch, qkv, o, B, N, D, heads, scale, st);
 }
 
 EVT_EXPORT int evt_attention(const void* qkv, void* o, int B, int N, int D, int heads,
                              float scale, int is_bf16, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return static_cast<int>(is_bf16 ? attention_launch<bf16>(qkv, o, B, N, D, heads, scale, st)
-                                    : attention_launch<float>(qkv, o, B, N, D, heads, scale, st));
+    return static_cast<int>(is_bf16 ? attention_bf16_launch(qkv, o, B, N, D, heads, scale, st)
+                                    : attention_f32_launch(qkv, o, B, N, D, heads, scale, st));
 }

@@ -48,9 +48,9 @@ EVT_EXPORT int evt_gemm_q8(const void* q, const void* wq, const void* sx, const 
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* fsx = static_cast<const float*>(sx);
     const float* fsw = static_cast<const float*>(sw);
-    if (out_bf16)
-        mma_gemm::launch<true, float, bf16>(q, wq, fsx, fsw, bias, res, out, M, N, K, epi, st);
-    else
-        mma_gemm::launch<true, float, float>(q, wq, fsx, fsw, bias, res, out, M, N, K, epi, st);
-    return static_cast<int>(cudaGetLastError());
+    return static_cast<int>(
+        out_bf16
+            ? mma_gemm::launch<true, float, bf16>(q, wq, fsx, fsw, bias, res, out, M, N, K, epi, st)
+            : mma_gemm::launch<true, float, float>(q, wq, fsx, fsw, bias, res, out, M, N, K, epi,
+                                                   st));
 }

@@ -24,7 +24,8 @@
 //     order sum per column);
 //   * the attention backward for one (crop, head) split over two kernels by
 //     query tiles (o, dq, softmax statistics) and key tiles (dk, dv), each
-//     recomputing the logits, so that K, V, Q and dO fit shared memory;
+//     recomputing the logits, so that K, V, Q and dO fit shared memory: at
+//     bf16 on the tensor cores (attention_tc.cuh), at float32 in FMA here;
 //   * the flavors are launch sequences driven from Python: K6b is K6a's
 //     sequence up to dx1, K6c the pair launch of its two weight grads; K6d
 //     and K6e split K6a's sequence at dx1 with the recompute repeated; the
@@ -36,6 +37,7 @@
 // _bwd_attn_saved_kernel.
 #include <cfloat>
 
+#include "attention_tc.cuh"
 #include "common.cuh"
 
 enum {
@@ -149,15 +151,6 @@ __device__ __forceinline__ void load_bf16(bf16* dst, const bf16* src, int r0, in
     }
 }
 
-// four 8x8 b16 matrices, transposed; lane l gives the address of row l % 8
-// of matrix l / 8, and register i gets matrix i
-__device__ __forceinline__ void ldsm_x4_trans(uint32_t* r, const bf16* p) {
-    const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(p));
-    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-                 : "r"(addr));
-}
-
 // A fragment (m16 x k16 at row m0, k ks): a0 (m g, k 2t), a1 (m g+8), a2
 // (k 2t+8), a3 (both), with g = lane / 4, t = lane % 4
 template <bool KMAJ>
@@ -170,7 +163,7 @@ __device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int m0, int k
         a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * PITCH + 8);
     } else {
         const int mat = lane >> 3;
-        ldsm_x4_trans(a, s + (ks + (lane & 7) + 8 * (mat >> 1)) * TPITCH + m0 + 8 * (mat & 1));
+        tc::ldsm_x4_t(a, s + (ks + (lane & 7) + 8 * (mat >> 1)) * TPITCH + m0 + 8 * (mat & 1));
     }
 }
 
@@ -188,18 +181,11 @@ __device__ __forceinline__ void frag_b2(uint32_t (*b)[2], const bf16* s, int n0,
     } else {
         const int mat = lane >> 3;
         uint32_t r[4];
-        ldsm_x4_trans(r, s + (ks + (lane & 7) + 8 * (mat & 1)) * TPITCH + n0 + 8 * (mat >> 1));
+        tc::ldsm_x4_t(r, s + (ks + (lane & 7) + 8 * (mat & 1)) * TPITCH + n0 + 8 * (mat >> 1));
         b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
     }
 }
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a, const uint32_t* b) {
-    asm volatile(
-        "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-        "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-        : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // one block's 64x64 output tile at (bm, bn), summed over all of K
 template <bool AK, bool BKM, int FAM>
@@ -233,7 +219,8 @@ __device__ __forceinline__ void gemm_bf16_tile(const bf16* __restrict__ A,
 #pragma unroll
             for (int mi = 0; mi < 2; ++mi)
 #pragma unroll
-                for (int ni = 0; ni < 4; ++ni) mma_bf16(acc[mi][ni], a[mi], b[ni]);
+                for (int ni = 0; ni < 4; ++ni)
+                    tc::mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
         }
         __syncthreads();
     }
@@ -588,11 +575,12 @@ EVT_EXPORT int evt_ln_backward(const void* x, const void* w, const void* dh, con
 }
 
 // ------------------------------------------------------ attention backward
-// Per (crop b, head h), with q, k, v the head's columns of qkv (T), do the
-// head's columns of the rounded output grad (T), qs = round(q * qscale):
-//   P = softmax(qs k^T) (float32),  o = round(round(P) v),
-//   dP = do v^T,  dlog = P (dP - rowsum(dP P)),  dv = round(P)^T do,
-//   dq = round(dlog) k * scale,  dk = round(dlog)^T q * scale.
+// bf16: the tensor-core kernels of attention_tc.cuh.  float32 (the parity
+// mode) keeps these FMA kernels.  Per (crop b, head h), with q, k, v the
+// head's columns of qkv, do the head's columns of the output grad,
+// qs = q * qscale:
+//   P = softmax(qs k^T),  o = P v,  dP = do v^T,  dlog = P (dP - rowsum(dP P)),
+//   dv = P^T do,  dq = dlog k * scale,  dk = dlog^T q * scale.
 // Kernel A takes a tile of TQ queries: it holds K and V of all tokens, the
 // tile's qs and do, and the tile's logits and dP; it writes o, dq and each
 // query's softmax max, sum and rowsum(dP P).  Kernel B takes a tile of TK
@@ -602,11 +590,10 @@ EVT_EXPORT int evt_ln_backward(const void* x, const void* w, const void* dh, con
 // Shared rows are padded by one float against bank conflicts.
 constexpr int TQ = 32, TK = 32;
 
-template <typename T>
 __global__ void __launch_bounds__(256)
-attn_bwd_q_kernel(const T* __restrict__ qkv, const T* __restrict__ dO, T* __restrict__ o,
-                  float* __restrict__ dqkv, float* __restrict__ stats, int N, int D, int heads,
-                  float qscale, float scale) {
+attn_bwd_q_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
+                      float* __restrict__ o, float* __restrict__ dqkv, float* __restrict__ stats,
+                      int N, int D, int heads, float qscale, float scale) {
     extern __shared__ float smem[];
     const int hd = D / heads, ld = hd + 1;
     const int q0 = blockIdx.x * TQ, h = blockIdx.y, b = blockIdx.z;
@@ -618,19 +605,19 @@ attn_bwd_q_kernel(const T* __restrict__ qkv, const T* __restrict__ dO, T* __rest
     float* Ds = Qs + TQ * ld;
     float* P = Ds + TQ * ld;
     float* dP = P + TQ * N;
-    const T* base = qkv + (size_t)b * N * 3 * D + h * hd;
+    const float* base = qkv + (size_t)b * N * 3 * D + h * hd;
     float* st = stats + ((size_t)b * heads + h) * 3 * N;   // [max | sum | rowsum(dP P)]
 
     for (int idx = tid; idx < N * hd; idx += 256) {
         const int j = idx / hd, d = idx - j * hd;
-        const T* r = base + (size_t)j * 3 * D + d;
-        Ks[j * ld + d] = to_f(r[D]);
-        Vs[j * ld + d] = to_f(r[2 * D]);
+        const float* r = base + (size_t)j * 3 * D + d;
+        Ks[j * ld + d] = r[D];
+        Vs[j * ld + d] = r[2 * D];
     }
     for (int idx = tid; idx < nq * hd; idx += 256) {
         const int i = idx / hd, d = idx - i * hd;
-        Qs[i * ld + d] = round_to<T>(to_f(base[(size_t)(q0 + i) * 3 * D + d]) * qscale);
-        Ds[i * ld + d] = to_f(dO[(size_t)(b * N + q0 + i) * D + h * hd + d]);
+        Qs[i * ld + d] = base[(size_t)(q0 + i) * 3 * D + d] * qscale;
+        Ds[i * ld + d] = dO[(size_t)(b * N + q0 + i) * D + h * hd + d];
     }
     __syncthreads();
     for (int idx = tid; idx < nq * N; idx += 256) {
@@ -662,8 +649,7 @@ attn_bwd_q_kernel(const T* __restrict__ qkv, const T* __restrict__ dO, T* __rest
             ds += dP[i * N + j] * p[j];
         }
         ds = warp_sum(ds);
-        for (int j = lane; j < N; j += 32)
-            dP[i * N + j] = round_to<T>(p[j] * (dP[i * N + j] - ds));
+        for (int j = lane; j < N; j += 32) dP[i * N + j] = p[j] * (dP[i * N + j] - ds);
         if (lane == 0) {
             st[q0 + i] = m;
             st[N + q0 + i] = s;
@@ -677,20 +663,19 @@ attn_bwd_q_kernel(const T* __restrict__ qkv, const T* __restrict__ dO, T* __rest
         const float* g = dP + i * N;
         float acc = 0.f, dq = 0.f;
         for (int j = 0; j < N; ++j) {
-            acc = fmaf(round_to<T>(p[j]), Vs[j * ld + d], acc);
+            acc = fmaf(p[j], Vs[j * ld + d], acc);
             dq = fmaf(g[j], Ks[j * ld + d], dq);
         }
         const size_t row = (size_t)b * N + q0 + i;
-        o[row * D + h * hd + d] = from_f<T>(acc);
+        o[row * D + h * hd + d] = acc;
         dqkv[row * 3 * D + h * hd + d] = dq * scale;
     }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(256)
-attn_bwd_kv_kernel(const T* __restrict__ qkv, const T* __restrict__ dO,
-                   const float* __restrict__ stats, float* __restrict__ dqkv, int N, int D,
-                   int heads, float qscale, float scale) {
+attn_bwd_kv_f32_kernel(const float* __restrict__ qkv, const float* __restrict__ dO,
+                       const float* __restrict__ stats, float* __restrict__ dqkv, int N, int D,
+                       int heads, float qscale, float scale) {
     extern __shared__ float smem[];
     const int hd = D / heads, ld = hd + 1;
     const int k0 = blockIdx.x * TK, h = blockIdx.y, b = blockIdx.z;
@@ -700,32 +685,32 @@ attn_bwd_kv_kernel(const T* __restrict__ qkv, const T* __restrict__ dO,
     float* Dd = Qr + N * ld;
     float* Kt = Dd + N * ld;
     float* Vt = Kt + TK * ld;
-    float* Pt = Vt + TK * ld;        // P, then round(dlog): [key][query] each
-    const T* base = qkv + (size_t)b * N * 3 * D + h * hd;
+    float* Pt = Vt + TK * ld;        // P, then dlog: [key][query] each
+    const float* base = qkv + (size_t)b * N * 3 * D + h * hd;
     const float* st = stats + ((size_t)b * heads + h) * 3 * N;
 
     for (int idx = tid; idx < N * hd; idx += 256) {
         const int i = idx / hd, d = idx - i * hd;
-        Qr[i * ld + d] = to_f(base[(size_t)i * 3 * D + d]);
-        Dd[i * ld + d] = to_f(dO[(size_t)(b * N + i) * D + h * hd + d]);
+        Qr[i * ld + d] = base[(size_t)i * 3 * D + d];
+        Dd[i * ld + d] = dO[(size_t)(b * N + i) * D + h * hd + d];
     }
     for (int idx = tid; idx < nk * hd; idx += 256) {
         const int j = idx / hd, d = idx - j * hd;
-        const T* r = base + (size_t)(k0 + j) * 3 * D + d;
-        Kt[j * ld + d] = to_f(r[D]);
-        Vt[j * ld + d] = to_f(r[2 * D]);
+        const float* r = base + (size_t)(k0 + j) * 3 * D + d;
+        Kt[j * ld + d] = r[D];
+        Vt[j * ld + d] = r[2 * D];
     }
     __syncthreads();
     for (int idx = tid; idx < nk * N; idx += 256) {
         const int j = idx / N, i = idx - j * N;
         float acc = 0.f, dacc = 0.f;
         for (int d = 0; d < hd; ++d) {
-            acc = fmaf(round_to<T>(Qr[i * ld + d] * qscale), Kt[j * ld + d], acc);
+            acc = fmaf(Qr[i * ld + d] * qscale, Kt[j * ld + d], acc);
             dacc = fmaf(Dd[i * ld + d], Vt[j * ld + d], dacc);
         }
         const float p = expf(acc - st[i]) / st[N + i];
         Pt[idx] = p;
-        Pt[nk * N + idx] = round_to<T>(p * (dacc - st[2 * N + i]));    // round(dlog)
+        Pt[nk * N + idx] = p * (dacc - st[2 * N + i]);                 // dlog
     }
     __syncthreads();
     for (int idx = tid; idx < nk * hd; idx += 256) {
@@ -734,7 +719,7 @@ attn_bwd_kv_kernel(const T* __restrict__ qkv, const T* __restrict__ dO,
         const float* g = Pt + nk * N + j * N;
         float dv = 0.f, dk = 0.f;
         for (int i = 0; i < N; ++i) {
-            dv = fmaf(round_to<T>(p[i]), Dd[i * ld + d], dv);
+            dv = fmaf(p[i], Dd[i * ld + d], dv);
             dk = fmaf(g[i], Qr[i * ld + d], dk);
         }
         const size_t row = ((size_t)b * N + k0 + j) * 3 * D + h * hd + d;
@@ -743,32 +728,39 @@ attn_bwd_kv_kernel(const T* __restrict__ qkv, const T* __restrict__ dO,
     }
 }
 
-template <typename T>
-static cudaError_t attn_bwd_launch(const void* qkv, const void* dO, void* o, void* dqkv,
-                                   void* stats, int B, int N, int D, int heads, float qscale,
-                                   float scale, cudaStream_t st) {
+static cudaError_t attn_bwd_f32_launch(const void* qkv, const void* dO, void* o, void* dqkv,
+                                       void* stats, int B, int N, int D, int heads, float qscale,
+                                       float scale, cudaStream_t st) {
     const int hd = D / heads;
     const size_t smem_q = sizeof(float) * (2 * (size_t)N * (hd + 1) + 2 * TQ * (hd + 1) +
                                            2 * (size_t)TQ * N);
     const size_t smem_kv = sizeof(float) * (2 * (size_t)N * (hd + 1) + 2 * TK * (hd + 1) +
                                             2 * (size_t)TK * N);
-    cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_kernel<T>,
+    cudaError_t err = cudaFuncSetAttribute(attn_bwd_q_f32_kernel,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem_q));
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(attn_bwd_kv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(attn_bwd_kv_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem_kv));
     if (err != cudaSuccess) return err;
     const dim3 gq((N + TQ - 1) / TQ, heads, B), gk((N + TK - 1) / TK, heads, B);
-    attn_bwd_q_kernel<T><<<gq, 256, smem_q, st>>>(
-        static_cast<const T*>(qkv), static_cast<const T*>(dO), static_cast<T*>(o),
+    attn_bwd_q_f32_kernel<<<gq, 256, smem_q, st>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(dO), static_cast<float*>(o),
         static_cast<float*>(dqkv), static_cast<float*>(stats), N, D, heads, qscale, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    attn_bwd_kv_kernel<T><<<gk, 256, smem_kv, st>>>(
-        static_cast<const T*>(qkv), static_cast<const T*>(dO), static_cast<const float*>(stats),
-        static_cast<float*>(dqkv), N, D, heads, qscale, scale);
+    attn_bwd_kv_f32_kernel<<<gk, 256, smem_kv, st>>>(
+        static_cast<const float*>(qkv), static_cast<const float*>(dO),
+        static_cast<const float*>(stats), static_cast<float*>(dqkv), N, D, heads, qscale, scale);
     return cudaGetLastError();
+}
+
+static cudaError_t attn_bwd_bf16_launch(const void* qkv, const void* dO, void* o, void* dqkv,
+                                        void* stats, int B, int N, int D, int heads,
+                                        float qscale, float scale, cudaStream_t st) {
+    if (N <= 0 || N > attn_tc::MAX_TOKENS) return cudaErrorInvalidValue;
+    ATTN_TC_DISPATCH(D / heads, attn_tc::bwd_launch, qkv, dO, o, dqkv, stats, B, N, D, heads,
+                     qscale, scale, st);
 }
 
 // qkv (B*N, 3D) T, dO (B*N, D) T -> o (B*N, D) T, dqkv (B*N, 3D) float32;
@@ -778,7 +770,7 @@ EVT_EXPORT int evt_attn_backward(const void* qkv, const void* dO, void* o, void*
                                  float scale, int is_bf16, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     return static_cast<int>(
-        is_bf16 ? attn_bwd_launch<bf16>(qkv, dO, o, dqkv, stats, B, N, D, heads, qscale, scale, st)
-                : attn_bwd_launch<float>(qkv, dO, o, dqkv, stats, B, N, D, heads, qscale, scale,
-                                         st));
+        is_bf16 ? attn_bwd_bf16_launch(qkv, dO, o, dqkv, stats, B, N, D, heads, qscale, scale, st)
+                : attn_bwd_f32_launch(qkv, dO, o, dqkv, stats, B, N, D, heads, qscale, scale,
+                                      st));
 }

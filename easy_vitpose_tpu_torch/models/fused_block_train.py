@@ -64,10 +64,11 @@ the same inputs.  What bounds them on the H100 is operations: at ViT-B and
 products and the attention backward 181 GFLOP (five linear products of
 14.5 or 43.5 GFLOP and the attention's recompute); 0.18, 0.29 and 0.18 ms
 at the bf16 tensor peak.  At ViT-L K6b is three 103-GFLOP products (0.31
-ms), K6c two (0.21 ms), K6d three and K6e four.  This first version keeps
-every GEMM simple (one 64x64 tile per block, no pipelining, no
-``wgmma``/TMA) and the attention backward on float32 FMA, so it sits far
-from that bound; the times are in PERF.md.
+ms), K6c two (0.21 ms), K6d three and K6e four.  The training GEMMs are
+still the first version (one 64x64 tile per block, no pipelining, no
+``wgmma``/TMA), so they sit far from that bound; the bf16 attention backward
+runs on the tensor cores (``csrc/attention_tc.cuh``), float32 keeps FMA
+kernels.  The times are in PERF.md.
 
 Each kernel has a plain version here (``*_plain``), written step by step as
 the kernel's math, rounding to the working dtype where the TPU kernels
@@ -99,7 +100,7 @@ WIDE_D = 768             # D above this may take the wide MLP backward (see mlp_
  TE_GELU_GRAD_T, TE_GELU_GRAD_MS) = range(9)
 COLSUM_CHUNK = 64        # rows per partial of the column sums
 LN_ROWS, LN_MAXJ = 64, 48
-ATTN_TILE = 32           # queries (kernel A) or keys (kernel B) per block
+ATTN_TILE = 32           # float32 backward: queries (kernel A) or keys (kernel B) per block
 _INV_SQRT2PI = 0.3989422804014327
 
 WeightGrads = Tuple[torch.Tensor, ...]
@@ -429,19 +430,23 @@ def ln_backward_cuda(x, w, dh, res, eps):
 
 
 def attention_backward_smem_bytes(tokens: int, head_dim: int) -> int:
-    """Shared memory of the larger of the two attention-backward blocks:
-    all tokens' K and V (or q and do), rows padded by one float, the tile's
-    two head-dim rows and its two tokens-wide float32 rows."""
+    """Shared memory of the larger of the two float32 attention-backward
+    blocks: all tokens' K and V (or q and do), rows padded by one float, the
+    tile's two head-dim rows and its two tokens-wide float32 rows."""
     t, ld = ATTN_TILE, head_dim + 1
     return 4 * (2 * tokens * ld + 2 * t * ld + 2 * t * tokens)
 
 
-def check_train_shapes(N: int, D: int, hidden: int, heads: int) -> None:
-    check_attention_shape(N, D, heads)
-    smem = attention_backward_smem_bytes(N, D // heads)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"{N} tokens x head dim {D // heads} needs {smem} B of shared "
-                         f"memory in the attention backward, more than {SMEM_LIMIT}")
+def check_train_shapes(N: int, D: int, hidden: int, heads: int, dtype=torch.float32) -> None:
+    """The forward's attention rule (:func:`check_attention_shape`); at bf16
+    the attention backward takes the same shapes, in float32 its blocks must
+    fit shared memory; the GEMMs take dims that are multiples of 8."""
+    check_attention_shape(N, D, heads, dtype)
+    if dtype != torch.bfloat16:
+        smem = attention_backward_smem_bytes(N, D // heads)
+        if smem > SMEM_LIMIT:
+            raise ValueError(f"{N} tokens x head dim {D // heads} needs {smem} B of shared "
+                             f"memory in the attention backward, more than {SMEM_LIMIT}")
     if D % 8 or hidden % 8:
         raise ValueError(f"dims {D}, {hidden} must be multiples of 8")
 
@@ -450,6 +455,7 @@ def attention_backward_cuda(qkv, do, B, N, heads):
     """(B*N, 3D) qkv and (B*N, D) do -> o (B*N, D) and float32 dqkv (B*N, 3D)."""
     D = do.shape[1]
     dev, dt = qkv.device, qkv.dtype
+    check_attention_shape(N, D, heads, dt)
     o = torch.empty((B * N, D), dtype=dt, device=dev)
     dqkv = torch.empty((B * N, 3 * D), dtype=torch.float32, device=dev)
     stats = torch.empty((B * heads * 3 * N,), dtype=torch.float32, device=dev)
@@ -474,7 +480,7 @@ def _check(x, keep, w: BlockWeights, num_heads: int = 0):
     if keep.shape != (B,):
         raise ValueError(f"keep must be ({B},), got {tuple(keep.shape)}")
     if num_heads:
-        check_train_shapes(N, D, w.fc1_w.shape[0], num_heads)
+        check_train_shapes(N, D, w.fc1_w.shape[0], num_heads, dt)
     return B, N, D, dt
 
 

@@ -158,7 +158,7 @@ def fused_block_q8(x: torch.Tensor, qb: QBlock) -> torch.Tensor:
         if t.dtype != want:
             raise ValueError(f"{name} must be {want}, got {t.dtype}")
     B, N, D = x.shape
-    check_attention_shape(N, D, qb.num_heads)
+    check_attention_shape(N, D, qb.num_heads, dt)
     x = x.contiguous().reshape(B * N, D)
     h = layernorm_cuda(x, qb.ln1_s, qb.ln1_b, qb.eps, torch.float32)
     qkv = gemm_q8_cuda(h, *qb.linear("qkv"), dt)

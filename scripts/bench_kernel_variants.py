@@ -1,0 +1,246 @@
+"""Time design variants of the bf16 attention and the serving GEMM on a card.
+
+Each variant is a copy of ``csrc/attention_tc.cuh`` or ``csrc/gemm_mma.cuh``
+changed by one textual substitution (or, for the GEMM's tile shapes, the
+shipped template at other ``Tile`` parameters), compiled into one C++
+harness by ``nvcc`` with the port's flags and timed at ViT-B's shapes, 64
+crops of 192 tokens (CUDA events, the best of five windows of 50 launches):
+
+* attention, head dim 64: the shipped forward and backward; P's IEEE
+  division replaced by ``__fdividef``; ``expf`` by ``__expf``; both; and
+  ``__launch_bounds__(128, 3)`` (3 blocks per SM, which caps registers);
+* GEMM, the four products of a block (M = 12288) at bf16 and int8: the two
+  shipped tiles (128x128 with 64x32 warp tiles, 128x64 with 32x32), 64x64
+  warp tiles in 128x128, 256x128 and 128x256 blocks, 128x64 with 64x32
+  warp tiles, and the shipped tiles with a 4-stage ring.
+
+Only the timing is compared: a variant's outputs are not checked (the
+division and exp variants change the arithmetic).  Prints one JSON line.
+
+Usage (a machine with the CUDA toolkit and a card):
+    python3 scripts/bench_kernel_variants.py [--out FILE]
+"""
+import argparse
+import json
+import os
+import re
+import subprocess
+import sys
+import tempfile
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+
+from easy_vitpose_tpu_torch import kernels  # noqa: E402
+
+ATTN = {
+    "shipped": [],
+    "fdividef": [("s[n][e] = s[n][e] / r.l[e >> 1];",
+                  "s[n][e] = __fdividef(s[n][e], r.l[e >> 1]);")],
+    "fast_exp": [("expf(", "__expf(")],
+    "fdividef_fast_exp": [("s[n][e] = s[n][e] / r.l[e >> 1];",
+                           "s[n][e] = __fdividef(s[n][e], r.l[e >> 1]);"), ("expf(", "__expf(")],
+    "3_blocks_per_sm": [("__launch_bounds__(THREADS, 1)", "__launch_bounds__(THREADS, 3)")],
+}
+# (name, namespace, Tile parameters, N % BN == 0 needed)
+GEMM = [
+    ("shipped_128x128_w64x32", "mma_gemm", "128, 128, 64, 32, 2"),
+    ("shipped_128x64_w32x32", "mma_gemm", "128, 64, 32, 32, 3"),
+    ("128x128_w64x64", "mma_gemm", "128, 128, 64, 64, 2"),
+    ("256x128_w64x64", "mma_gemm", "256, 128, 64, 64, 1"),
+    ("128x256_w64x64", "mma_gemm", "128, 256, 64, 64, 1"),
+    ("128x64_w64x32", "mma_gemm", "128, 64, 64, 32, 3"),
+    ("4_stages_128x128_w64x32", "gemm_4stages", "128, 128, 64, 32, 2"),
+    ("4_stages_128x64_w32x32", "gemm_4stages", "128, 64, 32, 32, 3"),
+]
+
+HARNESS = r"""
+#include <cstdio>
+#include <cstring>
+#include <vector>
+#include "common.cuh"
+#include "tc.cuh"
+#include "gemm_mma.cuh"
+@INCLUDES@
+
+typedef cudaError_t (*Gemm)(const void*, const void*, const float*, const float*, const void*,
+                            const void*, void*, int, int, int, int, cudaStream_t);
+typedef cudaError_t (*Fwd)(const void*, void*, int, int, int, int, float, cudaStream_t);
+typedef cudaError_t (*Bwd)(const void*, const void*, void*, void*, void*, int, int, int, int,
+                           float, float, cudaStream_t);
+
+static void fill(void* dev, size_t n, uint32_t seed, float scale) {
+    std::vector<uint16_t> h(n);
+    uint32_t s = seed;
+    for (auto& x : h) {
+        s = s * 1664525u + 1013904223u;
+        float f = ((s >> 8) / 16777216.0f - 0.5f) * scale;
+        uint32_t u;
+        memcpy(&u, &f, 4);
+        x = (uint16_t)(u >> 16);
+    }
+    cudaMemcpy(dev, h.data(), n * 2, cudaMemcpyHostToDevice);
+}
+
+template <typename F>
+static float best_ms(F run) {
+    cudaEvent_t e0, e1;
+    cudaEventCreate(&e0);
+    cudaEventCreate(&e1);
+    if (run() != cudaSuccess || cudaDeviceSynchronize() != cudaSuccess) return -1.f;
+    float best = 1e9f;
+    for (int w = 0; w < 5; ++w) {
+        cudaEventRecord(e0);
+        for (int i = 0; i < 50; ++i) run();
+        cudaEventRecord(e1);
+        cudaEventSynchronize(e1);
+        float ms;
+        cudaEventElapsedTime(&ms, e0, e1);
+        if (ms / 50 < best) best = ms / 50;
+    }
+    return best;
+}
+
+int main() {
+    const int B = 64, N = 192, D = 768, H = 12, M = B * N;
+    void *qkv, *o, *dO, *dqkv, *st;
+    cudaMalloc(&qkv, (size_t)M * 3 * D * 2);
+    cudaMalloc(&o, (size_t)M * D * 2);
+    cudaMalloc(&dO, (size_t)M * D * 2);
+    cudaMalloc(&dqkv, (size_t)M * 3 * D * 4);
+    cudaMalloc(&st, (size_t)B * H * 3 * N * 4);
+    fill(qkv, (size_t)M * 3 * D, 1, 4.f);
+    fill(dO, (size_t)M * D, 2, 0.1f);
+    const char* an[] = {@ATTN_NAMES@};
+    Fwd af[] = {@ATTN_FWD@};
+    Bwd ab[] = {@ATTN_BWD@};
+    for (int v = 0; v < (int)(sizeof(af) / sizeof(af[0])); ++v) {
+        printf("attention %s forward %.4f\n", an[v],
+               best_ms([&] { return af[v](qkv, o, B, N, D, H, 0.125f, 0); }));
+        printf("attention %s backward %.4f\n", an[v], best_ms([&] {
+                   return ab[v](qkv, dO, o, dqkv, st, B, N, D, H, 0.125f, 0.125f, 0);
+               }));
+    }
+    struct Shape { const char* name; int n, k, epi; } shapes[] = {
+        {"qkv", 3 * D, D, 0}, {"proj", D, D, 2}, {"fc1", 4 * D, D, 1}, {"fc2", D, 4 * D, 2}};
+    const char* gn[] = {@GEMM_NAMES@};
+    int gbn[] = {@GEMM_BN@};
+    Gemm gb[] = {@GEMM_BF16@};
+    Gemm gq[] = {@GEMM_INT8@};
+    for (auto& sh : shapes) {
+        void *a, *w, *bias, *res, *out;
+        float *sx, *sw, *fb;
+        cudaMalloc(&a, (size_t)M * sh.k * 2);
+        cudaMalloc(&w, (size_t)sh.n * sh.k * 2);
+        cudaMalloc(&bias, sh.n * 2);
+        cudaMalloc(&res, (size_t)M * sh.n * 2);
+        cudaMalloc(&out, (size_t)M * sh.n * 4);
+        cudaMalloc(&sx, M * 4);
+        cudaMalloc(&sw, sh.n * 4);
+        cudaMalloc(&fb, sh.n * 4);
+        fill(a, (size_t)M * sh.k, 3, 4.f);
+        fill(w, (size_t)sh.n * sh.k, 4, 0.1f);
+        fill(bias, sh.n, 5, 0.2f);
+        fill(res, (size_t)M * sh.n, 6, 2.f);
+        cudaMemset(sx, 0, M * 4);
+        cudaMemset(sw, 0, sh.n * 4);
+        cudaMemset(fb, 0, sh.n * 4);
+        for (int v = 0; v < (int)(sizeof(gb) / sizeof(gb[0])); ++v) {
+            if (sh.n % gbn[v]) continue;
+            printf("gemm %s %s bf16 %.4f\n", gn[v], sh.name, best_ms([&] {
+                       return gb[v](a, w, nullptr, nullptr, bias, res, out, M, sh.n, sh.k * 2,
+                                    sh.epi, 0);
+                   }));
+            printf("gemm %s %s int8 %.4f\n", gn[v], sh.name, best_ms([&] {
+                       return gq[v](a, w, sx, sw, fb, res, out, M, sh.n, sh.k, sh.epi, 0);
+                   }));
+        }
+        cudaFree(a); cudaFree(w); cudaFree(bias); cudaFree(res); cudaFree(out);
+        cudaFree(sx); cudaFree(sw); cudaFree(fb);
+    }
+    return 0;
+}
+"""
+
+
+def variant_sources(tmp: str) -> str:
+    """Write the variant headers into ``tmp``; returns their #include lines."""
+    attn = (kernels.CSRC / "attention_tc.cuh").read_text().replace("#pragma once", "")
+    includes = []
+    for name, subs in ATTN.items():
+        src = attn
+        for old, new in subs:
+            if old not in src:
+                raise RuntimeError(f"attention variant {name}: {old!r} not in the source")
+            src = src.replace(old, new)
+        src = (src.replace("namespace attn_tc", f"namespace av_{name}")
+               .replace("ATTN_TC_DISPATCH", f"DISPATCH_{name}")
+               .replace("attn_tc::", f"av_{name}::"))
+        with open(os.path.join(tmp, f"av_{name}.cuh"), "w") as f:
+            f.write(src)
+        includes.append(f'#include "av_{name}.cuh"')
+    gemm = (kernels.CSRC / "gemm_mma.cuh").read_text().replace("#pragma once", "")
+    if "constexpr int STAGES = 3;" not in gemm:
+        raise RuntimeError("gemm_mma.cuh: no 'constexpr int STAGES = 3;'")
+    gemm = (gemm.replace("constexpr int STAGES = 3;", "constexpr int STAGES = 4;")
+            .replace("namespace mma_gemm", "namespace gemm_4stages"))
+    with open(os.path.join(tmp, "gemm_4stages.cuh"), "w") as f:
+        f.write(gemm)
+    includes.append('#include "gemm_4stages.cuh"')
+    return "\n".join(includes)
+
+
+def harness_source(includes: str) -> str:
+    names = list(ATTN)
+    fill = {
+        "@INCLUDES@": includes,
+        "@ATTN_NAMES@": ", ".join(f'"{n}"' for n in names),
+        "@ATTN_FWD@": ", ".join(f"av_{n}::fwd_launch<4>" for n in names),
+        "@ATTN_BWD@": ", ".join(f"av_{n}::bwd_launch<4>" for n in names),
+        "@GEMM_NAMES@": ", ".join(f'"{g[0]}"' for g in GEMM),
+        "@GEMM_BN@": ", ".join(g[2].split(", ")[1] for g in GEMM),
+        "@GEMM_BF16@": ", ".join(f"{ns}::launch_tile<false, bf16, bf16, {ns}::Tile<{t}>>"
+                                 for _, ns, t in GEMM),
+        "@GEMM_INT8@": ", ".join(f"{ns}::launch_tile<true, float, bf16, {ns}::Tile<{t}>>"
+                                 for _, ns, t in GEMM),
+    }
+    src = HARNESS
+    for k, v in fill.items():
+        src = src.replace(k, v)
+    return src
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", default=None)
+    args = ap.parse_args()
+    flags = [f for f in kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    with tempfile.TemporaryDirectory() as tmp:
+        cu = os.path.join(tmp, "harness.cu")
+        with open(cu, "w") as f:
+            f.write(harness_source(variant_sources(tmp)))
+        exe = os.path.join(tmp, "harness")
+        subprocess.run([kernels.nvcc_path(), *flags, "-I", str(kernels.CSRC), "-I", tmp,
+                        "-o", exe, cu], check=True)
+        lines = subprocess.run([exe], check=True, capture_output=True,
+                               text=True).stdout.splitlines()
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True).stdout.strip().splitlines()[0]
+    out = {"card": card, "attention_ms": {}, "gemm_ms": {}}
+    for line in lines:
+        m = re.match(r"attention (\S+) (forward|backward) (\S+)", line)
+        if m:
+            out["attention_ms"].setdefault(m[1], {})[m[2]] = float(m[3])
+            continue
+        m = re.match(r"gemm (\S+) (\S+) (bf16|int8) (\S+)", line)
+        if m:
+            out["gemm_ms"].setdefault(m[1], {})[f"{m[2]}_{m[3]}"] = float(m[4])
+    line = json.dumps(out)
+    print(line)
+    if args.out:
+        with open(args.out, "w") as f:
+            f.write(line + "\n")
+
+
+if __name__ == "__main__":
+    main()

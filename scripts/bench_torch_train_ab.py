@@ -5,7 +5,9 @@ checkout's ``chip_smoke.py`` and package, and on one CUDA card:
 
 * times K5, K6a, K7 and K8 on ViT-B's block 0 (``check_train_kernels``) and
   K6b, K6c and K9 on ViT-L's (``check_wide_kernels``) at 64 crops, as that
-  checkout's smoke does (CUDA events, median of five windows);
+  checkout's smoke does (CUDA events, median of five windows), and the bf16
+  attention backward alone (``attention_backward_cuda``, both its kernels)
+  at each model's shapes on seeded qkv and output grads;
 * times the ViT-B (float32 moments) and ViT-L (int8 moments) AMP train
   steps of 64 crops with no ``EVT_TRAIN_*`` switch set: host clock around
   synchronized steps, median of five windows of three steps after two
@@ -42,6 +44,7 @@ def main():
     cs.check(torch.cuda.is_available(), "no CUDA device")
     from easy_vitpose_tpu_torch import kernels
     from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
     from easy_vitpose_tpu_torch.models.vitpose import init_params
     from easy_vitpose_tpu_torch.train import fused_opt, step as tstep
 
@@ -56,6 +59,14 @@ def main():
         model = init_params(get_model_config("coco", size), args.seed).to(dev)
         meas = check(torch, model, np.random.default_rng(args.seed), dev)
         out.update({f"{k}_ms": v["ms"] for k, v in meas.items()})
+        bb = model.cfg.backbone
+        rows, g = cs.SLOTS * bb.num_tokens, np.random.default_rng(args.seed)
+        qkv, do = (torch.from_numpy((g.standard_normal((rows, c)) * sc).astype(np.float32))
+                   .to(dev, torch.bfloat16) for c, sc in ((3 * bb.embed_dim, 1.0),
+                                                          (bb.embed_dim, 0.02)))
+        out[f"attn_backward_vit_{size}_ms"] = cs.time_ms(torch, lambda: fbt.attention_backward_cuda(
+            qkv, do, cs.SLOTS, bb.num_tokens, bb.num_heads))
+        del qkv, do
         batch = cs.train_batch(torch, np.random.default_rng(args.seed), cs.SLOTS, dev)
         tx = fused_opt.make_fused_adam(cs.TRAIN_LR, max_grad_norm=cs.TRAIN_CLIP,
                                        moment_dtype=moments)

@@ -181,3 +181,47 @@ def test_cuda_wrappers_refuse_cpu_only_and_bad_shapes():
         fused_block.check_attention_shape(1024, 1024, 8)
     fused_block.check_gemm_shape(2304, 768, 2, True)      # ViT-B shapes pass
     fused_block.check_attention_shape(192, 768, 12)
+
+
+# The bf16 kernels' shape rules are plain Python (models/fused_block.py,
+# models/fused_block_train.py): what a CUDA call checks before it launches.
+@pytest.mark.parametrize("size", ["s", "b", "l", "h"])
+def test_shape_checks_accept_each_vit_size(size):
+    """The token count, head dims (32, 64, 64, 80) and linear widths of
+    ViTPose-S/B/L/H pass every check, at bf16, float32 and int8."""
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models import fused_block_train
+    bb = get_model_config("coco", size).backbone
+    D, N, heads, hidden = bb.embed_dim, bb.num_tokens, bb.num_heads, int(bb.embed_dim * bb.mlp_ratio)
+    for dt in (torch.bfloat16, torch.float32):
+        fused_block.check_attention_shape(N, D, heads, dt)
+        fused_block_train.check_train_shapes(N, D, hidden, heads, dt)
+    for n, k in ((3 * D, D), (D, D), (hidden, D), (D, hidden)):
+        fused_block.check_gemm_shape(n, k, 2, True)
+        fused_block.check_gemm_shape(n, k, 1, True)
+        fused_block.check_gemm_shape(n, k, 4, False)
+
+
+@pytest.mark.parametrize("check,args,match", [
+    ("attention", (192, 40, 2), "head dim 20.*multiple of 8"),
+    ("attention", (192, 272, 2), "head dim 136.*up to 128"),
+    ("attention", (257, 768, 12), "257 tokens.*1 to 256"),
+    ("attention", (0, 768, 12), "0 tokens.*1 to 256"),
+    ("attention", (192, 770, 12), "does not split"),
+    ("train", (300, 768, 3072, 12), "300 tokens.*1 to 256"),
+    ("train", (192, 768, 100, 12), "multiples of 8"),
+    ("gemm", (96, 768, 2), "width 96 is not a multiple of 64"),
+    ("gemm", (768, 96, 2), "depth 96 is not a multiple of 64"),
+    ("gemm", (768, 192, 1), "depth 192 is not a multiple of 128"),
+])
+def test_shape_checks_refuse_bad_shapes(check, args, match):
+    """No fallback: a shape the bf16 (or int8) kernels do not take raises
+    ValueError before any launch."""
+    from easy_vitpose_tpu_torch.models import fused_block_train
+    with pytest.raises(ValueError, match=match):
+        if check == "attention":
+            fused_block.check_attention_shape(*args, torch.bfloat16)
+        elif check == "train":
+            fused_block_train.check_train_shapes(*args, torch.bfloat16)
+        else:
+            fused_block.check_gemm_shape(*args, True)

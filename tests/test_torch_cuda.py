@@ -44,7 +44,7 @@ def rel_err(got, ref):
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
 @pytest.mark.parametrize("epi", [fb.EPI_NONE, fb.EPI_GELU, fb.EPI_RESIDUAL])
-@pytest.mark.parametrize("M", [1, 100, 1000])
+@pytest.mark.parametrize("M", [1, 100, 1000, 12288 + 77])
 def test_gemm(dev, dtype, tol, epi, M):
     K, N = 256, 192
     a = randn(dev, M, K, dtype=dtype)
@@ -62,8 +62,9 @@ def test_gemm(dev, dtype, tol, epi, M):
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("epi", [fb.EPI_NONE, fb.EPI_GELU, fb.EPI_RESIDUAL])
-def test_gemm_q8(dev, out_dtype, epi):
-    M, K, N = 300, 384, 128
+@pytest.mark.parametrize("M", [300, 12288 + 77])
+def test_gemm_q8(dev, out_dtype, epi, M):
+    K, N = 384, 128
     h = randn(dev, M, K)
     wq, sw = quant.quantize_linear(randn(dev, N, K, scale=0.05))
     b = randn(dev, N, scale=0.1)
@@ -78,6 +79,25 @@ def test_gemm_q8(dev, out_dtype, epi):
     assert rel_err(got, ref.to(out_dtype)) <= (1e-5 if out_dtype == torch.float32 else 1e-2)
 
 
+# a ViT block's four products at 64 crops of 192 tokens (M = 12288), in
+# the tile widths the launch picks there (128 for qkv and fc1, 64 for proj
+# and fc2), and at a ragged M
+@pytest.mark.parametrize("N,K", [(2304, 768), (768, 768), (3072, 768), (768, 3072)])
+@pytest.mark.parametrize("M", [12288, 12288 - 50])
+def test_gemm_vit_shapes(dev, N, K, M):
+    a = randn(dev, M, K, dtype=torch.bfloat16)
+    w = randn(dev, N, K, scale=0.05, dtype=torch.bfloat16)
+    b = randn(dev, N, scale=0.1, dtype=torch.bfloat16)
+    got = fb.gemm_cuda(a, w, b, fb.EPI_GELU)
+    assert rel_err(got, vit.gelu(vit.linear_f32(a, w, b)).bfloat16()) <= 1e-2
+    h = randn(dev, M, K)
+    wq, sw = quant.quantize_linear(randn(dev, N, K, scale=0.05))
+    res = randn(dev, M, N, dtype=torch.bfloat16, seed=1)
+    got = quant.gemm_q8_cuda(h, wq, sw, b.float(), torch.bfloat16, fb.EPI_RESIDUAL, res)
+    ref = res.float() + quant.linear_q8(h, wq, sw, b.float()).bfloat16().float()
+    assert rel_err(got, ref.bfloat16()) <= 1e-2
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_rowquant_bit_equal(dev, dtype):
     h = randn(dev, 77, 3072, scale=3.0, dtype=dtype)
@@ -88,13 +108,33 @@ def test_rowquant_bit_equal(dev, dtype):
 
 
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-@pytest.mark.parametrize("N", [50, 192, 200])
-def test_attention(dev, dtype, tol, N):
-    B, heads, hd = 3, 2, 64
+@pytest.mark.parametrize("N", [50, 192, 200, 256])
+@pytest.mark.parametrize("hd", [32, 40, 64, 80, 96, 128])
+def test_attention(dev, dtype, tol, N, hd):
+    """Head dims of ViT-S/B/L (32, 64), ViT-H (80), one padded to 48 (40)
+    and the longer ones whose bf16 logits take key chunks (96, 128); token
+    counts with a partial 16-key tile (50, 200) and the largest (256).
+    float32 refuses the shapes whose FMA block exceeds shared memory."""
+    B, heads = 3, 2
     qkv = randn(dev, B * N, 3 * heads * hd, dtype=dtype)
+    if dtype == torch.float32 and fb.attention_smem_bytes(N, hd) > fb.SMEM_LIMIT:
+        with pytest.raises(ValueError, match="shared memory"):
+            fb.attention_cuda(qkv, B, N, heads)
+        return
     got = fb.attention_cuda(qkv, B, N, heads)
     ref = vit.attention_core(qkv.reshape(B, N, -1), heads).reshape(B * N, -1)
     assert rel_err(got, ref) <= tol
+
+
+@pytest.mark.parametrize("N,hd", [(257, 64), (192, 20), (192, 136)])
+def test_attention_refuses_bf16_shapes(dev, N, hd):
+    """No fallback: a bf16 shape the tensor-core kernels do not take raises."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    qkv = randn(dev, 2 * N, 3 * 2 * hd, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="bf16 attention"):
+        fb.attention_cuda(qkv, 2, N, 2)
+    with pytest.raises(ValueError, match="bf16 attention"):
+        fbt.attention_backward_cuda(qkv, qkv[:, :2 * hd].contiguous(), 2, N, 2)
 
 
 @pytest.mark.parametrize("x_dt,w_dt,o_dt", [(torch.float32,) * 3, (torch.bfloat16,) * 3,
@@ -229,12 +269,15 @@ def test_train_gemm_layouts(dev, layout, dtype, tol):
     assert rel_err(got, ref.to(got.dtype)) <= tol
 
 
-@pytest.mark.parametrize("D,heads,N", [(128, 2, 192), (64, 2, 50), (1280, 16, 50)])
+@pytest.mark.parametrize("D,heads,N", [(128, 2, 192), (64, 2, 50), (1280, 16, 50),
+                                       (1280, 16, 192), (320, 8, 256), (256, 2, 77)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_train_block_kernels(dev, D, heads, N, dtype, tol):
     """K5, K6a and K7 against their plain versions at three crops, one of
-    them dropped, head dims 64, 32 and 80 (ViT-H's 1280 / 16), a partial
-    attention tile at N=50: each output and gradient relative to its
+    them dropped, head dims 64, 32 and 80 (ViT-H's 1280 / 16, also at its
+    serving 192 tokens), 40 at 256 tokens (padded to 48; the logits of a
+    row in two key chunks) and 128 (key chunks in both kernels), a partial
+    attention tile at N=50 and 77: each output and gradient relative to its
     largest plain value (float32 sums in another order; at bf16 a rounding
     may flip)."""
     from easy_vitpose_tpu_torch.models import fused_block_train as fbt
@@ -285,7 +328,8 @@ def test_wide_mlp_backward_kernels(dev, D, N, dtype, tol):
         assert torch.equal(a, b)
 
 
-@pytest.mark.parametrize("D,heads,N", [(128, 2, 192), (64, 2, 50), (1280, 16, 50)])
+@pytest.mark.parametrize("D,heads,N", [(128, 2, 192), (64, 2, 50), (1280, 16, 50),
+                                       (1280, 16, 192)])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
 def test_saved_flavor_kernels(dev, D, heads, N, dtype, tol):
     """K5's saved qkv and m, K7 ``_saved`` and K6a ``_ms`` against their
