@@ -24,7 +24,11 @@ toolkit:
 5. holds the training kernels (K5 forward, K6a MLP backward, K7 attention
    backward at bf16 and fp32, K8 fused Adam bit for bit) against their
    plain versions at the main shapes and a ragged batch, and times each
-   beside its plain version and a PyTorch yardstick;
+   beside its plain version and a PyTorch yardstick; probes whether
+   mma.sync gives a product with its operands swapped as the same bits
+   (K7's P in its two kernels); holds the bf16 training GEMM in each layout
+   (NT, NN, the TN pair) at ViT-B's MLP shapes against float32 matmul,
+   checks two runs bit-equal and times it beside ``torch.matmul``;
 6. drives the training step at full width (ViT-B, depth 12, 64 crops,
    AMP bf16, drop-path 0.3 from a seeded generator, fused f32 Adam at the
    finetune lr 3.75e-4 and clip 1.0) on a device-input batch from
@@ -35,7 +39,8 @@ toolkit:
 7. holds the wide MLP backward (K6b, K6c; against their plain versions and
    K6a) on ViT-L's block 0 at bf16 and fp32, 64 crops and 3, and the
    int8-moment Adam (K9) on every leaf of ViT-L and a ragged one, bit for
-   bit, and times each;
+   bit, and times each; the bf16 training GEMM's layouts as in 5 at
+   ViT-L's shapes;
 8. drives the ViT-L finetune step (depth 24, D=1024, 64 crops, AMP bf16,
    drop-path 0.5, int8 Adam moments, lr 3.75e-4, clip 1.0) as in 6: K5,
    K6b, K6c and K7 24 times per step, K9 once per leaf, no K6a or K8;
@@ -431,15 +436,55 @@ def mma_swap_bit_equal(torch, dev, N: int, hd: int) -> bool:
     """Whether mma.sync forms X Y^T and Y X^T as the same bits transposed,
     for bf16 (N, hd) operands summed in the same k order: K7's kernel B
     recomputes the logits and dP of kernel A with the operands swapped, so
-    its P is A's bit for bit exactly when this holds.  Probed with the
-    training GEMM (the same m16n8k16 steps in k order, float32 out)."""
+    its P is A's bit for bit exactly when this holds.  Probed with
+    ``mma_probe``: m16n8k16 steps in k order from zero, float32 out."""
     from easy_vitpose_tpu_torch.models import fused_block_train as fbt
     rng = np.random.default_rng(N * hd)      # apart from the smoke's own draws
     x, y = (torch.from_numpy(rng.standard_normal((N, hd)).astype(np.float32)).to(dev, torch.bfloat16)
             for _ in range(2))
-    xy = fbt.gemm_nt(x, y, fbt.TE_F32)[1]
-    yx = fbt.gemm_nt(y, x, fbt.TE_F32)[1]
-    return bool(torch.equal(xy, yx.t()))
+    return bool(torch.equal(fbt.mma_probe(x, y), fbt.mma_probe(y, x).t()))
+
+
+def check_train_gemms(torch, model, rng, dev) -> dict:
+    """The bf16 training GEMM in its three layouts at the model's MLP shapes
+    and 64 crops (R = 12288 rows): NT (the fc1 recompute, h2 W1^T), NN (the
+    grad through fc2, dm2c W2) and the TN pair (dW1 = dm1c^T h2, dW2 =
+    h2^T dm1c); each against float32 ``torch.matmul`` of the same operands
+    within ``LAUNCH_TOL`` bf16 (1e-2) of its largest value, bit-equal over
+    two runs, and timed per launch beside ``torch.matmul`` on the same bf16
+    operands; returns {layout: {ms, tflops, matmul_ms, ...}}."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    cfg = model.cfg.backbone
+    R, D = SLOTS * cfg.num_tokens, cfg.embed_dim
+    H = int(D * cfg.mlp_ratio)
+
+    def rand(*shape, scale=1.0):
+        return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32)).to(
+            dev, torch.bfloat16)
+
+    x, y, w1, w2 = rand(R, D), rand(R, H, scale=0.1), rand(H, D, scale=0.05), rand(D, H, scale=0.05)
+    cases = {
+        "nt": (lambda: fbt.gemm_nt(x, w1, fbt.TE_NONE)[:1], lambda: [x.float() @ w1.float().t()],
+               lambda: torch.matmul(x, w1.t()), (R, D, H)),
+        "nn": (lambda: fbt.gemm_nn(x, w2, fbt.TE_NONE)[:1], lambda: [x.float() @ w2.float()],
+               lambda: torch.matmul(x, w2), (R, D, H)),
+        "tn_pair": (lambda: fbt.gemm_tn2(y, x, x, y),
+                    lambda: [y.float().t() @ x.float(), x.float().t() @ y.float()],
+                    lambda: (torch.matmul(y.t(), x), torch.matmul(x.t(), y)), (2 * R, D, H)),
+    }
+    out = {}
+    for name, (run, ref, lib, (r, d, h)) in cases.items():
+        got = run()
+        rel = max(max_rel_err(torch, g, f.to(g.dtype))[1] for g, f in zip(got, ref()))
+        check(rel <= LAUNCH_TOL["torch.bfloat16"], f"bf16 GEMM {name} disagrees with matmul: {rel}")
+        check(all(torch.equal(g, g2) for g, g2 in zip(got, run())), f"bf16 GEMM {name} is not "
+              "the same bits in two runs")
+        ms, lib_ms = time_ms(torch, run), time_ms(torch, lib)
+        out[name] = {"R": R, "D": D, "H": H, "rel": rel, "ms": ms, "tflops": 2e-9 * r * d * h / ms,
+                     "matmul_ms": lib_ms}
+        print(f"check bf16 GEMM {name} ({r} x {d} x {h}): rel {rel:.3e}, bit-equal twice, "
+              f"{ms:.4f} ms = {out[name]['tflops']:.1f} TFLOP/s (torch.matmul {lib_ms:.4f} ms)")
+    return out
 
 
 def check_train_kernels(torch, model, rng, dev):
@@ -475,8 +520,9 @@ def check_train_kernels(torch, model, rng, dev):
                                                        for k, v in errs.items()))
             if B != SLOTS or tdt != torch.bfloat16:
                 continue
-            print(f"check mma operand swap (K7's P in kernels A and B): "
-                  f"{'bit-equal' if mma_swap_bit_equal(torch, dev, N, D // heads) else 'differs'}")
+            swap = mma_swap_bit_equal(torch, dev, N, D // heads)
+            print(f"check mma.sync m16n8k16 operand swap (mma_probe, {N} x {D // heads}; K7's P "
+                  f"in kernels A and B): {'bit-equal' if swap else 'differs'}")
             fwd_ops, mlp_ops, attn_ops = train_block_work(B, N, D, hidden)
             act, wts = B * N * D * 2, (4 * D * D + 2 * D * hidden) * 2
             layer = encoder_layer(torch, blk)
@@ -1050,6 +1096,7 @@ def main() -> int:
         meas = check_kernels(torch, model, rng, dev)
         steps = run_pose_steps(torch, model, rng, args.reps, dev)
     meas.update(check_train_kernels(torch, model, rng, dev))
+    gemms = {"vit_b": check_train_gemms(torch, model, rng, dev)}
     train = run_train_step(torch, model, rng, args.seed, dev,
                            (fbt.FWD, fbt.BWD_MLP, fbt.BWD_ATTN))
     rng2 = np.random.default_rng(args.seed + 1)        # the flavors' phases draw apart
@@ -1061,6 +1108,7 @@ def main() -> int:
     del model
     model_l = init_params(get_model_config("coco", "l"), args.seed).to(dev)
     meas.update(check_wide_kernels(torch, model_l, rng, dev))
+    gemms["vit_l"] = check_train_gemms(torch, model_l, rng, dev)
     train_l = run_train_step(torch, model_l, rng, args.seed, dev,
                              (fbt.FWD, fbt.BWD_MLP_DX_SAVE, fbt.BWD_MLP_DW_SAVED, fbt.BWD_ATTN),
                              moments="int8")
@@ -1126,6 +1174,7 @@ def main() -> int:
                        ("train_step_l_int8_saved_m", train_l_saved_m),
                        ("train_step_b_grad_accum2_ema", accum)):
         print(label + ":", json.dumps({k: v for k, v in run.items() if k != "launches"}))
+    print("train_gemms:", json.dumps(gemms))
     print("pose_steps:", json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "launches"}
                                      for k, v in steps.items()}))
     print(json.dumps({"kernels": rows}))

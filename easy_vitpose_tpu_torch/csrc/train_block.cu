@@ -6,13 +6,12 @@
 //   * a GEMM for the three layouts a backward needs, C = A . B^T over K with
 //     A (M, K) and B (N, K) each stored K-contiguous or not: NT (the forward
 //     and recompute products, x W^T), NN (activation grads, dY W) and TN
-//     (weight grads, dY^T X, contracted over all rows).  bf16 on the tensor
-//     cores (mma.sync m16n8k16, float32 accumulation; an operand that is not
-//     K-contiguous is read with ldmatrix.trans) or float32 FMA.  One
-//     block owns one 64x64 output tile for the whole K loop, so a weight
-//     grad is one deterministic sum with no atomics.  The TN products come
-//     in pairs, a backward's two weight grads in one launch whose grid
-//     covers the tiles of both (K6c, and the weight grads of K6a, K6e, K7);
+//     (weight grads, dY^T X, contracted over all rows).  bf16 on wgmma
+//     (gemm_wgmma.cuh, each operand read as stored) or float32 FMA.  One
+//     block owns one output tile for the whole K loop, so a weight grad is
+//     one deterministic sum with no atomics.  The TN products come in
+//     pairs, a backward's two weight grads in one launch whose grid covers
+//     the tiles of both (K6c, and the weight grads of K6a, K6e, K7);
 //   * epilogues: bias, GELU, the drop-path residual round(x + dp * (acc + b))
 //     with the branch kept in float32, GELU saving the pre-activation (in
 //     float32 for the recompute flavors, rounded to the working dtype for
@@ -39,6 +38,7 @@
 
 #include "attention_tc.cuh"
 #include "common.cuh"
+#include "gemm_wgmma.cuh"
 
 enum {
     TE_NONE = 0,          // out = round(acc + bias)
@@ -68,10 +68,11 @@ __device__ __forceinline__ float gelu_grad(float x) {
     return cdf + x * pdf;
 }
 
-// The epilogues come in two families, each compiled into GEMM kernels of its
-// own: the default path's (TE_NONE .. TE_F32) and the flavors' (TE_GELU_SAVE_T
-// .. TE_GELU_GRAD_MS).  One kernel holding all nine made the default path's
-// GELU epilogues 6-10% slower (PERF.md).
+// The float32 GEMM's epilogues come in two families, each compiled into
+// kernels of its own: the default path's (TE_NONE .. TE_F32) and the
+// flavors' (TE_GELU_SAVE_T .. TE_GELU_GRAD_MS).  One kernel holding all nine
+// made the default path's GELU epilogues 6-10% slower (PERF.md).  The bf16
+// GEMM goes further: one kernel per mode (see its note).
 constexpr int FLAVOR_EPI = TE_GELU_SAVE_T;
 
 template <typename T, int FAM>
@@ -117,131 +118,230 @@ __device__ __forceinline__ void epi_store(const Epi& e, int row, int col, float 
 }
 
 // ------------------------------------------------------------ bf16 GEMM
-// Block tile 64x64, k-tile 32, 4 warps in 2x2 with 32x32 warp tiles.  Both
-// layouts of an operand are copied 16 bytes at a time, as stored:
-//   * K-contiguous: a [row][k] tile, rows padded to 40 elements (80 bytes),
-//     which puts a fragment's 32 four-byte reads on 32 banks;
-//   * row-contiguous: a [k][row] tile, rows padded to 72 elements (144
-//     bytes), from which ldmatrix.trans reads the fragments transposed; the
-//     eight 16-byte rows of each 8x8 matrix land on distinct bank groups.
+// The products of the TPU bodies _fwd_kernel (K5: qkv, proj, fc1, fc2),
+// _bwd_mlp_* (K6a-K6e: the fc1 recompute, the grads through fc2 and fc1,
+// the pair dW1, dW2) and _bwd_attn* (K7: the qkv recompute, the grads
+// through proj and qkv, the pair dWqkv, dWp).  At 64 crops (12288 rows)
+// each is 14-206 GFLOP at 370-770 FLOP per byte moved, above the H100's
+// 295, so operations bound them (989 TFLOP/s bf16; the earlier 64 x 64
+// mma.sync tile reached 120).  The one near the line is the NN product
+// through fc2, whose GELU-gradient epilogue reads and writes float32 rows
+// of the hidden width (240 FLOP per byte).
+//
+// Design (gemm_wgmma.cuh): 128 x 128 block tiles of two wgmma warpgroups,
+// a 3-stage TMA ring of 64-wide k-tiles (32 KB a stage, 97 KB a block),
+// two blocks per SM, so that one block's epilogue and ring fill overlap
+// the other's products; that leaves a thread at most 128 registers, for
+// the 64 float32 accumulators and the rest (4 stages at one block per SM
+// measured 17-35% slower, but within 4% on the MLP weight-grad pairs).
+// Every shape takes that one tile: at 12288 rows the NT and NN products
+// have 576-3072 tiles (2.2-11.6 waves of 264 blocks), the weight-grad
+// pairs 144 (ViT-B attention: 12 SMs take two tiles), 288 (ViT-B MLP),
+// 256 (ViT-L attention) and 512 (ViT-L MLP).  No shape is split over K,
+// so every epilogue and every flavor sum each output in the same order
+// (K6d + K6e = K6b + K6c, K7 _saved = K7, bit for bit).  The epilogue
+// stages the tile in the freed ring: the mode's input (a float32 or T
+// aux, or the residual) comes in by TMA, brought into L2 by a prefetch
+// when the block starts; the outputs go out by TMA stores of whole
+// 128-byte rows.  Each mode is a kernel of its own, holding only its
+// epilogue's code: with the modes behind a switch in one kernel, stored
+// from registers or staged, the GELU-saving and GELU-gradient epilogues
+// took 2.9-3.7x the plain store's time, against 1.8-2.0x as kernels of
+// their own (PERF.md).
 namespace tg {
-constexpr int BM = 64, BK = 32, PITCH = 40, TPITCH = 72, THREADS = 128;
+constexpr int BM = 64;     // the float32 GEMM's tile
 
-template <bool KMAJ>
-__host__ __device__ constexpr int tile_elems() { return KMAJ ? BM * PITCH : BK * TPITCH; }
+// The staged tiles of a mode in the freed ring: out2 (float32 or T) and a
+// float32 aux at OUT2_AT (64 KB), out (T) and a T aux or res at OUT_AT (32
+// KB), so that an input and the output written at the same elements share
+// bytes.  in_bytes: the element size of the tile a mode reads (0: none).
+constexpr uint32_t OUT2_AT = 0, OUT_AT = 4 * wg::BM * 128;
 
-template <bool KMAJ>
-__device__ __forceinline__ void load_bf16(bf16* dst, const bf16* src, int r0, int rows, int k0,
-                                          int K, int ld) {
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-        const int c = threadIdx.x + i * THREADS;      // 256 chunks of 8 elements
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (KMAJ) {
-            const int r = c >> 2, kc = (c & 3) * 8;
-            if (r0 + r < rows && k0 + kc < K)
-                v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * ld + k0 + kc);
-            *reinterpret_cast<uint4*>(dst + r * PITCH + kc) = v;
-        } else {
-            const int k = c >> 3, rc = (c & 7) * 8;
-            if (k0 + k < K && r0 + rc < rows)
-                v = *reinterpret_cast<const uint4*>(src + (size_t)(k0 + k) * ld + r0 + rc);
-            *reinterpret_cast<uint4*>(dst + k * TPITCH + rc) = v;
-        }
+__host__ __device__ constexpr int in_bytes(int mode) {
+    return mode == TE_GELU_GRAD || mode == TE_GELU_GRAD_T ? 4
+         : mode == TE_DP_RES || mode == TE_GELU_GRAD_MS ? 2 : 0;
+}
+__host__ __device__ constexpr int out2_bytes(int mode) {
+    return mode == TE_GELU_SAVE || mode == TE_GELU_GRAD || mode == TE_F32 ||
+           mode == TE_GELU_GRAD_MS ? 4 : mode == TE_GELU_SAVE_T ? 2 : 0;
+}
+__host__ __device__ constexpr bool has_out(int mode) {
+    return mode != TE_GELU_GRAD && mode != TE_F32;
+}
+
+__device__ __forceinline__ float2* f32_at(uint8_t* t, int r, int c) {
+    return reinterpret_cast<float2*>(t + wg::tile_offset<4>(r, c));
+}
+__device__ __forceinline__ __nv_bfloat162* t_at(uint8_t* t, int r, int c) {
+    return reinterpret_cast<__nv_bfloat162*>(t + wg::tile_offset<2>(r, c));
+}
+
+// epi_store of mode MODE for the values v0, v1 (acc + bias) of columns c
+// and c + 1 of tile row r (output row `row`), on the staged tiles: t1 holds
+// out and a T input, t2 out2 and a float32 input
+template <int MODE>
+__device__ __forceinline__ void epi_pair(const Epi& e, uint8_t* t1, uint8_t* t2, int r, int c,
+                                         int row, float v0, float v1) {
+    if constexpr (MODE == TE_NONE) {
+        *t_at(t1, r, c) = __floats2bfloat162_rn(v0, v1);
+    } else if constexpr (MODE == TE_GELU) {
+        *t_at(t1, r, c) = __floats2bfloat162_rn(gelu_as(v0), gelu_as(v1));
+    } else if constexpr (MODE == TE_DP_RES) {
+        const float dp = e.dp[row / e.tokens];
+        const float2 x = __bfloat1622float2(*t_at(t1, r, c));
+        *t_at(t1, r, c) = __floats2bfloat162_rn(__fadd_rn(x.x, __fmul_rn(v0, dp)),
+                                                __fadd_rn(x.y, __fmul_rn(v1, dp)));
+    } else if constexpr (MODE == TE_GELU_SAVE) {
+        *f32_at(t2, r, c) = make_float2(v0, v1);
+        *t_at(t1, r, c) = __floats2bfloat162_rn(gelu_as(v0), gelu_as(v1));
+    } else if constexpr (MODE == TE_GELU_GRAD) {
+        const float2 m = *f32_at(t2, r, c);
+        *f32_at(t2, r, c) = make_float2(__fmul_rn(v0, gelu_grad(m.x)),
+                                        __fmul_rn(v1, gelu_grad(m.y)));
+    } else if constexpr (MODE == TE_F32) {
+        *f32_at(t2, r, c) = make_float2(v0, v1);
+    } else if constexpr (MODE == TE_GELU_SAVE_T) {
+        *t_at(t2, r, c) = __floats2bfloat162_rn(v0, v1);
+        *t_at(t1, r, c) = __floats2bfloat162_rn(gelu_as(v0), gelu_as(v1));
+    } else if constexpr (MODE == TE_GELU_GRAD_T) {
+        // the float32 value TE_GELU_GRAD stores, rounded: K6d's dm1c is bit
+        // for bit the rounding of K6b's dm1
+        const float2 m = *f32_at(t2, r, c);
+        *t_at(t1, r, c) = __floats2bfloat162_rn(__fmul_rn(v0, gelu_grad(m.x)),
+                                                __fmul_rn(v1, gelu_grad(m.y)));
+    } else {   // TE_GELU_GRAD_MS
+        const float2 m = __bfloat1622float2(*t_at(t1, r, c));
+        *f32_at(t2, r, c) = make_float2(__fmul_rn(v0, gelu_grad(m.x)),
+                                        __fmul_rn(v1, gelu_grad(m.y)));
+        *t_at(t1, r, c) = __floats2bfloat162_rn(gelu_as(m.x), gelu_as(m.y));
     }
 }
 
-// A fragment (m16 x k16 at row m0, k ks): a0 (m g, k 2t), a1 (m g+8), a2
-// (k 2t+8), a3 (both), with g = lane / 4, t = lane % 4
-template <bool KMAJ>
-__device__ __forceinline__ void frag_a(uint32_t* a, const bf16* s, int m0, int ks, int lane) {
-    if (KMAJ) {
-        const bf16* p = s + (m0 + (lane >> 2)) * PITCH + ks + 2 * (lane & 3);
-        a[0] = *reinterpret_cast<const uint32_t*>(p);
-        a[1] = *reinterpret_cast<const uint32_t*>(p + 8 * PITCH);
-        a[2] = *reinterpret_cast<const uint32_t*>(p + 8);
-        a[3] = *reinterpret_cast<const uint32_t*>(p + 8 * PITCH + 8);
-    } else {
-        const int mat = lane >> 3;
-        tc::ldsm_x4_t(a, s + (ks + (lane & 7) + 8 * (mat >> 1)) * TPITCH + m0 + 8 * (mat & 1));
-    }
-}
-
-// B fragments of two n8 x k16 tiles at rows n0 and n0 + 8: b0 (k 2t, n g),
-// b1 (k 2t+8, n g) of each
-template <bool KMAJ>
-__device__ __forceinline__ void frag_b2(uint32_t (*b)[2], const bf16* s, int n0, int ks, int lane) {
-    if (KMAJ) {
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const bf16* p = s + (n0 + 8 * j + (lane >> 2)) * PITCH + ks + 2 * (lane & 3);
-            b[j][0] = *reinterpret_cast<const uint32_t*>(p);
-            b[j][1] = *reinterpret_cast<const uint32_t*>(p + 8);
+// The block's accumulators (wg::mainloop's layout) through the epilogue:
+// the input tile, if the mode has one, comes into the ring by TMA; each
+// thread turns its pairs of columns into the mode's outputs, in place in
+// the ring; then thread 0 writes the staged tiles out by TMA, which drops
+// what lies beyond M and N.  The float32 math and its rounding points are
+// epi_store's.
+template <int MODE>
+__device__ __forceinline__ void epilogue(const float (&acc)[wg::ACC], const Epi& e,
+                                         const CUtensorMap* out_map, const CUtensorMap* out2_map,
+                                         const CUtensorMap* in_map, uint32_t ring, uint32_t in_bar,
+                                         int M, int N, int m0, int n0) {
+    extern __shared__ uint8_t smem_raw[];
+    constexpr int ib = in_bytes(MODE), o2 = out2_bytes(MODE);
+    __syncthreads();                                  // every warp is done with the ring
+    if constexpr (ib != 0) {
+        if (threadIdx.x == 0) {
+            const uint32_t at = ring + (ib == 4 ? OUT2_AT : OUT_AT);
+            wg::mbar_expect(in_bar, ib * wg::BM * wg::BN);
+            for (int c = 0; c < wg::BN; c += 128 / ib)
+                wg::tma_load(at + c * ib * wg::BM, in_map, n0 + c, m0, in_bar);
         }
-    } else {
-        const int mat = lane >> 3;
-        uint32_t r[4];
-        tc::ldsm_x4_t(r, s + (ks + (lane & 7) + 8 * (mat & 1)) * TPITCH + n0 + 8 * (mat >> 1));
-        b[0][0] = r[0]; b[0][1] = r[1]; b[1][0] = r[2]; b[1][1] = r[3];
+        wg::mbar_wait(in_bar, 0);
     }
-}
-
-
-// one block's 64x64 output tile at (bm, bn), summed over all of K
-template <bool AK, bool BKM, int FAM>
-__device__ __forceinline__ void gemm_bf16_tile(const bf16* __restrict__ A,
-                                               const bf16* __restrict__ B, int M, int N, int K,
-                                               int lda, int ldb, const Epi& ep, int bm, int bn) {
-    __shared__ __align__(16) bf16 As[tile_elems<AK>()];
-    __shared__ __align__(16) bf16 Bs[tile_elems<BKM>()];
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-    const int g = lane >> 2, t = lane & 3;
-    float acc[2][4][4];
+    uint8_t* const tile = smem_raw + (ring - wg::smem_u32(smem_raw));
+    const int lane = threadIdx.x & 31;
+    const int r0 = 16 * (threadIdx.x >> 5) + (lane >> 2), c0 = 2 * (lane & 3);
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[mi][ni][e] = 0.f;
-
-    for (int k0 = 0; k0 < K; k0 += BK) {
-        load_bf16<AK>(As, A, bm, M, k0, K, lda);
-        load_bf16<BKM>(Bs, B, bn, N, k0, K, ldb);
-        __syncthreads();
-#pragma unroll
-        for (int ks = 0; ks < BK; ks += 16) {
-            uint32_t a[2][4], b[4][2];
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi) frag_a<AK>(a[mi], As, wm + mi * 16, ks, lane);
-#pragma unroll
-            for (int nj = 0; nj < 2; ++nj) frag_b2<BKM>(b + 2 * nj, Bs, wn + nj * 16, ks, lane);
-#pragma unroll
-            for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-                for (int ni = 0; ni < 4; ++ni)
-                    tc::mma_bf16(acc[mi][ni], a[mi], b[ni][0], b[ni][1]);
+    for (int j = 0; j < wg::ACC / 4; ++j) {
+        const int c = c0 + 8 * j;
+        float b0 = 0.f, b1 = 0.f;
+        const bool bias = e.bias && n0 + c < N;       // N % 8 == 0: both columns or neither
+        if (bias) {
+            const float2 bv = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                static_cast<const bf16*>(e.bias) + n0 + c));
+            b0 = bv.x;
+            b1 = bv.y;
         }
-        __syncthreads();
-    }
-    // accumulator e of an m16n8 tile: row g + 8*(e>>1), column 2*t + (e&1)
 #pragma unroll
-    for (int mi = 0; mi < 2; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < 4; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int row = bm + wm + mi * 16 + g + 8 * (e >> 1);
-                const int col = bn + wn + ni * 8 + 2 * t + (e & 1);
-                if (row < M && col < N) epi_store<bf16, FAM>(ep, row, col, acc[mi][ni][e]);
+        for (int h = 0; h < 2; ++h) {
+            const int r = r0 + 8 * h;
+            float v0 = acc[4 * j + 2 * h], v1 = acc[4 * j + 2 * h + 1];
+            if (bias) {
+                v0 = __fadd_rn(v0, b0);
+                v1 = __fadd_rn(v1, b1);
             }
+            epi_pair<MODE>(e, tile + OUT_AT, tile + OUT2_AT, r, c, min(m0 + r, M - 1), v0, v1);
+        }
+    }
+    wg::fence_to_tma();
+    __syncthreads();
+    if (threadIdx.x == 0) {
+        if constexpr (has_out(MODE))
+            for (int c = 0; c < wg::BN && n0 + c < N; c += 64)
+                wg::tma_store(out_map, ring + OUT_AT + c * 2 * wg::BM, n0 + c, m0);
+        if constexpr (o2 != 0)
+            for (int c = 0; c < wg::BN && n0 + c < N; c += 128 / o2)
+                wg::tma_store(out2_map, ring + OUT2_AT + c * o2 * wg::BM, n0 + c, m0);
+        wg::tma_store_commit_and_wait();
+    }
 }
 
-template <bool AK, bool BKM, int FAM>
-__global__ void __launch_bounds__(THREADS)
-gemm_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ B, int M, int N, int K,
-                 int lda, int ldb, Epi ep) {
-    gemm_bf16_tile<AK, BKM, FAM>(A, B, M, N, K, lda, ldb, ep, blockIdx.y * BM, blockIdx.x * BM);
+// the maps of a launch's output, second output and epilogue input
+struct EpiMaps {
+    CUtensorMap out, out2, in;
+};
+
+// C (M, N) = epilogue(A . B^T): A (M, K) K-major; B (N, K) K-major (NT) or
+// stored (K, N) (NN)
+template <bool BKM, int MODE>
+__global__ void __launch_bounds__(wg::THREADS, wg::MIN_BLOCKS)
+gemm_bf16_kernel(const __grid_constant__ CUtensorMap ma, const __grid_constant__ CUtensorMap mb,
+                 const __grid_constant__ EpiMaps em, int M, int N, int K, Epi ep) {
+    __shared__ __align__(8) uint64_t in_bar;
+    constexpr int ib = in_bytes(MODE);
+    const int m0 = blockIdx.y * wg::BM, n0 = blockIdx.x * wg::BN;
+    if (threadIdx.x == 0) {
+        wg::mbar_init(wg::smem_u32(&in_bar), 1);
+        if constexpr (ib != 0)
+            for (int c = 0; c < wg::BN; c += 128 / ib) wg::tma_prefetch(&em.in, n0 + c, m0);
+    }
+    float acc[wg::ACC];
+    const uint32_t ring = wg::mainloop<true, BKM>(acc, &ma, &mb, m0, n0, K);
+    epilogue<MODE>(acc, ep, &em.out, &em.out2, &em.in, ring, wg::smem_u32(&in_bar), M, N, m0, n0);
+}
+
+template <bool BKM, int MODE>
+cudaError_t launch_bf16(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
+                        const Epi& ep, cudaStream_t st) {
+    CUtensorMap ma, mb;
+    EpiMaps em = {};
+    constexpr int ib = in_bytes(MODE), o2 = out2_bytes(MODE);
+    const bool ok = wg::operand_map(&ma, a, M, K, lda, true) &&
+                    wg::operand_map(&mb, b, N, K, ldb, BKM) &&
+                    (!has_out(MODE) || wg::tile_map(&em.out, ep.out, M, N, ep.ldo, 2)) &&
+                    (!o2 || wg::tile_map(&em.out2, ep.out2, M, N, ep.ldo, o2)) &&
+                    (!ib || wg::tile_map(&em.in, MODE == TE_DP_RES ? ep.res : ep.aux, M, N,
+                                         ep.ldo, ib));
+    if (!ok) return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_bf16_kernel<BKM, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+    if (err != cudaSuccess) return err;
+    const dim3 grid((N + wg::BN - 1) / wg::BN, (M + wg::BM - 1) / wg::BM);
+    gemm_bf16_kernel<BKM, MODE><<<grid, wg::THREADS, wg::SMEM, st>>>(ma, mb, em, M, N, K, ep);
+    return cudaGetLastError();
+}
+
+// one bf16 kernel per epilogue mode: each holds only its own epilogue's code
+template <bool BKM>
+cudaError_t launch_bf16_mode(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
+                             const Epi& ep, cudaStream_t st) {
+    switch (ep.mode) {
+        case TE_NONE: return launch_bf16<BKM, TE_NONE>(a, b, M, N, K, lda, ldb, ep, st);
+        case TE_GELU: return launch_bf16<BKM, TE_GELU>(a, b, M, N, K, lda, ldb, ep, st);
+        case TE_DP_RES: return launch_bf16<BKM, TE_DP_RES>(a, b, M, N, K, lda, ldb, ep, st);
+        case TE_GELU_SAVE: return launch_bf16<BKM, TE_GELU_SAVE>(a, b, M, N, K, lda, ldb, ep, st);
+        case TE_GELU_GRAD: return launch_bf16<BKM, TE_GELU_GRAD>(a, b, M, N, K, lda, ldb, ep, st);
+        case TE_F32: return launch_bf16<BKM, TE_F32>(a, b, M, N, K, lda, ldb, ep, st);
+        case TE_GELU_SAVE_T:
+            return launch_bf16<BKM, TE_GELU_SAVE_T>(a, b, M, N, K, lda, ldb, ep, st);
+        case TE_GELU_GRAD_T:
+            return launch_bf16<BKM, TE_GELU_GRAD_T>(a, b, M, N, K, lda, ldb, ep, st);
+        case TE_GELU_GRAD_MS:
+            return launch_bf16<BKM, TE_GELU_GRAD_MS>(a, b, M, N, K, lda, ldb, ep, st);
+        default: return cudaErrorInvalidValue;
+    }
 }
 
 // ------------------------------------------------------------ f32 GEMM
@@ -343,42 +443,73 @@ __device__ __forceinline__ TnTile tn_pair_tile(const TnPair& pr) {
     return tl;
 }
 
-__global__ void __launch_bounds__(THREADS) gemm_tn2_bf16_kernel(TnPair pr) {
-    const TnTile tl = tn_pair_tile(pr);
-    gemm_bf16_tile<false, false, 0>(static_cast<const bf16*>(tl.a), static_cast<const bf16*>(tl.b),
-                                 tl.M, tl.N, pr.K, tl.M, tl.N, tl.ep, tl.bm, tl.bn);
-}
-
 __global__ void __launch_bounds__(256) gemm_tn2_f32_kernel(TnPair pr) {
     const TnTile tl = tn_pair_tile(pr);
     gemm_f32_tile<false, false, 0>(static_cast<const float*>(tl.a), static_cast<const float*>(tl.b),
                                 tl.M, tl.N, pr.K, tl.M, tl.N, tl.ep, tl.bm, tl.bn);
 }
 
-template <typename T, bool AK, bool BKM, int FAM>
-void launch(const void* a, const void* b, int M, int N, int K, int lda, int ldb, const Epi& ep,
-            cudaStream_t st) {
+// The bf16 pair: every operand MN-major, read by tensor map.  Block t takes
+// 128 x 128 tile t of product 0 while t < tiles0, else tile t - tiles0 of
+// product 1, along N first; its maps are picked by address, one parameter
+// or the other, never by a runtime index.
+struct TnMaps {
+    CUtensorMap a0, b0, o0, a1, b1, o1;
+    int M[2], N[2];
+    int tiles0, K;
+};
+
+__global__ void __launch_bounds__(wg::THREADS, wg::MIN_BLOCKS)
+gemm_tn2_bf16_kernel(const __grid_constant__ TnMaps p) {
+    const bool second = static_cast<int>(blockIdx.x) >= p.tiles0;
+    const int t = second ? blockIdx.x - p.tiles0 : blockIdx.x;
+    const int M = second ? p.M[1] : p.M[0], N = second ? p.N[1] : p.N[0];
+    const int tiles_n = (N + wg::BN - 1) / wg::BN;
+    const int m0 = (t / tiles_n) * wg::BM, n0 = (t % tiles_n) * wg::BN;
+    float acc[wg::ACC];
+    const uint32_t ring = wg::mainloop<false, false>(acc, second ? &p.a1 : &p.a0,
+                                                     second ? &p.b1 : &p.b0, m0, n0, p.K);
+    const Epi ep{TE_NONE, 1, N, nullptr, nullptr, nullptr, nullptr, nullptr, nullptr};
+    epilogue<TE_NONE>(acc, ep, second ? &p.o1 : &p.o0, nullptr, nullptr, ring, 0, M, N, m0, n0);
+}
+
+inline int bf16_tiles(int M, int N) {
+    return ((M + wg::BM - 1) / wg::BM) * ((N + wg::BN - 1) / wg::BN);
+}
+
+cudaError_t tn2_bf16(const void* a0, const void* b0, int M0, int N0, void* out0, const void* a1,
+                     const void* b1, int M1, int N1, void* out1, int K, cudaStream_t st) {
+    TnMaps p = {};
+    p.M[0] = M0; p.M[1] = M1; p.N[0] = N0; p.N[1] = N1;
+    p.tiles0 = bf16_tiles(M0, N0);
+    p.K = K;
+    const int tiles1 = bf16_tiles(M1, N1);
+    // a product without outputs gets no maps and no blocks
+    if (p.tiles0 && (!wg::operand_map(&p.a0, a0, M0, K, M0, false) ||
+                     !wg::operand_map(&p.b0, b0, N0, K, N0, false) ||
+                     !wg::tile_map(&p.o0, out0, M0, N0, N0, 2)))
+        return cudaErrorInvalidValue;
+    if (tiles1 && (!wg::operand_map(&p.a1, a1, M1, K, M1, false) ||
+                   !wg::operand_map(&p.b1, b1, N1, K, N1, false) ||
+                   !wg::tile_map(&p.o1, out1, M1, N1, N1, 2)))
+        return cudaErrorInvalidValue;
+    const cudaError_t err = cudaFuncSetAttribute(
+        gemm_tn2_bf16_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, wg::SMEM);
+    if (err != cudaSuccess || p.tiles0 + tiles1 == 0) return err;
+    gemm_tn2_bf16_kernel<<<p.tiles0 + tiles1, wg::THREADS, wg::SMEM, st>>>(p);
+    return cudaGetLastError();
+}
+
+template <int FAM>
+cudaError_t launch_f32(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
+                       int b_kmaj, const Epi& ep, cudaStream_t st) {
     const dim3 grid((N + BM - 1) / BM, (M + BM - 1) / BM);
-    if (sizeof(T) == 2)
-        gemm_bf16_kernel<AK, BKM, FAM><<<grid, THREADS, 0, st>>>(
-            static_cast<const bf16*>(a), static_cast<const bf16*>(b), M, N, K, lda, ldb, ep);
+    const float* af = static_cast<const float*>(a);
+    const float* bf = static_cast<const float*>(b);
+    if (b_kmaj)
+        gemm_f32_kernel<true, true, FAM><<<grid, 256, 0, st>>>(af, bf, M, N, K, lda, ldb, ep);
     else
-        gemm_f32_kernel<AK, BKM, FAM><<<grid, 256, 0, st>>>(
-            static_cast<const float*>(a), static_cast<const float*>(b), M, N, K, lda, ldb, ep);
-}
-
-template <typename T, int FAM>
-void launch_layout(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
-                   int b_kmaj, const Epi& ep, cudaStream_t st) {
-    if (b_kmaj) launch<T, true, true, FAM>(a, b, M, N, K, lda, ldb, ep, st);
-    else launch<T, true, false, FAM>(a, b, M, N, K, lda, ldb, ep, st);
-}
-
-template <typename T>
-cudaError_t dispatch(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
-                     int b_kmaj, const Epi& ep, cudaStream_t st) {
-    if (ep.mode >= FLAVOR_EPI) launch_layout<T, 1>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st);
-    else launch_layout<T, 0>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st);
+        gemm_f32_kernel<true, false, FAM><<<grid, 256, 0, st>>>(af, bf, M, N, K, lda, ldb, ep);
     return cudaGetLastError();
 }
 }  // namespace tg
@@ -386,8 +517,9 @@ cudaError_t dispatch(const void* a, const void* b, int M, int N, int K, int lda,
 // The NT and NN products: C (M, N) = epilogue(sum_k A[m, k] B[n, k]).
 // A[m, k] sits at a[m*lda + k]; B[n, k] at b[n*ldb + k] (b_kmaj) or
 // b[k*ldb + n].  The caller guarantees that each operand's contiguous dim
-// (K, or N) and the leading dims are multiples of 8; the other dims are
-// ragged.  TN products go through evt_train_gemm_tn2.
+// (K, or N) and the leading dims are multiples of 8 and the pointers
+// multiples of 16 bytes; the other dims are ragged.  TN products go
+// through evt_train_gemm_tn2.
 EVT_EXPORT int evt_train_gemm(const void* a, const void* b, int M, int N, int K, int lda, int ldb,
                               int b_kmaj, int is_bf16, int mode, const void* bias,
                               const void* res, const void* dp, int tokens, const void* aux,
@@ -397,9 +529,13 @@ EVT_EXPORT int evt_train_gemm(const void* a, const void* b, int M, int N, int K,
     ep.mode = mode; ep.tokens = tokens; ep.ldo = ldo; ep.bias = bias; ep.res = res;
     ep.dp = static_cast<const float*>(dp); ep.aux = aux;
     ep.out = out; ep.out2 = out2;
-    return static_cast<int>(is_bf16
-        ? tg::dispatch<bf16>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st)
-        : tg::dispatch<float>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st));
+    if (is_bf16)
+        return static_cast<int>(
+            b_kmaj ? tg::launch_bf16_mode<true>(a, b, M, N, K, lda, ldb, ep, st)
+                   : tg::launch_bf16_mode<false>(a, b, M, N, K, lda, ldb, ep, st));
+    return static_cast<int>(mode >= FLAVOR_EPI
+                                ? tg::launch_f32<1>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st)
+                                : tg::launch_f32<0>(a, b, M, N, K, lda, ldb, b_kmaj, ep, st));
 }
 
 // A backward's two weight grads: out0 (M0, N0) = a0^T b0 and out1 (M1,
@@ -409,15 +545,49 @@ EVT_EXPORT int evt_train_gemm_tn2(const void* a0, const void* b0, int M0, int N0
                                   const void* a1, const void* b1, int M1, int N1, void* out1,
                                   int K, int is_bf16, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    if (is_bf16)
+        return static_cast<int>(tg::tn2_bf16(a0, b0, M0, N0, out0, a1, b1, M1, N1, out1, K, st));
     const auto tiles = [](int M, int N) {
         return ((M + tg::BM - 1) / tg::BM) * ((N + tg::BM - 1) / tg::BM);
     };
     tg::TnPair pr{{a0, a1}, {b0, b1}, {out0, out1}, {M0, M1}, {N0, N1}, tiles(M0, N0), K};
-    const int blocks = pr.tiles0 + tiles(M1, N1);
-    if (is_bf16)
-        tg::gemm_tn2_bf16_kernel<<<blocks, tg::THREADS, 0, st>>>(pr);
-    else
-        tg::gemm_tn2_f32_kernel<<<blocks, 256, 0, st>>>(pr);
+    tg::gemm_tn2_f32_kernel<<<pr.tiles0 + tiles(M1, N1), 256, 0, st>>>(pr);
+    return static_cast<int>(cudaGetLastError());
+}
+
+// ------------------------------------------------------ mma.sync probe
+// out (R, C) = x (R, hd) . y (C, hd)^T in float32 by mma.sync m16n8k16
+// summed from zero in k order, one warp per 16 x 8 tile, fragments read
+// straight from memory: the steps by which attention_tc.cuh forms its
+// logits.  chip_smoke.py forms x y^T and y x^T with it to show that the
+// product with its operands swapped is the same bits, on which K7's key
+// kernel relies.  R % 16, C % 8 and hd % 16 are 0.
+__global__ void __launch_bounds__(32) mma_probe_kernel(const bf16* __restrict__ x,
+                                                       const bf16* __restrict__ y,
+                                                       float* __restrict__ out, int C, int hd) {
+    const int lane = threadIdx.x, g = lane >> 2, t = lane & 3;
+    const int r0 = blockIdx.y * 16, c0 = blockIdx.x * 8;
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    for (int k = 0; k < hd; k += 16) {
+        const bf16* xa = x + (size_t)(r0 + g) * hd + k + 2 * t;
+        const bf16* yb = y + (size_t)(c0 + g) * hd + k + 2 * t;
+        const uint32_t a[4] = {*reinterpret_cast<const uint32_t*>(xa),
+                               *reinterpret_cast<const uint32_t*>(xa + 8 * hd),
+                               *reinterpret_cast<const uint32_t*>(xa + 8),
+                               *reinterpret_cast<const uint32_t*>(xa + 8 * hd + 8)};
+        tc::mma_bf16(c, a, *reinterpret_cast<const uint32_t*>(yb),
+                     *reinterpret_cast<const uint32_t*>(yb + 8));
+    }
+    float* o = out + (size_t)(r0 + g) * C + c0 + 2 * t;
+    o[0] = c[0]; o[1] = c[1];
+    o[8 * C] = c[2]; o[8 * C + 1] = c[3];
+}
+
+EVT_EXPORT int evt_mma_probe(const void* x, const void* y, void* out, int R, int C, int hd,
+                             void* stream) {
+    if (R % 16 || C % 8 || hd % 16) return static_cast<int>(cudaErrorInvalidValue);
+    mma_probe_kernel<<<dim3(C / 8, R / 16), 32, 0, static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const bf16*>(x), static_cast<const bf16*>(y), static_cast<float*>(out), C, hd);
     return static_cast<int>(cudaGetLastError());
 }
 

@@ -88,6 +88,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "evt_attn_backward": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _F, _F, _I, _P],
         # a0, b0, M0, N0, out0, a1, b1, M1, N1, out1, K, bf16, stream
         "evt_train_gemm_tn2": [_P, _P, _I, _I, _P, _P, _P, _I, _I, _P, _I, _I, _P],
+        # x, y, out, R, C, hd, stream
+        "evt_mma_probe": [_P, _P, _P, _I, _I, _I, _P],
     },
     "adam": {
         # g, mu, nu, p, scal, mu_o, nu_o, p_o, n, b1, 1-b1, b2, 1-b2, eps, stream

@@ -28,7 +28,7 @@ of its backward, picked by the same environment switches (JAX ``:550-601``,
   K6c over the hidden dim, because a Pallas TPU output block may only be
   revisited on consecutive grid steps and the float32 weight-grad
   accumulators of a wide MLP do not fit VMEM.  CUDA has neither rule: K6c
-  is one launch whose grid covers every 64x64 tile of both weight grads,
+  is one launch whose grid covers every 128x128 tile of both weight grads,
   each block summing its tile over all rows, so it needs no chunks.
 * K6d and K6e, the wide recompute flavor (``EVT_TRAIN_WIDE=recompute``):
   K6d (``_bwd_mlp_dx_kernel`` :237) gives dx1, db2 and the LN2 grads,
@@ -64,11 +64,11 @@ the same inputs.  What bounds them on the H100 is operations: at ViT-B and
 products and the attention backward 181 GFLOP (five linear products of
 14.5 or 43.5 GFLOP and the attention's recompute); 0.18, 0.29 and 0.18 ms
 at the bf16 tensor peak.  At ViT-L K6b is three 103-GFLOP products (0.31
-ms), K6c two (0.21 ms), K6d three and K6e four.  The training GEMMs are
-still the first version (one 64x64 tile per block, no pipelining, no
-``wgmma``/TMA), so they sit far from that bound; the bf16 attention backward
-runs on the tensor cores (``csrc/attention_tc.cuh``), float32 keeps FMA
-kernels.  The times are in PERF.md.
+ms), K6c two (0.21 ms), K6d three and K6e four.  The bf16 training GEMMs
+run on ``wgmma`` fed by a TMA ring (``csrc/gemm_wgmma.cuh``: 128x128
+tiles, each operand read as stored), the bf16 attention backward on the
+tensor cores (``csrc/attention_tc.cuh``); float32 keeps FMA kernels.  The
+times are in PERF.md.
 
 Each kernel has a plain version here (``*_plain``), written step by step as
 the kernel's math, rounding to the working dtype where the TPU kernels
@@ -339,11 +339,12 @@ def _gemm(a, b, M, N, K, lda, ldb, b_kmaj, mode, *, bias=None, res=None, dp=None
     """``epilogue(sum_k A[m, k] B[n, k])`` (see ``evt_train_gemm``) in the
     dtype of ``a``; returns (out in that dtype or None, the second output:
     float32, in that dtype for TE_GELU_SAVE_T, or None)."""
-    # 16-byte loads run along the contiguous dim of each operand
+    # 16-byte copies run along the contiguous dim of each operand
     contiguous = (K, lda, K if b_kmaj else N, ldb)
     if any(v % 8 for v in contiguous):
         raise ValueError(f"GEMM dims {(M, N, K)}, leading dims {(lda, ldb)}: each operand's "
                          f"contiguous dim must be a multiple of 8")
+    _check_aligned(a, b, *(t for t in (res, aux) if t is not None))
     dt, dev = a.dtype, a.device
     out = torch.empty((M, N), dtype=dt, device=dev) if mode in _T_OUT else None
     out2 = (torch.empty((M, N), dtype=torch.float32, device=dev) if mode in _F32_OUT2 else
@@ -352,6 +353,31 @@ def _gemm(a, b, M, N, K, lda, ldb, b_kmaj, mode, *, bias=None, res=None, dp=None
                  int(b_kmaj), int(dt == torch.bfloat16), mode, _ptr(bias),
                  _ptr(res), _ptr(dp), tokens, _ptr(aux), _ptr(out), _ptr(out2), N)
     return out, out2
+
+
+def _check_aligned(*ops):
+    """The GEMMs copy each operand and epilogue input 16 bytes at a time (by
+    TMA at bf16)."""
+    if any(t.data_ptr() % 16 for t in ops):
+        raise ValueError("GEMM operands and epilogue inputs must start at a multiple of 16 bytes")
+
+
+def mma_probe(x, y):
+    """float32 ``x (R, hd) . y (C, hd)^T`` of bf16 CUDA operands by
+    ``mma.sync`` m16n8k16 summed from zero in k order, the steps by which
+    ``csrc/attention_tc.cuh`` forms its logits: a probe of the instruction,
+    not a kernel of the training path (no launch count).  R % 16, C % 8 and
+    hd % 16 must be 0."""
+    dev = kernels.require_cuda(x, y)
+    (R, hd), (C, hd_y) = x.shape, y.shape
+    if x.dtype != torch.bfloat16 or y.dtype != torch.bfloat16 or hd != hd_y:
+        raise ValueError(f"bf16 (R, hd) and (C, hd) operands, got {x.dtype} {tuple(x.shape)}, "
+                         f"{y.dtype} {tuple(y.shape)}")
+    x, y = x.contiguous(), y.contiguous()
+    out = torch.empty((R, C), dtype=torch.float32, device=dev)
+    kernels.call(KERNEL, "evt_mma_probe", dev, x.data_ptr(), y.data_ptr(), out.data_ptr(), R, C,
+                 hd)
+    return out
 
 
 def gemm_nt(a, w, mode, **epi):
@@ -368,11 +394,11 @@ def gemm_nn(a, w, mode, **epi):
 
 def gemm_tn2(a0, b0, a1, b1):
     """A block's two weight grads, a0 (R, M0)^T . b0 (R, N0) and a1 (R, M1)^T
-    . b1 (R, N1), in one launch whose grid covers the 64x64 output tiles of
-    both; each block sums its tile over all R rows, so the result is
-    deterministic without atomics.  One launch fills the card where two
-    would each leave a partial wave (PERF.md).  -> (out0, out1) in the
-    operands' dtype."""
+    . b1 (R, N1), in one launch whose grid covers the output tiles of both
+    (128x128 at bf16, 64x64 at float32); each block sums its tile over all
+    R rows, so the result is deterministic without atomics.  One launch
+    fills the card where two would each leave a partial wave (PERF.md).
+    -> (out0, out1) in the operands' dtype."""
     ops = (a0, b0, a1, b1)
     dev = kernels.require_cuda(*ops)
     dt = a0.dtype
@@ -383,6 +409,7 @@ def gemm_tn2(a0, b0, a1, b1):
     if any(t.dim() != 2 or t.shape[0] != R for t in ops) or any(t.shape[1] % 8 for t in ops):
         raise ValueError(f"TN operands {[tuple(t.shape) for t in ops]}: each (R, multiple of 8)")
     a0, b0, a1, b1 = (t.contiguous() for t in ops)
+    _check_aligned(a0, b0, a1, b1)
     out0 = torch.empty((a0.shape[1], b0.shape[1]), dtype=dt, device=dev)
     out1 = torch.empty((a1.shape[1], b1.shape[1]), dtype=dt, device=dev)
     kernels.call(KERNEL, "evt_train_gemm_tn2", dev, a0.data_ptr(), b0.data_ptr(), *out0.shape,

@@ -98,12 +98,11 @@ def render_batch_on_device(batch: Mapping[str, Any], device=None,
     """A device-input batch (``images_u8`` (B, H, W, 3) uint8, ``joints``
     (B, K, 2), ``joints_vis`` (B, K, 2)) -> normalized float32 images,
     Gaussian targets and their weights, on ``device`` (default: where the
-    images are).  ``render_kwargs`` go to
+    images are if they are a tensor, else CUDA, which raises without a
+    card; pass ``device="cpu"`` for the CPU).  ``render_kwargs`` go to
     :func:`..ops.heatmap.generate_gaussian_targets` (sizes, sigma, joint
     weights)."""
-    if device is None:
-        first = batch["images_u8"]
-        device = first.device if isinstance(first, torch.Tensor) else torch.device("cpu")
+    device = resolve_device(device, like=batch["images_u8"])
     batch = {k: torch.as_tensor(np.asarray(v) if not isinstance(v, torch.Tensor) else v,
                                 device=device) for k, v in batch.items()}
     x = batch["images_u8"].float()

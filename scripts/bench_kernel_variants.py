@@ -17,8 +17,20 @@ crops of 192 tokens (CUDA events, the best of five windows of 50 launches):
 Only the timing is compared: a variant's outputs are not checked (the
 division and exp variants change the arithmetic).  Prints one JSON line.
 
+With ``--train-gemm`` it times instead variants of the bf16 training GEMM
+(``csrc/gemm_wgmma.cuh``): for each, ``csrc/train_block.cu`` is built into
+a library of its own (one ``nvcc`` per variant, all at once) and its C
+entry points are called on the same bf16 operands, at ViT-B's and ViT-L's
+MLP shapes and 64 crops: NT (the fc1 recompute, plain and GELU-saving),
+NN (the grad through fc2 with its GELU-gradient epilogue) and the TN pairs
+of the MLP and the attention (CUDA events, the median of five windows of
+at least 50 ms).  The variants: the shipped ring (3 stages, two blocks per
+SM, a slot released one k-tile behind), each slot released as soon as its
+products are done (wgmma wait depth 0), and 4 stages at one block per SM,
+alone and with that release.
+
 Usage (a machine with the CUDA toolkit and a card):
-    python3 scripts/bench_kernel_variants.py [--out FILE]
+    python3 scripts/bench_kernel_variants.py [--out FILE] [--train-gemm]
 """
 import argparse
 import json
@@ -52,6 +64,31 @@ GEMM = [
     ("4_stages_128x128_w64x32", "gemm_4stages", "128, 128, 64, 32, 2"),
     ("4_stages_128x64_w32x32", "gemm_4stages", "128, 64, 32, 32, 3"),
 ]
+
+_RELEASE_BEHIND = """        wgmma_wait<1>();               // k-tile kt - 1's products are done: release its slot
+        if (kt > 0) {
+            const uint32_t prev = empty + 8 * ((kt - 1) % STAGES);
+            if ((threadIdx.x & 31) == 0) mbar_arrive(prev);
+            if (threadIdx.x == 0 && kt - 1 + STAGES < nk) {
+                mbar_wait(prev, ((kt - 1) / STAGES) & 1);
+                load(kt - 1 + STAGES);
+            }
+            __syncwarp();
+        }"""
+_RELEASE_NOW = """        wgmma_wait<0>();
+        if ((threadIdx.x & 31) == 0) mbar_arrive(empty + 8 * s);
+        if (threadIdx.x == 0 && kt + STAGES < nk) {
+            mbar_wait(empty + 8 * s, (kt / STAGES) & 1);
+            load(kt + STAGES);
+        }
+        __syncwarp();"""
+_FOUR_STAGES = ("THREADS = 256, STAGES = 3, MIN_BLOCKS = 2", "THREADS = 256, STAGES = 4, MIN_BLOCKS = 1")
+TRAIN_GEMM = {
+    "shipped": [],
+    "release_at_wait0": [(_RELEASE_BEHIND, _RELEASE_NOW)],
+    "4_stages_1_block": [_FOUR_STAGES],
+    "4_stages_1_block_release_at_wait0": [_FOUR_STAGES, (_RELEASE_BEHIND, _RELEASE_NOW)],
+}
 
 HARNESS = r"""
 #include <cstdio>
@@ -209,10 +246,103 @@ def harness_source(includes: str) -> str:
     return src
 
 
+def train_gemm_variants(card: str) -> dict:
+    """ms per launch of each TRAIN_GEMM variant (see the module doc)."""
+    import ctypes
+    import shutil
+
+    import torch
+    import chip_smoke as cs
+
+    nvcc = kernels.nvcc_path()
+    tmp = tempfile.mkdtemp()
+    procs = {}
+    for name, subs in TRAIN_GEMM.items():
+        d = os.path.join(tmp, name)
+        shutil.copytree(kernels.CSRC, d)
+        path = os.path.join(d, "gemm_wgmma.cuh")
+        src = open(path).read()
+        for old, new in subs:
+            if old not in src:
+                raise RuntimeError(f"training GEMM variant {name}: {old[:40]!r}... not in the source")
+            src = src.replace(old, new)
+        with open(path, "w") as f:
+            f.write(src)
+        so = os.path.join(d, "libtrain_block.so")
+        procs[name] = (so, subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-I", d, "-o", so,
+                                             os.path.join(d, "train_block.cu")]))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        if proc.wait():
+            raise RuntimeError(f"training GEMM variant {name} did not build")
+        lib = ctypes.CDLL(so)
+        for fn in ("evt_train_gemm", "evt_train_gemm_tn2"):
+            getattr(lib, fn).argtypes = kernels.SIGNATURES["train_block"][fn]
+        libs[name] = lib
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    out = {"card": card, "train_gemm_ms": {}}
+    for model, D in (("vit_b", 768), ("vit_l", 1024)):
+        R, H = cs.SLOTS * 192, 4 * D
+        x, y = (torch.randn(R, c, device=dev, generator=gen).bfloat16() for c in (D, H))
+        w1 = (torch.randn(H, D, device=dev, generator=gen) * 0.05).bfloat16()
+        w2 = (torch.randn(D, H, device=dev, generator=gen) * 0.05).bfloat16()
+        b1 = torch.zeros(H, device=dev, dtype=torch.bfloat16)
+        o = torch.empty(R, H, device=dev, dtype=torch.bfloat16)
+        o2 = torch.empty(R, H, device=dev)
+        aux = torch.randn(R, H, device=dev, generator=gen)
+        wq = (torch.randn(3 * D, D, device=dev, generator=gen) * 0.05).bfloat16()
+        q = torch.randn(R, 3 * D, device=dev, generator=gen).bfloat16()
+        p0, p1 = torch.empty(3 * D, D, device=dev, dtype=torch.bfloat16), torch.empty(
+            D, D, device=dev, dtype=torch.bfloat16)
+        h0, h1 = torch.empty(H, D, device=dev, dtype=torch.bfloat16), torch.empty(
+            D, H, device=dev, dtype=torch.bfloat16)
+        P = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+
+        def nt(lib, mode, bias=None, out2=None):
+            return lambda: lib.evt_train_gemm(P(x), P(w1), R, H, D, D, D, 1, 1, mode, P(bias), None,
+                                              None, 1, None, P(o), P(out2), H, stream())
+
+        cases = {
+            "nt_fc1": lambda lib: nt(lib, 0),
+            "nt_fc1_gelu_save": lambda lib: nt(lib, 3, b1, o2),
+            "nn_fc2_gelu_grad": lambda lib: lambda: lib.evt_train_gemm(
+                P(x), P(w2), R, H, D, D, H, 0, 1, 4, None, None, None, 1, P(aux), None, P(o2), H,
+                stream()),
+            "tn_pair_mlp": lambda lib: lambda: lib.evt_train_gemm_tn2(
+                P(y), P(x), H, D, P(h0), P(x), P(y), D, H, P(h1), R, 1, stream()),
+            "tn_pair_attn": lambda lib: lambda: lib.evt_train_gemm_tn2(
+                P(q), P(x), 3 * D, D, P(p0), P(x), P(x), D, D, P(p1), R, 1, stream()),
+        }
+        for name, lib in libs.items():
+            row = out["train_gemm_ms"].setdefault(name, {})
+            for case, make in cases.items():
+                fn = make(lib)
+                if fn():
+                    raise RuntimeError(f"training GEMM variant {name} refused {case}")
+                row[f"{model}_{case}"] = cs.time_ms(torch, fn)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None)
+    ap.add_argument("--train-gemm", action="store_true",
+                    help="time the training GEMM's variants instead")
     args = ap.parse_args()
+    if args.train_gemm:
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True,
+                              text=True).stdout.strip().splitlines()[0]
+        line = json.dumps(train_gemm_variants(card))
+        print(line)
+        if args.out:
+            with open(args.out, "w") as f:
+                f.write(line + "\n")
+        return
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
     with tempfile.TemporaryDirectory() as tmp:
         cu = os.path.join(tmp, "harness.cu")

@@ -17,7 +17,8 @@ int8 and bf16:
   fused Adam) at ``--size`` (ViT-B by default) with Adam moments at
   ``--moments``: device time of the step's own phases (render, forward +
   loss, backward, optimizer; ``train/step.py``'s helpers) between CUDA
-  events, its busy share and top kernels;
+  events, its busy share, top kernels and the bf16 training GEMM's device
+  time by layout (NT, NN, the TN pairs);
 * a backward's two weight grads (the MLP's, K6a and K6c, and the
   attention's, K7) as one pair launch, as the port runs them, beside two
   launches of the same kernel with one product each, on the same bf16
@@ -164,6 +165,22 @@ def kernel_rows(prof, steps):
     return sorted(rows, key=lambda r: -r[1])
 
 
+def gemm_layouts(rows):
+    """Device ms and launches per step of the bf16 training GEMM by layout,
+    from ``kernel_rows``: NT (``gemm_bf16_kernel<true, mode>``, B K-major),
+    NN (``<false, mode>``) and the TN pairs (``gemm_tn2_bf16_kernel``)."""
+    out = {}
+    for name, ms, n in rows:
+        layout = ("tn_pairs" if "gemm_tn2_bf16_kernel" in name else
+                  "nt" if "gemm_bf16_kernel<true" in name else
+                  "nn" if "gemm_bf16_kernel<false" in name else None)
+        if layout:
+            acc = out.setdefault(layout, {"ms_per_step": 0.0, "launches_per_step": 0})
+            acc["ms_per_step"] += ms
+            acc["launches_per_step"] += n
+    return out
+
+
 def profile_step(torch, model, frame, boxes, mask, steps=5):
     from torch.profiler import ProfilerActivity, profile
     from easy_vitpose_tpu_torch.pipeline.pose_step import pose_step
@@ -232,7 +249,7 @@ def train_parts(torch, model, seed, dev, moments="f32", steps=3):
     device_ms = sum(r[1] for r in rows)
     return {"config": f"ViT-{cfg.name.upper()}, {cs.SLOTS} crops, AMP, {moments} moments",
             "phases_ms": total, "wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
-            "device_busy_share": device_ms / wall_ms,
+            "device_busy_share": device_ms / wall_ms, "training_gemms": gemm_layouts(rows),
             "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": n}
                             for k, ms, n in rows[:14]]}
 
@@ -289,7 +306,9 @@ def adam_leaf_sizes(torch, params, dev, reps=10):
             us = sum(ms_ for key, ms_, _ in kernel_rows(prof, reps)
                      if f"{name}_kernel(" in key) * 1e3
             row[f"{name}_us"] = us
-            row[f"{name}_tb_s"] = (16 if name == "adam_q8" else 28) * n / (us * 1e-6) / 1e12
+            # None where the profiler caught no launch of the kernel
+            row[f"{name}_tb_s"] = ((16 if name == "adam_q8" else 28) * n / (us * 1e-6) / 1e12
+                                   if us > 0 else None)
         rows.append(row)
     k9 = sum(r["adam_q8_us"] * r["leaves"] for r in rows) / 1e3
     one = sum(r["adam_q8_us"] * r["leaves"] for r in rows if r["n"] <= 2048) / 1e3

@@ -5,9 +5,15 @@ checkout's ``chip_smoke.py`` and package, and on one CUDA card:
 
 * times K5, K6a, K7 and K8 on ViT-B's block 0 (``check_train_kernels``) and
   K6b, K6c and K9 on ViT-L's (``check_wide_kernels``) at 64 crops, as that
-  checkout's smoke does (CUDA events, median of five windows), and the bf16
+  checkout's smoke does (CUDA events, median of five windows), K6d and K6e
+  (the wide recompute flavor's pair) on ViT-L's block 0 at bf16, and the bf16
   attention backward alone (``attention_backward_cuda``, both its kernels)
   at each model's shapes on seeded qkv and output grads;
+* times the bf16 training GEMM per launch in its three layouts (NT, NN and
+  the TN pair) at each model's MLP shapes and 64 crops, with the cases of
+  this script's own ``chip_smoke.check_train_gemms`` run on the checkout's
+  package (the wrappers ``gemm_nt``, ``gemm_nn`` and ``gemm_tn2`` keep one
+  interface), with TFLOP/s and ``torch.matmul``'s ms on the same operands;
 * times the ViT-B (float32 moments) and ViT-L (int8 moments) AMP train
   steps of 64 crops with no ``EVT_TRAIN_*`` switch set: host clock around
   synchronized steps, median of five windows of three steps after two
@@ -20,6 +26,7 @@ each in turns in one call, A, B, B, A:
     python3 scripts/bench_torch_train_ab.py --root .
 """
 import argparse
+import importlib.util
 import json
 import os
 import statistics
@@ -36,6 +43,10 @@ def main():
     args = ap.parse_args()
     root = os.path.abspath(args.root)
     sys.path.insert(0, root)
+    spec = importlib.util.spec_from_file_location(
+        "smoke_gemms", os.path.join(os.path.dirname(os.path.abspath(__file__)), "..", "chip_smoke.py"))
+    gemm_cases = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gemm_cases)
     for var in ("EVT_TRAIN_ATTN", "EVT_TRAIN_MLP", "EVT_TRAIN_WIDE"):
         os.environ.pop(var, None)
 
@@ -59,6 +70,15 @@ def main():
         model = init_params(get_model_config("coco", size), args.seed).to(dev)
         meas = check(torch, model, np.random.default_rng(args.seed), dev)
         out.update({f"{k}_ms": v["ms"] for k, v in meas.items()})
+        out[f"gemm_vit_{size}"] = gemm_cases.check_train_gemms(
+            torch, model, np.random.default_rng(args.seed), dev)
+        if size == "l":
+            _, w, x1, dout, keep = cs.block_inputs(torch, model, np.random.default_rng(args.seed),
+                                                   dev, torch.bfloat16, cs.SLOTS, 0.5)
+            eps = model.cfg.backbone.layer_norm_eps
+            out["K6d_ms"] = cs.time_ms(torch, lambda: fbt.mlp_backward_dx(x1, dout, keep, w, eps))
+            out["K6e_ms"] = cs.time_ms(torch, lambda: fbt.mlp_backward_dw(x1, dout, keep, w, eps))
+            del w, x1, dout, keep
         bb = model.cfg.backbone
         rows, g = cs.SLOTS * bb.num_tokens, np.random.default_rng(args.seed)
         qkv, do = (torch.from_numpy((g.standard_normal((rows, c)) * sc).astype(np.float32))

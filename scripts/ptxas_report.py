@@ -6,7 +6,8 @@ only, one ``nvcc`` per source in parallel, and prints one line per kernel
 (demangled where ``c++filt`` is there): registers, spill stores and loads,
 stack frame and static shared memory.  Ends with one JSON line and exits 1
 if a kernel whose name matches ``--must-not-spill`` (a regular expression;
-by default the tensor-core attention and the serving GEMM) spills.
+by default the tensor-core attention, the serving GEMM and the bf16
+training GEMMs) spills.
 
 Usage (a machine with the CUDA toolkit):
     python3 scripts/ptxas_report.py [block train_block ...] [--must-not-spill REGEX]
@@ -61,7 +62,8 @@ def parse(log: str):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("sources", nargs="*", default=list(kernels.SOURCES))
-    ap.add_argument("--must-not-spill", default=r"attn_tc::|mma_gemm::gemm_kernel")
+    ap.add_argument("--must-not-spill",
+                    default=r"attn_tc::|mma_gemm::gemm_kernel|tg::gemm_(tn2_)?bf16_kernel")
     args = ap.parse_args()
     nvcc = kernels.nvcc_path()
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]

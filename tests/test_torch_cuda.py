@@ -243,30 +243,105 @@ def block_weights(dev, D, hidden, dtype, seed=0):
     return BlockWeights(*(w.to(dtype) for w in ws))
 
 
+@pytest.mark.parametrize("R,K,N", [(200, 136, 72), (8, 8, 8), (1000, 392, 264),
+                                   (2048, 1024, 640)])
 @pytest.mark.parametrize("layout", ["nt", "nn", "tn"])
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
-def test_train_gemm_layouts(dev, layout, dtype, tol):
-    """The training GEMM in its three layouts at ragged sizes (multiples of
-    8, not of the 64 tile), against float32 matmul of the same operands; TN
-    as the pair launch of two products with different shapes."""
+def test_train_gemm_layouts(dev, layout, dtype, tol, R, K, N):
+    """The training GEMM in its three layouts against float32 matmul of the
+    same operands, at sizes that are multiples of 8 but not of a tile: one
+    partial tile of every dim (8 x 8 x 8; K 136, N 72: a k-tile and a
+    column tile cut short), several row and column tiles with ragged edges,
+    and 16 k-tiles; TN as the pair launch of two products of different
+    shapes (the second 24 wide), contracted over R rows.  A second call
+    gives the same bits (one fixed-order sum per output, no atomics)."""
     from easy_vitpose_tpu_torch.models import fused_block_train as fbt
-    R, K, N = 200, 136, 72
     if layout == "nt":
         a, w = randn(dev, R, K, dtype=dtype), randn(dev, N, K, scale=0.1, dtype=dtype)
         b = randn(dev, N, scale=0.1, dtype=dtype)
-        got = fbt.gemm_nt(a, w, fbt.TE_NONE, bias=b)[0]
-        ref = a.float() @ w.float().t() + b.float()
+        run = lambda: fbt.gemm_nt(a, w, fbt.TE_NONE, bias=b)[:1]  # noqa: E731
+        refs = [a.float() @ w.float().t() + b.float()]
     elif layout == "nn":
         a, w = randn(dev, R, K, dtype=dtype), randn(dev, K, N, scale=0.1, dtype=dtype)
-        got = fbt.gemm_nn(a, w, fbt.TE_F32)[1]
-        ref = a.float() @ w.float()
+        run = lambda: fbt.gemm_nn(a, w, fbt.TE_F32)[1:]  # noqa: E731
+        refs = [a.float() @ w.float()]
     else:
         a, b = randn(dev, R, K, dtype=dtype), randn(dev, R, N, dtype=dtype, seed=1)
         a1, b1 = randn(dev, R, 24, dtype=dtype, seed=2), randn(dev, R, K, dtype=dtype, seed=3)
-        got, got1 = fbt.gemm_tn2(a, b, a1, b1)
-        assert rel_err(got1, (a1.float().t() @ b1.float()).to(dtype)) <= tol
-        ref = a.float().t() @ b.float()
-    assert rel_err(got, ref.to(got.dtype)) <= tol
+        run = lambda: fbt.gemm_tn2(a, b, a1, b1)  # noqa: E731
+        refs = [a.float().t() @ b.float(), a1.float().t() @ b1.float()]
+    got = run()
+    for g, ref in zip(got, refs):
+        assert rel_err(g, ref.to(g.dtype)) <= tol
+    assert all(torch.equal(g, g2) for g, g2 in zip(got, run()))
+
+
+@pytest.mark.parametrize("mode", range(9))
+@pytest.mark.parametrize("layout", ["nt", "nn"])
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5), (torch.bfloat16, 1e-2)])
+def test_train_gemm_epilogues(dev, mode, layout, dtype, tol):
+    """Each of the nine epilogues (both families) after an NT and an NN
+    product with three row tiles and a partial column tile, against its
+    formula on float32 matmul of the same operands: the bias, GELU, the
+    drop-path residual over three crops of 100 rows, GELU saving the
+    pre-activation in float32 or rounded, and the GELU derivative of a
+    float32 or a saved pre-activation (each output within 1e-5 at float32,
+    1e-2 at bf16 of its largest value: the sums run in another order)."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    R, K, N, tokens = 300, 136, 200, 100
+    a = randn(dev, R, K, dtype=dtype)
+    if layout == "nt":
+        w = randn(dev, N, K, scale=0.1, dtype=dtype, seed=1)
+        acc, gemm = a.float() @ w.float().t(), fbt.gemm_nt
+    else:
+        w = randn(dev, K, N, scale=0.1, dtype=dtype, seed=1)
+        acc, gemm = a.float() @ w.float(), fbt.gemm_nn
+    bias = randn(dev, N, scale=0.1, dtype=dtype, seed=2)
+    res = randn(dev, R, N, dtype=dtype, seed=3)
+    dp = torch.tensor([1.25, 0.0, 2.0], device=dev)
+    aux = randn(dev, R, N, seed=4)
+    v = acc + bias.float()
+    rnd = lambda t: t.to(dtype)  # noqa: E731
+    kw, want = {"bias": bias}, {
+        fbt.TE_NONE: (rnd(v), None),
+        fbt.TE_GELU: (rnd(vit.gelu(v)), None),
+        fbt.TE_DP_RES: (rnd(res.float() + v * dp.repeat_interleave(tokens)[:, None]), None),
+        fbt.TE_GELU_SAVE: (rnd(vit.gelu(v)), v),
+        fbt.TE_GELU_GRAD: (None, acc * fbt.gelu_grad(aux)),
+        fbt.TE_F32: (None, v),
+        fbt.TE_GELU_SAVE_T: (rnd(vit.gelu(v)), rnd(v)),
+        fbt.TE_GELU_GRAD_T: (rnd(acc * fbt.gelu_grad(aux)), None),
+        fbt.TE_GELU_GRAD_MS: (rnd(vit.gelu(rnd(aux).float())), acc * fbt.gelu_grad(rnd(aux).float())),
+    }[mode]
+    if mode == fbt.TE_DP_RES:
+        kw.update(res=res, dp=dp, tokens=tokens)
+    elif mode in (fbt.TE_GELU_GRAD, fbt.TE_GELU_GRAD_T):
+        kw = {"aux": aux}
+    elif mode == fbt.TE_GELU_GRAD_MS:
+        kw = {"aux": rnd(aux)}
+    for g, ref in zip(gemm(a, w, mode, **kw), want):
+        assert (g is None) == (ref is None)
+        if ref is not None:
+            assert g.dtype == ref.dtype and g.shape == ref.shape
+            assert rel_err(g, ref) <= tol
+
+
+def test_train_gemm_tn2_refuses_misaligned_operands(dev):
+    """The TN pair reads its operands by TMA: one that starts 8 bytes into
+    its storage is refused before the launch."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    ok = torch.zeros(16, 8, dtype=torch.bfloat16, device=dev)
+    bad = torch.zeros(16 * 8 + 4, dtype=torch.bfloat16, device=dev)[4:].view(16, 8)
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        fbt.gemm_tn2(ok, ok, bad, ok)
+
+
+def test_mma_probe(dev):
+    """The mma.sync probe against float32 matmul of the same bf16 operands,
+    at K7's ViT-B head shape (192 tokens, head dim 64)."""
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    x, y = randn(dev, 192, 64, dtype=torch.bfloat16), randn(dev, 192, 64, dtype=torch.bfloat16, seed=1)
+    assert rel_err(fbt.mma_probe(x, y), x.float() @ y.float().t()) <= 1e-5
 
 
 @pytest.mark.parametrize("D,heads,N", [(128, 2, 192), (64, 2, 50), (1280, 16, 50),

@@ -162,3 +162,23 @@ def test_plain_versions_split_like_the_kernels(case):
     o, dqkv = fbt.attention_backward_core(qkv, do, 2)
     np.testing.assert_allclose(o.numpy(), attention_core(qkv, 2).numpy(), atol=1e-6)
     assert rel(dqkv.numpy(), qa.grad.numpy()) <= 1e-5
+
+
+@pytest.mark.parametrize("which", ["nt_a", "nn_b", "aux"])
+def test_train_gemm_refuses_misaligned_operands(which):
+    """The bf16 GEMM reads its operands and epilogue inputs by TMA, which
+    needs each to start at a multiple of 16 bytes: a view 8 bytes into its
+    storage is refused in Python before any launch, here on the CPU too
+    (the TN pair's check runs after its CUDA check; the card tests it)."""
+    def mat(r, c, dtype=torch.bfloat16, off=0):
+        return torch.zeros(r * c + off, dtype=dtype)[off:].view(r, c)
+
+    bad = 4       # elements: 8 bytes at bf16, 16 at float32
+    with pytest.raises(ValueError, match="multiple of 16 bytes"):
+        if which == "nt_a":
+            fbt.gemm_nt(mat(16, 16, off=bad), mat(8, 16), fbt.TE_NONE)
+        elif which == "nn_b":
+            fbt.gemm_nn(mat(16, 16), mat(16, 8, off=bad), fbt.TE_NONE)
+        else:
+            fbt.gemm_nn(mat(16, 16), mat(16, 8), fbt.TE_GELU_GRAD,
+                        aux=mat(16, 8, torch.float32, off=bad // 2))

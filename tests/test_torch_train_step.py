@@ -232,7 +232,7 @@ def test_xla_block_step_matches_fused_block_step():
     of each leaf's largest gradient, the bound of
     tests/test_fused_block_train.py)."""
     params = random_params(3)
-    batch = pstep.render_batch_on_device(raw_batch(np.random.default_rng(4), 2))
+    batch = pstep.render_batch_on_device(raw_batch(np.random.default_rng(4), 2), device="cpu")
     trainable, bn = pstep.split_bn_state(state_dict_from_jax(params, PCFG))
     masks = torch.tensor([[1.0, 1.25], [0.0, 1.25]]).reshape(2, 2, 1, 1)
     res = [pstep.loss_and_grads(PCFG, trainable, bn, batch, use_amp=False, block_impl=impl,
@@ -264,7 +264,7 @@ def test_targets_and_loss_match_jax():
     rng = np.random.default_rng(7)
     raw = raw_batch(rng, 4)
     raw["joints"][0, :4] = [[-30.0, 10.0], [400.0, 50.0], [-2.3, -2.6], [191.5, 255.5]]
-    got = pstep.render_batch_on_device(raw)
+    got = pstep.render_batch_on_device(raw, device="cpu")
     jt, jw = generate_gaussian_targets_jnp(jnp.asarray(raw["joints"]), jnp.asarray(raw["joints_vis"]))
     ref = jstep.render_batch_on_device({k: jnp.asarray(v) for k, v in raw.items()})
     np.testing.assert_array_equal(got["target_weights"].numpy(), np.asarray(jw))
@@ -336,6 +336,22 @@ def test_init_train_state_runs_on_cuda_unless_asked():
     w = "backbone.blocks.0.attn.qkv.weight"
     assert torch.equal(state["params"][w], model.state_dict()[w])
     assert state["params"][w].data_ptr() != model.state_dict()[w].data_ptr()
+
+
+def test_render_batch_runs_on_cuda_unless_asked():
+    """A numpy batch without a device renders on CUDA: without a CUDA device
+    that raises, and ``device="cpu"`` keeps it here, as does a batch of CPU
+    tensors (the render runs where its images are)."""
+    raw = raw_batch(np.random.default_rng(9), 2)
+    if torch.cuda.is_available():
+        assert pstep.render_batch_on_device(raw)["images"].device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="runs on CUDA.*device='cpu'"):
+            pstep.render_batch_on_device(raw)
+    on_cpu = pstep.render_batch_on_device(raw, device="cpu")
+    from_tensors = pstep.render_batch_on_device({k: torch.from_numpy(v) for k, v in raw.items()})
+    for k, v in on_cpu.items():
+        assert v.device.type == "cpu" and torch.equal(v, from_tensors[k]), k
 
 
 # ------------------------------- grad accumulation, EMA, loss, eval, render
@@ -445,12 +461,12 @@ def test_render_kwargs_match_jax():
     assert pt.shape == (3, 17, 32, 24)
     np.testing.assert_array_equal(pw.numpy(), np.asarray(jw))
     assert np.abs(pt.numpy() - np.asarray(jt)).max() <= 1e-6
-    got = pstep.render_batch_on_device(raw, render_kwargs={"sigma": 2.0})
+    got = pstep.render_batch_on_device(raw, device="cpu", render_kwargs={"sigma": 2.0})
     ref = jstep.render_batch_on_device({k: jnp.asarray(v) for k, v in raw.items()},
                                        {"sigma": 2.0})
     np.testing.assert_array_equal(got["target_weights"].numpy(), np.asarray(ref["target_weights"]))
     assert np.abs(got["targets"].numpy() - np.asarray(ref["targets"])).max() <= 1e-6
-    assert not torch.equal(got["targets"], pstep.render_batch_on_device(raw)["targets"])
+    assert not torch.equal(got["targets"], pstep.render_batch_on_device(raw, device="cpu")["targets"])
 
 
 def test_train_state_from_jax_carries_the_ema(accum_runs):
