@@ -22,9 +22,16 @@ toolkit:
    zero, and the heatmaps against the plain pose step on the card, and
    times it (host clock, median of five windows of ``--reps`` steps);
 5. holds the training kernels (K5 forward, K6a MLP backward, K7 attention
-   backward at bf16 and fp32, K8 fused Adam bit for bit) against their
-   plain versions at the main shapes and a ragged batch, and times each
-   beside its plain version and a PyTorch yardstick; probes whether
+   backward at bf16 and fp32) against their plain versions at the main
+   shapes and a ragged batch, and times each beside its plain version and
+   a PyTorch yardstick; holds K8's one launch over a table of leaves
+   against its per-leaf plain version bit for bit on ViT-B's 157 leaves,
+   on ragged and misaligned leaf sets, the norm kernel against
+   ``global_norm`` (bit for bit on exact-norm leaves, rel 1e-5 on random
+   ones), checks that ``fused_apply`` writes none of its inputs and
+   launches each once, and times the whole ``fused_apply``, the table
+   launch, the norm, the plain step, ``clip_grad_norm_`` + fused
+   ``torch.optim.Adam`` and the host time of one call; probes whether
    mma.sync gives a product with its operands swapped as the same bits
    (K7's P in its two kernels); holds the bf16 training GEMM in each layout
    (NT, NN, the TN pair) at ViT-B's MLP shapes against float32 matmul,
@@ -32,18 +39,19 @@ toolkit:
 6. drives the training step at full width (ViT-B, depth 12, 64 crops,
    AMP bf16, drop-path 0.3 from a seeded generator, fused f32 Adam at the
    finetune lr 3.75e-4 and clip 1.0) on a device-input batch from
-   ``--seed``: it checks the launch counts (K5, K6a, K7 12 per step, K8
-   once per leaf), that the loss falls over 20 steps on the batch, one
+   ``--seed``: it checks the launch counts (K5, K6a, K7 12 per step, the
+   norm kernel and K8 once), that the loss falls over 20 steps on the batch, one
    step's loss and gradients against the plain step on the card, and times
    it (median of five windows, images/s, peak memory);
 7. holds the wide MLP backward (K6b, K6c; against their plain versions and
-   K6a) on ViT-L's block 0 at bf16 and fp32, 64 crops and 3, and the
-   int8-moment Adam (K9) on every leaf of ViT-L and a ragged one, bit for
-   bit, and times each; the bf16 training GEMM's layouts as in 5 at
+   K6a) on ViT-L's block 0 at bf16 and fp32, 64 crops and 3, and times
+   each; the int8-moment Adam (K9) and the norm kernel as K8 in 5, on
+   ViT-L's 301 leaves; the bf16 training GEMM's layouts as in 5 at
    ViT-L's shapes;
 8. drives the ViT-L finetune step (depth 24, D=1024, 64 crops, AMP bf16,
    drop-path 0.5, int8 Adam moments, lr 3.75e-4, clip 1.0) as in 6: K5,
-   K6b, K6c and K7 24 times per step, K9 once per leaf, no K6a or K8;
+   K6b, K6c and K7 24 times per step, the norm kernel and K9 once, no K6a
+   or K8;
    ms/step, images/s, peak memory and the moments' bytes against float32;
 9. holds the opt-in flavors of the training block against their plain
    versions at bf16 and fp32, 64 crops and 3: on ViT-B's block 0 K5's saved
@@ -60,10 +68,12 @@ toolkit:
    steps, grads against the plain step under the same switches, ms/step and
    peak memory;
 11. drives one ViT-B step with ``grad_accum=2`` and ``ema_decay=0.999``
-   through the kernels (K5, K6a, K7 24 times, K8 once per leaf) against
+   through the kernels (K5, K6a, K7 24 times, the norm kernel and K8 once) against
    the plain step with the same settings and drop-path masks;
-12. prints one JSON line per kernel set (``kernels``, 17 rows), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+12. prints the optimizer's times (``optimizer``), the norm kernel's row
+   (``grad_norm``: it replaces no Pallas kernel), one JSON line per kernel
+   set (``kernels``, 17 rows), the card line, and last ``{"ok": true,
+   "device": {...}}``.
 
 The A/B of each flavor against the default, interleaved in one process,
 is ``scripts/bench_torch_breakdown.py --flavors``.
@@ -489,10 +499,9 @@ def check_train_gemms(torch, model, rng, dev) -> dict:
 
 def check_train_kernels(torch, model, rng, dev):
     """K5, K6a and K7 against their plain versions on block 0 at bf16 and
-    fp32, at the main path's 64 crops and at 3, and K8 on every leaf of the
-    model, bit for bit; returns measurements per kernel."""
+    fp32, at the main path's 64 crops and at 3, and K8 and the norm kernel
+    (:func:`check_optimizer`); returns measurements per kernel."""
     from easy_vitpose_tpu_torch.models import fused_block_train as fbt
-    from easy_vitpose_tpu_torch.train import fused_opt
 
     cfg = model.cfg.backbone
     D, N, heads, eps = cfg.embed_dim, cfg.num_tokens, cfg.num_heads, cfg.layer_norm_eps
@@ -548,47 +557,16 @@ def check_train_kernels(torch, model, rng, dev):
                          "bound": bound(3 * act + 2 * wts, {"bf16": attn_ops}),
                          "library_ms": time_ms(torch, sublayer_backward(torch, layer, x, rdx1, "attn"))}
 
-    # K8 on every float32 leaf of the model, and on ragged leaves
-    leaves = [p.detach().float().contiguous() for p in model.parameters()]
-    leaves += [torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev) for n in (1, 1001)]
-    moments = [(torch.from_numpy((rng.standard_normal(p.numel()) * 1e-3).astype(np.float32)).to(dev).view_as(p),
-                torch.from_numpy((rng.standard_normal(p.numel()) * 1e-3).astype(np.float32)).to(dev).view_as(p),
-                torch.from_numpy((rng.standard_normal(p.numel()) * 1e-3).astype(np.float32)).to(dev).view_as(p).square())
-               for p in leaves]
-    scal = torch.tensor([0.37, TRAIN_LR, 1 - 0.9 ** 7, 1 - 0.999 ** 7], device=dev)
-    for p, (g, mu, nu) in zip(leaves, moments):
-        for got, ref in zip(fused_opt.adam_leaf(g, mu, nu, p, scal),
-                            fused_opt.adam_leaf_plain(g, mu, nu, p, scal)):
-            check(torch.equal(got, ref), f"K8 is not bit-equal to its plain version on a leaf of {p.numel()}")
-    main = leaves[:-2]
-    n_params = sum(p.numel() for p in main)
-    print(f"check adam: bit-equal on {len(leaves)} leaves ({n_params} model parameters)")
-    ps = [torch.nn.Parameter(p.clone()) for p in main]
-    for p, (g, _, _) in zip(ps, moments):
-        p.grad = g.clone()
-    opt = torch.optim.Adam(ps, lr=TRAIN_LR, fused=True)
-
-    def library_step():
-        torch.nn.utils.clip_grad_norm_(ps, TRAIN_CLIP)
-        opt.step()
-
-    out["K8"] = {"max_abs_err": 0.0,
-                 "ms": time_ms(torch, lambda: [fused_opt.adam_leaf(g, mu, nu, p, scal)
-                                               for p, (g, mu, nu) in zip(main, moments)]),
-                 "plain_ms": time_ms(torch, lambda: [fused_opt.adam_leaf_plain(g, mu, nu, p, scal)
-                                                     for p, (g, mu, nu) in zip(main, moments)]),
-                 "bound": bound(28.0 * n_params, {"f32": 12.0 * n_params}),
-                 "library_ms": time_ms(torch, library_step)}
+    out.update(check_optimizer(torch, model, rng, dev, "f32"))
     return out
 
 
 def check_wide_kernels(torch, model, rng, dev):
     """K6b and K6c against their plain versions on ViT-L's block 0 at bf16
     and fp32, at 64 crops and at 3, and against K6a on the same inputs; K9
-    on every leaf of the model and a ragged one, bit for bit (codes, scales
-    and params); returns measurements per kernel."""
+    and the norm kernel (:func:`check_optimizer`); returns measurements per
+    kernel."""
     from easy_vitpose_tpu_torch.models import fused_block_train as fbt
-    from easy_vitpose_tpu_torch.train import fused_opt
 
     cfg = model.cfg.backbone
     D, N, eps = cfg.embed_dim, cfg.num_tokens, cfg.layer_norm_eps
@@ -635,41 +613,170 @@ def check_wide_kernels(torch, model, rng, dev):
                           "library_ms": time_ms(torch, lambda: (torch.matmul(saved[2].t(), saved[0]),
                                                                 torch.matmul(saved[1].t(), saved[3])))}
 
-    # K9 on every float32 leaf of the model, and on a ragged leaf
-    leaves = [p.detach().float().contiguous() for p in model.parameters()]
-    leaves.append(torch.from_numpy(rng.standard_normal(2048 * 5 + 1001).astype(np.float32)).to(dev))
-    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))   # 308M draws: on the card
-
-    def state(p):
-        g, mu, vs = (torch.randn(p.numel(), generator=gen, device=dev) * 1e-3 for _ in range(3))
-        return (g.view_as(p), *fused_opt.q8_encode(mu, 127), *fused_opt.q8_encode(vs.abs(), 255))
-
-    states = [state(p) for p in leaves]
-    scal = torch.tensor([0.37, TRAIN_LR, 1 - 0.9 ** 7, 1 - 0.999 ** 7], device=dev)
-    for p, (g, mq, ms, nq, ns) in zip(leaves, states):
-        for got, ref in zip(fused_opt.adam_leaf_q8(g, mq, ms, nq, ns, p, scal),
-                            fused_opt.adam_leaf_q8_plain(g, mq, ms, nq, ns, p, scal)):
-            check(got.dtype == ref.dtype and torch.equal(got, ref),
-                  f"K9 is not bit-equal to its plain version on a leaf of {p.numel()}")
-    main, main_states = leaves[:-1], states[:-1]
-    n_params = sum(p.numel() for p in main)
-    n_blocks = sum(fused_opt.q8_blocks(p.numel()) for p in main)
-    print(f"check adam_q8: bit-equal on {len(leaves)} leaves ({n_params} model parameters)")
-    run_all = lambda: [fused_opt.adam_leaf_q8(*st, p, scal) for p, st in zip(main, main_states)]  # noqa: E731
-    run_all()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    run_all()
-    host_ms = (time.perf_counter() - t0) * 1e3
-    torch.cuda.synchronize()
-    print(f"adam_q8: {len(main)} launches take {host_ms:.3f} ms of host time "
-          f"({host_ms * 1e3 / len(main):.1f} us each)")
-    out["K9"] = {"max_abs_err": 0.0, "ms": time_ms(torch, run_all),
-                 "plain_ms": time_ms(torch, lambda: [fused_opt.adam_leaf_q8_plain(*st, p, scal)
-                                                     for p, st in zip(main, main_states)]),
-                 "bound": bound(16.0 * n_params + 16.0 * n_blocks, {"f32": 50.0 * n_params}),
-                 "library_ms": None, "host_ms": host_ms}
+    out.update(check_optimizer(torch, model, rng, dev, "int8"))
     return out
+
+
+# leaf sets of the optimizer's table launches beside a model's leaves: lengths
+# around the 2048-element unit, and 300 leaves of 0-2100 elements
+TABLE_SETS = {"ragged": [1, 3, 1001, 2047, 2048, 2049],
+              "many": [int(n) for n in np.random.default_rng(5).integers(0, 2100, 300)]}
+
+
+def optimizer_inputs(torch, fo, leaves, gen, moments, misalign=False):
+    """Random gradients and moments (codes, for int8) for ``leaves``, drawn
+    on the card; with ``misalign`` every other gradient and moment is a
+    view one element into its buffer (the kernels' scalar path)."""
+    def draw(p, odd):
+        t = torch.randn(p.numel() + 1, generator=gen, device=p.device) * 1e-3
+        return (t[1:] if odd else t[:-1]).view_as(p)
+
+    rows = []
+    for i, p in enumerate(leaves):
+        g, m, v = (draw(p, misalign and i % 2) for _ in range(3))
+        if moments == "int8":
+            rows.append((g, *fo.q8_encode(m, 127), *fo.q8_encode(v.abs(), 255)))
+        else:
+            rows.append((g, m, v.square()))
+    return [list(c) for c in zip(*rows)]
+
+
+def check_optimizer(torch, model, rng, dev, moments):
+    """K8 (``moments="f32"``) or K9 (``"int8"``) and the norm kernel: the
+    table launch over every leaf of the model, of ragged sets and of a
+    misaligned set against the per-leaf plain versions, bit for bit; the
+    norm kernel against ``global_norm`` (bit for bit on exact-norm leaves,
+    rel 1e-5 on random ones); ``fused_apply`` on the model's leaves
+    writes none of its inputs and launches each kernel once; times the
+    whole ``fused_apply`` (norm included), the table launch alone, the norm
+    alone, the plain step, the library's and the host time of one call."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.train import fused_opt as fo
+
+    q8 = moments == "int8"
+    key, table_fn, leaf_plain = (("K9", fo.adam_table_q8, fo.adam_leaf_q8_plain) if q8 else
+                                 ("K8", fo.adam_table, fo.adam_leaf_plain))
+    gen = torch.Generator(device=dev).manual_seed(int(rng.integers(2 ** 31)))
+    main = [p.detach().float().contiguous() for p in model.parameters()]
+    scal = torch.tensor([0.37, TRAIN_LR, 1 - 0.9 ** 7, 1 - 0.999 ** 7], device=dev)
+    sets = {"model": (main, False),
+            **{k: ([torch.randn(n, generator=gen, device=dev) for n in v], False)
+               for k, v in TABLE_SETS.items()},
+            "misaligned": ([torch.randn(n, generator=gen, device=dev)
+                            for n in TABLE_SETS["ragged"] * 2], True)}
+    for name, (leaves, mis) in sets.items():
+        cols = optimizer_inputs(torch, fo, leaves, gen, moments, mis)
+        got = table_fn(*cols, leaves, scal)
+        for i, p in enumerate(leaves):
+            if p.numel() == 0:
+                continue
+            ref = leaf_plain(*(c[i] for c in cols), p, scal)
+            check(all(o[i].dtype == r.dtype and torch.equal(o[i], r) for o, r in zip(got, ref)),
+                  f"{key}'s table launch is not bit-equal to its plain version on leaf {i} "
+                  f"({p.numel()}) of the {name} set")
+    print(f"check {key} table: one launch each, bit-equal on the {len(main)} model leaves "
+          f"({sum(p.numel() for p in main)} parameters) and the sets "
+          f"{ {k: len(v[0]) for k, v in sets.items() if k != 'model'} }")
+
+    # the norm kernel: exact sums (+-c, +-2c) bit for bit, random within 1e-5
+    for name, lengths in TABLE_SETS.items():
+        signs = torch.tensor([-2.0, -1.0, 1.0, 2.0], device=dev) * 2.0 ** -6
+        gs = [signs[torch.randint(0, 4, (n,), generator=gen, device=dev)] for n in lengths]
+        sg, ref = fo.clip_scale(gs, TRAIN_CLIP), fo.global_norm(gs)
+        check(torch.equal(sg[1], ref), f"the norm kernel on exact {name} leaves: "
+                                        f"{float(sg[1])} vs {float(ref)}")
+    gs = optimizer_inputs(torch, fo, main, gen, moments)[0]
+    sg, ref = fo.clip_scale(gs, TRAIN_CLIP), fo.global_norm(gs)
+    norm_abs_err = abs(float(sg[1]) - float(ref))
+    norm_err = norm_abs_err / float(ref)
+    check(norm_err <= 1e-5, f"the norm kernel on the model's leaves: rel {norm_err}")
+    print(f"check grad_norm: bit-equal on exact-norm leaves, rel {norm_err:.3e} on "
+          f"{len(gs)} random model leaves")
+
+    # fused_apply on the model's leaves, from non-zero moments
+    names = [str(i) for i in range(len(main))]
+    params, grads = dict(zip(names, main)), dict(zip(names, gs))
+    tx = fo.make_fused_adam(TRAIN_LR, max_grad_norm=TRAIN_CLIP, moment_dtype=moments)
+    params, state, _ = tx.fused_apply(grads, tx.init(params), params)
+
+    def inputs():
+        mom = [state.mu, state.nu]
+        return [*grads.values(), *params.values(),
+                *(t for m in mom for t in ((*m["q_tree"].values(), *m["s_tree"].values())
+                                           if q8 else m.values()))]
+
+    before = [t.clone() for t in inputs()]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    tx.fused_apply(grads, state, params)
+    counts = kernels.launch_counts()
+    torch.cuda.synchronize()
+    want = {fo.KERNEL_NORM: 1, (fo.KERNEL_Q8 if q8 else fo.KERNEL): 1}
+    check(counts == want, f"fused_apply launched {counts}, expected {want}")
+    check(all(torch.equal(a, b) for a, b in zip(before, inputs())),
+          "fused_apply wrote one of its inputs")
+    del before
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tx.fused_apply(grads, state, params)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    host_ms = statistics.median(host)
+
+    pl = list(params.values())
+    if q8:
+        cols = [list(grads.values()), *[list(m[t].values()) for m in (state.mu, state.nu)
+                                        for t in ("q_tree", "s_tree")]]
+        tab, _, _ = fo._prepare(pl, (cols[0], pl, *cols[1:]), fo.Q8_IN, fo.Q8_OUT)
+    else:
+        cols = [list(grads.values()), list(state.mu.values()), list(state.nu.values())]
+        tab, _, _ = fo._prepare(pl, (*cols, pl), fo.F32_IN, fo.F32_OUT)
+    sg = fo._launch_norm(tab, TRAIN_CLIP)
+    step_scal = torch.stack([sg[0], scal[1], scal[2], scal[3]])
+
+    def plain_step():
+        s = fo.clip_scale_plain(cols[0], TRAIN_CLIP)
+        sc = torch.stack([s[0], scal[1], scal[2], scal[3]])
+        return [leaf_plain(*(c[i] for c in cols), p, sc) for i, p in enumerate(pl)]
+
+    n = sum(p.numel() for p in main)
+    n_blocks = sum(fo.q8_blocks(p.numel()) for p in main)
+    res = {"max_abs_err": 0.0, "ms": time_ms(torch, lambda: tx.fused_apply(grads, state, params)),
+           "table_ms": time_ms(torch, lambda: fo._launch_adam(tab, step_scal)),
+           "norm_ms": time_ms(torch, lambda: fo._launch_norm(tab, TRAIN_CLIP)),
+           "plain_ms": time_ms(torch, plain_step), "host_ms": host_ms,
+           "norm_abs_err": norm_abs_err,
+           "norm_plain_ms": time_ms(torch, lambda: fo.global_norm(cols[0])),
+           # the row includes the norm: 4 more bytes of g per element
+           "bound": (bound(20.0 * n + 16.0 * n_blocks, {"f32": 52.0 * n}) if q8 else
+                     bound(32.0 * n, {"f32": 14.0 * n})),
+           "table_bound": (bound(16.0 * n + 16.0 * n_blocks, {"f32": 50.0 * n}) if q8 else
+                           bound(28.0 * n, {"f32": 12.0 * n})),
+           "norm_bound": bound(4.0 * n, {"f32": 2.0 * n})}
+    total_norm = getattr(torch.nn.utils, "get_total_norm", None)
+    res["norm_library_ms"] = (time_ms(torch, lambda: total_norm(cols[0]))
+                              if total_norm is not None else None)
+    res["library_ms"] = None
+    if not q8:
+        ps = [torch.nn.Parameter(p.clone()) for p in params.values()]
+        for p, g in zip(ps, cols[0]):
+            p.grad = g.clone()
+        opt = torch.optim.Adam(ps, lr=TRAIN_LR, fused=True)
+
+        def library_step():
+            torch.nn.utils.clip_grad_norm_(ps, TRAIN_CLIP)
+            opt.step()
+
+        res["library_ms"] = time_ms(torch, library_step)
+        del ps, opt
+    print(f"{key} fused_apply on {len(main)} leaves: {res['ms']:.3f} ms (bound "
+          f"{res['bound'][0]:.3f}), table launch {res['table_ms']:.3f} (bound "
+          f"{res['table_bound'][0]:.3f}), norm {res['norm_ms']:.3f} (bound "
+          f"{res['norm_bound'][0]:.3f}), plain {res['plain_ms']:.3f}, library "
+          f"{res['library_ms']}, host {host_ms:.3f} ms a call")
+    return {key: res}
 
 
 def equal_to(torch, got, ref, what):
@@ -891,8 +998,8 @@ def _run_train_step(torch, model, rng, seed, dev, block_kernels, moments, flavor
     state, m = step(state, batch, gen)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = {**dict.fromkeys(block_kernels, depth),
-            (fused_opt.KERNEL_Q8 if moments == "int8" else fused_opt.KERNEL): len(state["params"])}
+    want = {**dict.fromkeys(block_kernels, depth), fused_opt.KERNEL_NORM: 1,
+            (fused_opt.KERNEL_Q8 if moments == "int8" else fused_opt.KERNEL): 1}
     print(f"{name}: launches {counts}")
     check(counts == want, f"{name} launched {counts}, expected {want}")
     losses = [float(m["loss"])]
@@ -949,7 +1056,7 @@ def run_accum_step(torch, model, rng, seed, dev, accum: int = 2, ema: float = 0.
     """One ViT-B AMP step of 64 crops in ``accum`` micro-batches with an EMA
     of decay ``ema``, through the kernels and as the plain step, from one
     state and the same drop-path masks: launches (the blocks' kernels once
-    per block and micro-batch, K8 once per leaf), the loss, the grads (from
+    per block and micro-batch, the norm kernel and K8 once), the loss, the grads (from
     the first Adam moment, mu = 0.1 s g with each side's clip scale s), the
     BN running statistics chained through the micro-batches, and each EMA
     against ``ema * e + (1 - ema) * p'`` of its own step."""
@@ -976,9 +1083,10 @@ def run_accum_step(torch, model, rng, seed, dev, accum: int = 2, ema: float = 0.
         ms = (time.perf_counter() - t0) * 1e3
         counts = kernels.launch_counts()
         depth = cfg.backbone.depth
-        want = ({fused_opt.KERNEL: len(state["params"])} if plain else
-                {fbt.FWD: accum * depth, fbt.BWD_MLP: accum * depth, fbt.BWD_ATTN: accum * depth,
-                 fused_opt.KERNEL: len(state["params"])})
+        want = {fused_opt.KERNEL: 1, fused_opt.KERNEL_NORM: 1}
+        if not plain:
+            want.update({fbt.FWD: accum * depth, fbt.BWD_MLP: accum * depth,
+                         fbt.BWD_ATTN: accum * depth})
         print(f"{name}{' plain' if plain else ''}: launches {counts}, {ms:.1f} ms (first call)")
         check(counts == want, f"{name} launched {counts}, expected {want}")
         for k, e in new["ema_params"].items():
@@ -1144,8 +1252,8 @@ def main() -> int:
                   ("K6c mlp_backward_dw_saved", "K6c", "models/fused_block_train.py:340",
                    "train_bwd_mlp_dw_saved", train_l),
                   ("K7 attn_backward", "K7", "models/fused_block_train.py:404", "train_bwd_attn", train),
-                  ("K8 adam_leaf", "K8", "train/fused_opt.py:154", "adam", train),
-                  ("K9 adam_leaf_q8", "K9", "train/fused_opt.py:266", "adam_q8", train_l),
+                  ("K8 adam_table", "K8", "train/fused_opt.py:154", "adam", train),
+                  ("K9 adam_table_q8", "K9", "train/fused_opt.py:266", "adam_q8", train_l),
                   ("K6a_ms mlp_backward saved m", "K6a_ms", "models/fused_block_train.py:267",
                    fbt.BWD_MLP_MS, train_b_saved),
                   ("K6b_ms mlp_backward_dx_save saved m", "K6b_ms",
@@ -1167,8 +1275,10 @@ def main() -> int:
                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                      "library_ms": m["library_ms"]})
     print("train_step:", json.dumps({k: v for k, v in train.items() if k != "launches"}))
-    print("train_step_l_int8:", json.dumps({k: v for k, v in train_l.items() if k != "launches"}),
-          json.dumps({"K9_host_ms": meas["K9"]["host_ms"]}))
+    print("train_step_l_int8:", json.dumps({k: v for k, v in train_l.items() if k != "launches"}))
+    print("optimizer:", json.dumps({k: {f: meas[k][f] for f in (
+        "ms", "table_ms", "norm_ms", "plain_ms", "library_ms", "host_ms", "bound", "table_bound",
+        "norm_bound", "norm_plain_ms", "norm_library_ms")} for k in ("K8", "K9")}))
     for label, run in (("train_step_b_saved_qkv_m", train_b_saved),
                        ("train_step_l_int8_wide_recompute", train_l_recompute),
                        ("train_step_l_int8_saved_m", train_l_saved_m),
@@ -1177,6 +1287,16 @@ def main() -> int:
     print("train_gemms:", json.dumps(gemms))
     print("pose_steps:", json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "launches"}
                                      for k, v in steps.items()}))
+    # the norm kernel on ViT-B's leaves, launched once by the main path's step
+    opt = meas["K8"]
+    print("grad_norm:", json.dumps({
+        "name": "grad_norm global norm and clip scale", "route": "cuda",
+        "source": "easy_vitpose_tpu_torch/csrc/grad_norm.cu",
+        "replaces": "easy_vitpose_tpu/train/fused_opt.py:399 (XLA inside fused_apply, no Pallas)",
+        "launches": train["launches"].get("grad_norm", 0), "max_abs_err": opt["norm_abs_err"],
+        "ms": opt["norm_ms"], "plain_ms": opt["norm_plain_ms"],
+        "bound_ms": opt["norm_bound"][0], "bound_by": opt["norm_bound"][1],
+        "library_ms": opt["norm_library_ms"]}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

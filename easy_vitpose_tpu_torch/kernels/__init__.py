@@ -92,13 +92,17 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "evt_mma_probe": [_P, _P, _P, _I, _I, _I, _P],
     },
     "adam": {
-        # g, mu, nu, p, scal, mu_o, nu_o, p_o, n, b1, 1-b1, b2, 1-b2, eps, stream
-        "evt_adam": [_P, _P, _P, _P, _P, _P, _P, _P, _L, _F, _F, _F, _F, _F, _P],
+        # table, leaves, units, scal, b1, 1-b1, b2, 1-b2, eps, stream
+        "evt_adam_table": [_P, _I, _L, _P, _F, _F, _F, _F, _F, _P],
     },
     "adam_q8": {
-        # g, p, mq, ms, nq, ns, scal, p_o, mq_o, ms_o, nq_o, ns_o, n, b1, 1-b1,
-        # b2, 1-b2, eps, ln_eps, 1/ln_eps, 1/126, 1/254, tiny, zero_below, stream
-        "evt_adam_q8": [_P] * 12 + [_L] + [_F] * 11 + [_P],
+        # table, leaves, units, scal, b1, 1-b1, b2, 1-b2, eps, ln_eps, 1/ln_eps,
+        # 1/126, 1/254, tiny, zero_below, stream
+        "evt_adam_q8_table": [_P, _I, _L, _P] + [_F] * 11 + [_P],
+    },
+    "grad_norm": {
+        # table, leaves, width, units, partial, out, max_norm, stream
+        "evt_grad_norm": [_P, _I, _I, _L, _P, _P, _F, _P],
     },
 }
 SOURCES = tuple(SIGNATURES)

@@ -29,8 +29,22 @@ SM, a slot released one k-tile behind), each slot released as soon as its
 products are done (wgmma wait depth 0), and 4 stages at one block per SM,
 alone and with that release.
 
+With ``--adam-q8`` it times instead variants of K9's body
+(``csrc/adam_q8.cu``), each built into an ``adam_q8`` library of its own
+and launched once over one table of ViT-L's 301 leaves (random gradients
+and moments from a seed; CUDA events, the median of five windows of at
+least 50 ms), beside the shipped K8 on the same leaves: the shipped body;
+without the encode (each code a comparison, no division, log or rint);
+without the decode (the code's value, no table lookup); loads only (no
+encode and each output a sum of its inputs: the bytes alone); and the
+IEEE divisions as ``__fdividef``, and ``logf`` as ``__logf`` (both change
+the bits); and the shipped body (capped in registers for 8 blocks of 256
+threads per SM) uncapped and capped for 6 (the same bits).  It tells
+whether bytes or the throughput of the division, log and square root
+instructions bound the body (``ncu`` does not run on the card's machine).
+
 Usage (a machine with the CUDA toolkit and a card):
-    python3 scripts/bench_kernel_variants.py [--out FILE] [--train-gemm]
+    python3 scripts/bench_kernel_variants.py [--out FILE] [--train-gemm | --adam-q8]
 """
 import argparse
 import json
@@ -88,6 +102,28 @@ TRAIN_GEMM = {
     "release_at_wait0": [(_RELEASE_BEHIND, _RELEASE_NOW)],
     "4_stages_1_block": [_FOUR_STAGES],
     "4_stages_1_block_release_at_wait0": [_FOUR_STAGES, (_RELEASE_BEHIND, _RELEASE_NOW)],
+}
+
+_NO_ENCODE = [("mc[k] = mu_code(m[4 * j + k], am_safe, c);",
+               "mc[k] = static_cast<int8_t>(m[4 * j + k] > am_safe);"),
+              ("nc[k] = nu_code(vs[4 * j + k], an_safe, c);",
+               "nc[k] = static_cast<uint8_t>(vs[4 * j + k] > an_safe);")]
+_UPDATE = """                update_one(mc[k], nc[k], gv[k], pv[k], mscale, nscale, dec_mu, dec_nu, h,
+                           m[4 * j + k], vs[4 * j + k], q[k]);"""
+ADAM_Q8 = {
+    "shipped": [],
+    "no_encode": _NO_ENCODE,
+    "no_decode": [("const float e = dec_mu[mq < 0 ? -mq : mq];", "const float e = mq;"),
+                  ("__fmul_rn(dec_nu[nq], nscale)", "__fmul_rn(static_cast<float>(nq), nscale)")],
+    "loads_only": _NO_ENCODE + [(_UPDATE, """                m[4 * j + k] = gv[k] + mc[k] * mscale;
+                vs[4 * j + k] = pv[k] + nc[k] * nscale;
+                q[k] = gv[k] + pv[k];""")],
+    "fdividef": [("__fdiv_rn(", "__fdividef(")],
+    "fast_logf": [("logf(fmaxf(r, c.tiny))", "__logf(fmaxf(r, c.tiny))")],
+    "uncapped_registers": [("__launch_bounds__(THREADS, 8)\nadam_q8_table_kernel",
+                            "__launch_bounds__(THREADS)\nadam_q8_table_kernel")],
+    "6_blocks_per_sm": [("__launch_bounds__(THREADS, 8)\nadam_q8_table_kernel",
+                         "__launch_bounds__(THREADS, 6)\nadam_q8_table_kernel")],
 }
 
 HARNESS = r"""
@@ -327,17 +363,89 @@ def train_gemm_variants(card: str) -> dict:
     return out
 
 
+def adam_q8_variants(card: str) -> dict:
+    """ms of one table launch of each ADAM_Q8 variant (see the module doc)."""
+    import ctypes
+    import shutil
+
+    import torch
+    import chip_smoke as cs
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.train import fused_opt as fo
+
+    nvcc = kernels.nvcc_path()
+    tmp = tempfile.mkdtemp()
+    procs = {}
+    for name, subs in ADAM_Q8.items():
+        d = os.path.join(tmp, name)
+        shutil.copytree(kernels.CSRC, d)
+        path = os.path.join(d, "adam_q8.cu")
+        src = open(path).read()
+        for old, new in subs:
+            if old not in src:
+                raise RuntimeError(f"K9 variant {name}: {old[:40]!r}... not in the source")
+            src = src.replace(old, new)
+        with open(path, "w") as f:
+            f.write(src)
+        so = os.path.join(d, "libadam_q8.so")
+        procs[name] = (so, subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-I", d, "-o", so, path]))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        if proc.wait():
+            raise RuntimeError(f"K9 variant {name} did not build")
+        lib = ctypes.CDLL(so)
+        lib.evt_adam_q8_table.argtypes = kernels.SIGNATURES["adam_q8"]["evt_adam_q8_table"]
+        libs[name] = lib
+
+    dev = torch.device("cuda")
+    kernels.build(["adam", "adam_q8"])
+    model = init_params(get_model_config("coco", "l"), 0).to(dev)
+    ps = [p.detach().float().contiguous() for p in model.parameters()]
+    del model
+    gen = torch.Generator(device=dev).manual_seed(0)
+    rnd = lambda p: torch.randn(p.shape, generator=gen, device=dev) * 1e-3  # noqa: E731
+    gs = [rnd(p) for p in ps]
+    mq, ms, nq, ns = (list(c) for c in zip(*[(*fo.q8_encode(rnd(p), 127),
+                                               *fo.q8_encode(rnd(p).abs(), 255)) for p in ps]))
+    tab, _, _ = fo._prepare(ps, (gs, ps, mq, ms, nq, ns), fo.Q8_IN, fo.Q8_OUT)
+    scal = torch.tensor([0.37, cs.TRAIN_LR, 1 - 0.9 ** 7, 1 - 0.999 ** 7], device=dev)
+    args = (tab.t.data_ptr(), tab.leaves, tab.units, scal.data_ptr(), fo.B1, 1.0 - fo.B1, fo.B2,
+            1.0 - fo.B2, fo.EPS, fo.Q8_LN_EPS, fo.Q8_INV_LN_EPS, fo.q8_inv_steps(127),
+            fo.q8_inv_steps(255), fo.Q8_TINY, fo.Q8_ZERO_BELOW)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    n = sum(p.numel() for p in ps)
+    out = {"card": card, "leaves": len(ps), "parameters": n, "adam_q8_table_ms": {}}
+    for name, lib in libs.items():
+        fn = lambda: lib.evt_adam_q8_table(*args, stream())  # noqa: E731
+        if fn():
+            raise RuntimeError(f"K9 variant {name} refused the launch")
+        out["adam_q8_table_ms"][name] = cs.time_ms(torch, fn)
+    out["tb_s_at_16_bytes"] = {k: 16.0 * n / (v * 1e-3) / 1e12
+                               for k, v in out["adam_q8_table_ms"].items()}
+    del tab, mq, ms, nq, ns
+    mu, nu = [rnd(p) for p in ps], [rnd(p).square() for p in ps]
+    tab8, _, _ = fo._prepare(ps, (gs, mu, nu, ps), fo.F32_IN, fo.F32_OUT)
+    out["adam_table_ms"] = cs.time_ms(torch, lambda: fo._launch_adam(tab8, scal))
+    out["adam_tb_s_at_28_bytes"] = 28.0 * n / (out["adam_table_ms"] * 1e-3) / 1e12
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", default=None)
     ap.add_argument("--train-gemm", action="store_true",
                     help="time the training GEMM's variants instead")
+    ap.add_argument("--adam-q8", action="store_true",
+                    help="time the variants of K9's body instead")
     args = ap.parse_args()
-    if args.train_gemm:
+    if args.train_gemm or args.adam_q8:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True,
                               text=True).stdout.strip().splitlines()[0]
-        line = json.dumps(train_gemm_variants(card))
+        line = json.dumps(train_gemm_variants(card) if args.train_gemm else
+                          adam_q8_variants(card))
         print(line)
         if args.out:
             with open(args.out, "w") as f:

@@ -24,7 +24,8 @@ int8 and bf16:
   launches of the same kernel with one product each, on the same bf16
   operands at ViT-B's and ViT-L's widths and 64 crops;
 * with ``--moments int8``, K9 on each distinct leaf size of that model,
-  beside K8 on the same size: device time per launch from
+  beside K8 on the same size (each a table of one leaf): device time per
+  launch from
   ``torch.profiler`` (so the host's launch gaps do not count), the rate
   over each kernel's bytes (16 per element for K9, 28 for K8), and K9's
   device time per step split between one-block leaves and the rest.  It
@@ -304,7 +305,7 @@ def adam_leaf_sizes(torch, params, dev, reps=10):
                     fn()
                 torch.cuda.synchronize()
             us = sum(ms_ for key, ms_, _ in kernel_rows(prof, reps)
-                     if f"{name}_kernel(" in key) * 1e3
+                     if f"{name}_table_kernel(" in key) * 1e3
             row[f"{name}_us"] = us
             # None where the profiler caught no launch of the kernel
             row[f"{name}_tb_s"] = ((16 if name == "adam_q8" else 28) * n / (us * 1e-6) / 1e12

@@ -14,6 +14,10 @@ checkout's ``chip_smoke.py`` and package, and on one CUDA card:
   this script's own ``chip_smoke.check_train_gemms`` run on the checkout's
   package (the wrappers ``gemm_nt``, ``gemm_nn`` and ``gemm_tn2`` keep one
   interface), with TFLOP/s and ``torch.matmul``'s ms on the same operands;
+* times ``make_fused_adam(...).fused_apply`` through the public API, float32
+  moments on ViT-B's 157 leaves and int8 on ViT-L's 301, from non-zero
+  moments, on seeded gradients: device time as the smoke times a kernel,
+  and the host time of one call (median of five);
 * times the ViT-B (float32 moments) and ViT-L (int8 moments) AMP train
   steps of 64 crops with no ``EVT_TRAIN_*`` switch set: host clock around
   synchronized steps, median of five windows of three steps after two
@@ -34,6 +38,25 @@ import sys
 import time
 
 import numpy as np
+
+
+def time_fused_apply(torch, cs, fused_opt, model, moments, seed):
+    """(device ms, host ms) of one ``fused_apply`` on the model's trainable
+    leaves (see the module doc)."""
+    dev = next(model.parameters()).device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    params = {k: v.detach().float().clone() for k, v in model.named_parameters()}
+    grads = {k: torch.randn(v.shape, generator=gen, device=dev) * 1e-3 for k, v in params.items()}
+    tx = fused_opt.make_fused_adam(cs.TRAIN_LR, max_grad_norm=cs.TRAIN_CLIP, moment_dtype=moments)
+    params, state, _ = tx.fused_apply(grads, tx.init(params), params)
+    host = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tx.fused_apply(grads, state, params)
+        host.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    return cs.time_ms(torch, lambda: tx.fused_apply(grads, state, params)), statistics.median(host)
 
 
 def main():
@@ -87,6 +110,9 @@ def main():
         out[f"attn_backward_vit_{size}_ms"] = cs.time_ms(torch, lambda: fbt.attention_backward_cuda(
             qkv, do, cs.SLOTS, bb.num_tokens, bb.num_heads))
         del qkv, do
+        key = f"fused_apply_vit_{size}_{moments}"
+        out[f"{key}_ms"], out[f"{key}_host_ms"] = time_fused_apply(torch, cs, fused_opt, model,
+                                                                   moments, args.seed)
         batch = cs.train_batch(torch, np.random.default_rng(args.seed), cs.SLOTS, dev)
         tx = fused_opt.make_fused_adam(cs.TRAIN_LR, max_grad_norm=cs.TRAIN_CLIP,
                                        moment_dtype=moments)

@@ -506,10 +506,121 @@ def test_adam_kernel_bit_equal(dev, n):
         assert torch.equal(got, ref)
 
 
+# ragged leaf sets for the optimizer's table launches: lengths around the
+# 2048-element unit, empty and 0-d leaves, and 300 leaves of 0-2100
+TABLE_SETS = {
+    "ragged": [(1,), (3,), (1001,), (2047,), (2048,), (2049,)],
+    "shapes": [(), (0,), (7, 300), (5000,), (3, 5), (64, 33)],
+    "many": [(int(n),) for n in np.random.default_rng(5).integers(0, 2100, 300)],
+}
+
+
+def table_leaves(dev, shapes, scale, seed, misalign=False):
+    """float32 leaves from a numpy seed; with ``misalign`` every other leaf
+    is a view one element into its buffer (the kernels' scalar path)."""
+    g = np.random.default_rng(seed)
+    out = []
+    for i, s in enumerate(shapes):
+        v = torch.from_numpy(np.asarray(g.standard_normal(s) * scale, np.float32)).to(dev)
+        if misalign and i % 2:
+            buf = torch.empty(v.numel() + 1, device=dev)
+            buf[1:] = v.reshape(-1)
+            v = buf[1:].view(v.shape)
+        out.append(v)
+    return out
+
+
+@pytest.mark.parametrize("misalign", [False, True])
+@pytest.mark.parametrize("name", list(TABLE_SETS))
+def test_adam_table_launches_bit_equal(dev, name, misalign):
+    """K8 and K9 over a whole leaf set in one launch each, bit-equal to
+    their per-leaf plain versions with the same scalar buffer."""
+    from easy_vitpose_tpu_torch.train import fused_opt as fo
+    shapes = TABLE_SETS[name]
+    g, p = table_leaves(dev, shapes, 1e-3, 1, misalign), table_leaves(dev, shapes, 1.0, 2, misalign)
+    mu = table_leaves(dev, shapes, 1e-3, 3, misalign)
+    nu = [t.square() for t in table_leaves(dev, shapes, 1e-3, 4)]
+    scal = torch.tensor([0.37, 3.75e-4, 1 - 0.9 ** 7, 1 - 0.999 ** 7], device=dev)
+    kernels.reset_launch_counts()
+    out = fo.adam_table(g, mu, nu, p, scal)
+    st = [(*fo.q8_encode(m, 127), *fo.q8_encode(v.sqrt(), 255)) for m, v in zip(mu, nu)]
+    mq, ms, nq, ns = (list(x) for x in zip(*st))
+    out8 = fo.adam_table_q8(g, mq, ms, nq, ns, p, scal)
+    assert kernels.launch_counts() == {fo.KERNEL: 1, fo.KERNEL_Q8: 1}
+    for i in range(len(shapes)):
+        ref = fo.adam_leaf_plain(g[i], mu[i], nu[i], p[i], scal)
+        assert all(torch.equal(o[i], r) for o, r in zip(out, ref)), (name, i)
+        if g[i].numel():
+            ref = fo.adam_leaf_q8_plain(g[i], mq[i], ms[i], nq[i], ns[i], p[i], scal)
+            assert all(o[i].dtype == r.dtype and torch.equal(o[i], r)
+                       for o, r in zip(out8, ref)), (name, i)
+
+
+@pytest.mark.parametrize("name", list(TABLE_SETS))
+def test_grad_norm_kernel(dev, name):
+    """The norm kernel against ``global_norm``: bit for bit on leaves whose
+    sum of squares is exact (+-c, +-2c, c a power of two), within rel 1e-5
+    on random ones; the clip scale from its norm, as the plain version."""
+    from easy_vitpose_tpu_torch.train import fused_opt as fo
+    shapes = TABLE_SETS[name]
+    rng = np.random.default_rng(7)
+    exact = [torch.from_numpy(rng.choice(np.float32([-2, -1, 1, 2]) * 2.0 ** -6, s)
+                              .astype(np.float32)).to(dev) for s in shapes]
+    for gs, tol in ((exact, 0.0), (table_leaves(dev, shapes, 1e-2, 8, True), 1e-5)):
+        kernels.reset_launch_counts()
+        sg = fo.clip_scale(gs, 1.0)
+        assert kernels.launch_counts() == {fo.KERNEL_NORM: 1}
+        ref = fo.clip_scale_plain(gs, 1.0)
+        assert abs(float(sg[1]) - float(ref[1])) <= tol * float(ref[1]), (float(sg[1]), float(ref[1]))
+        s = torch.minimum(torch.ones_like(sg[1]), torch.full_like(sg[1], 1.0) / (sg[1] + 1e-16))
+        assert torch.equal(sg[0], s)
+
+
+@pytest.mark.parametrize("moments", ["f32", "int8"])
+def test_fused_apply_on_the_card(dev, moments):
+    """One step over ragged leaves: the norm kernel and K8 (K9) once each,
+    none of the inputs written, and the outputs bit-equal to the per-leaf
+    plain versions with the kernel's clip scale."""
+    from easy_vitpose_tpu_torch.train import fused_opt as fo
+    shapes = TABLE_SETS["ragged"] + TABLE_SETS["shapes"][2:]
+    names = [f"l{i}" for i in range(len(shapes))]
+    params = dict(zip(names, table_leaves(dev, shapes, 0.5, 9)))
+    grads = dict(zip(names, table_leaves(dev, shapes, 1e-2, 10, True)))
+    tx = fo.make_fused_adam(3.75e-4, moment_dtype=moments)
+    params, state, _ = tx.fused_apply(grads, tx.init(params), params)    # non-zero moments
+    leaves = lambda: [t.clone() for t in (*grads.values(), *params.values(),    # noqa: E731
+                                          *(v for m in (state.mu, state.nu) for v in
+                                            (m["q_tree"].values() if moments == "int8" else
+                                             m.values())))]
+    before = leaves()
+    kernels.reset_launch_counts()
+    new, new_state, gnorm = tx.fused_apply(grads, state, params)
+    assert kernels.launch_counts() == {fo.KERNEL_NORM: 1,
+                                       fo.KERNEL_Q8 if moments == "int8" else fo.KERNEL: 1}
+    assert all(torch.equal(a, b) for a, b in zip(before, leaves()))
+    sg = fo.clip_scale(list(grads.values()), 1.0)
+    assert float(sg[1]) == float(gnorm)
+    cf = new_state.count.float()
+    scal = torch.stack([sg[0], state.hyperparams["learning_rate"],
+                        1.0 - torch.pow(torch.full_like(cf, fo.B1), cf),
+                        1.0 - torch.pow(torch.full_like(cf, fo.B2), cf)])
+    for k in names:
+        if moments == "int8":
+            ref = fo.adam_leaf_q8_plain(grads[k], state.mu["q_tree"][k], state.mu["s_tree"][k],
+                                        state.nu["q_tree"][k], state.nu["s_tree"][k], params[k],
+                                        scal)
+            got = (new_state.mu["q_tree"][k], new_state.mu["s_tree"][k],
+                   new_state.nu["q_tree"][k], new_state.nu["s_tree"][k], new[k])
+        else:
+            ref = fo.adam_leaf_plain(grads[k], state.mu[k], state.nu[k], params[k], scal)
+            got = (new_state.mu[k], new_state.nu[k], new[k])
+        assert all(a.shape == b.shape and torch.equal(a, b) for a, b in zip(got, ref)), k
+
+
 def test_train_step_through_the_kernels(dev):
     """Two AMP steps of a small model through the kernels: each block's K5,
-    K6a and K7 once per step, K8 once per leaf, and the loss and every
-    gradient against the plain step on the card."""
+    K6a and K7 once per step, the norm kernel and K8 once per step, and the
+    loss and every gradient against the plain step on the card."""
     from easy_vitpose_tpu_torch.configs import BackboneConfig, HeadConfig, ModelConfig
     from easy_vitpose_tpu_torch.models.vitpose import init_params
     from easy_vitpose_tpu_torch.train import step as tstep
@@ -530,7 +641,7 @@ def test_train_step_through_the_kernels(dev):
         kernels.reset_launch_counts()
         state, metrics = step(state, batch, gen)
         assert kernels.launch_counts() == {"train_fwd": 2, "train_bwd_mlp": 2,
-                                           "train_bwd_attn": 2, "adam": len(state["params"])}
+                                           "train_bwd_attn": 2, "adam": 1, "grad_norm": 1}
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     rendered = tstep.render_batch_on_device(batch, dev)
     masks = torch.tensor([[1.0, 0.0, 1.0], [1.43, 1.43, 0.0]], device=dev).reshape(2, 3, 1, 1)
@@ -546,8 +657,8 @@ def test_train_step_through_the_kernels(dev):
 def test_wide_train_step_with_int8_moments(dev):
     """Two AMP steps of a small wide model (D=1024, the ViT-L width) with
     int8 moments through the kernels: K5, K6b, K6c and K7 once per block,
-    K9 once per leaf and no K6a or K8; the loss and every gradient against
-    the plain step on the card."""
+    the norm kernel and K9 once per step and no K6a or K8; the loss and
+    every gradient against the plain step on the card."""
     from easy_vitpose_tpu_torch.configs import BackboneConfig, HeadConfig, ModelConfig
     from easy_vitpose_tpu_torch.models.vitpose import init_params
     from easy_vitpose_tpu_torch.train import step as tstep
@@ -570,7 +681,7 @@ def test_wide_train_step_with_int8_moments(dev):
         state, metrics = step(state, batch, gen)
         assert kernels.launch_counts() == {"train_fwd": 2, "train_bwd_mlp_dx_save": 2,
                                            "train_bwd_mlp_dw_saved": 2, "train_bwd_attn": 2,
-                                           "adam_q8": len(state["params"])}
+                                           "adam_q8": 1, "grad_norm": 1}
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     rendered = tstep.render_batch_on_device(batch, dev)
     masks = torch.tensor([[2.0, 0.0, 2.0], [2.0, 2.0, 0.0]], device=dev).reshape(2, 3, 1, 1)
@@ -610,7 +721,8 @@ def test_flavored_train_steps_through_the_kernels(dev, D, heads, moments, env, w
     loss and every gradient against the plain step under the same switches."""
     from easy_vitpose_tpu_torch.models.vitpose import init_params
     from easy_vitpose_tpu_torch.train import step as tstep
-    from easy_vitpose_tpu_torch.train.fused_opt import KERNEL, KERNEL_Q8, make_fused_adam
+    from easy_vitpose_tpu_torch.train.fused_opt import (KERNEL, KERNEL_NORM, KERNEL_Q8,
+                                                        make_fused_adam)
 
     for k in ("EVT_TRAIN_ATTN", "EVT_TRAIN_MLP", "EVT_TRAIN_WIDE"):
         monkeypatch.delenv(k, raising=False)
@@ -625,9 +737,8 @@ def test_flavored_train_steps_through_the_kernels(dev, D, heads, moments, env, w
     for _ in range(2):
         kernels.reset_launch_counts()
         state, metrics = step(state, batch, gen)
-        assert kernels.launch_counts() == {**dict.fromkeys(want, 2),
-                                           (KERNEL_Q8 if moments == "int8" else KERNEL):
-                                           len(state["params"])}
+        assert kernels.launch_counts() == {**dict.fromkeys(want, 2), KERNEL_NORM: 1,
+                                           (KERNEL_Q8 if moments == "int8" else KERNEL): 1}
         assert torch.isfinite(metrics["loss"]) and torch.isfinite(metrics["grad_norm"])
     rendered = tstep.render_batch_on_device(batch, dev)
     masks = torch.tensor([[2.0, 0.0, 2.0], [2.0, 2.0, 0.0]], device=dev).reshape(2, 3, 1, 1)
@@ -642,7 +753,8 @@ def test_flavored_train_steps_through_the_kernels(dev, D, heads, moments, env, w
 
 def test_grad_accum_ema_and_eval_steps_on_the_card(dev):
     """A small model's AMP step with ``grad_accum=2`` and ``ema_decay`` on
-    the card: K5, K6a and K7 once per block and micro-batch; the loss, the
+    the card: K5, K6a and K7 once per block and micro-batch, the norm kernel
+    and K8 once per step (the plain step's optimizer too); the loss, the
     grads (from the first Adam moment) and the BN statistics against the
     plain step; the EMA is d e + (1 - d) p'.  Then ``make_eval_step`` runs
     the serving blocks (K1) and agrees with the same step on a CPU copy."""
@@ -662,7 +774,7 @@ def test_grad_accum_ema_and_eval_steps_on_the_card(dev):
         kernels.reset_launch_counts()
         new, metrics = step(state, batch, drop_path_masks=masks)
         counts = kernels.launch_counts()
-        assert counts.pop("adam") == len(state["params"])
+        assert counts.pop("adam") == 1 and counts.pop("grad_norm") == 1
         assert counts == ({} if plain else {"train_fwd": 4, "train_bwd_mlp": 4,
                                             "train_bwd_attn": 4})
         for k, e in new["ema_params"].items():
