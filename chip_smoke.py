@@ -10,17 +10,27 @@ toolkit:
    and triton versions;
 2. builds every kernel from ``easy_vitpose_tpu_torch/csrc`` (one nvcc per
    source, all at once);
-3. holds each kernel (K1 bf16 and fp32, K2, K3, K4) against its plain
-   PyTorch version on the card, at the main path's shapes and at a ragged
-   one, and each launch of the block at the main path's shapes; times
-   kernel, plain version and, for K1, ``nn.TransformerEncoderLayer`` holding
-   the same weights;
+3. holds each kernel (K1 bf16 and fp32, K2, K3, the full-map K4 and the
+   fused decode) against its plain PyTorch version on the card, at the
+   main path's shapes and at a ragged one, and each launch of the block at
+   the main path's shapes; K3's geometry equal to ``crop_geometry``'s and
+   its crops to the plain version's bits; the decode on 64x17 maps with no
+   peak (the wrap-around into the last map), border peaks, ties and masked
+   slots: scores bit for bit, coordinates within ``DECODE_TOL`` heatmap px,
+   its seven modulated points per map bit for bit the full-map K4's, bf16
+   heatmaps as their widening; times kernel, plain version and, for K1,
+   ``nn.TransformerEncoderLayer`` holding the same weights (K3, K4 and the
+   decode, shorter than their wrappers' host time, by ``device_ms``: calls
+   queued behind a sleep kernel, so the device time alone);
 4. runs the full-width ViT-B pose step (12 layers, D=768, 64 slots, a 1080p
    frame from ``--seed``, random weights from ``--seed``) at int8, bf16 and
    fp32 through the kernels: it checks the launch counts (K1/K2 12 per
-   step, K3 and K4 once), that every output is finite and masked slots are
-   zero, and the heatmaps against the plain pose step on the card, and
-   times it (host clock, median of five windows of ``--reps`` steps);
+   step, K3 and the decode once), that every output is finite and masked
+   slots are zero, the keypoints against the plain decode of the step's own
+   heatmaps, that a step on inputs already on the card runs under
+   PyTorch's synchronisation check set to raise, and the heatmaps against
+   the plain pose step on the card, and times it (host clock, median of
+   five windows of ``--reps`` steps, and the host's time to queue them);
 5. holds the training kernels (K5 forward, K6a MLP backward, K7 attention
    backward at bf16 and fp32) against their plain versions at the main
    shapes and a ragged batch, and times each beside its plain version and
@@ -72,7 +82,7 @@ toolkit:
    the plain step with the same settings and drop-path masks;
 12. prints the optimizer's times (``optimizer``), the norm kernel's row
    (``grad_norm``: it replaces no Pallas kernel), one JSON line per kernel
-   set (``kernels``, 17 rows), the card line, and last ``{"ok": true,
+   set (``kernels``, 18 rows), the card line, and last ``{"ok": true,
    "device": {...}}``.
 
 The A/B of each flavor against the default, interleaved in one process,
@@ -110,6 +120,10 @@ UPDATE_TOL = {"fp32": 1e-5, "bf16": 1.5e-2, "int8": 2e-2}
 LAUNCH_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 1e-2}
 # pose-step heatmaps against the plain pose step, relative to their range
 HEATMAP_TOL = {"fp32": 1e-5, "bf16": 2e-2, "int8": 2e-2}
+# the fused decode's coordinates against its plain version, in heatmap px:
+# the same operations in the same order, so 0 is expected; the kernel's logf
+# and the eager log may differ by an ulp, which the Newton step magnifies
+DECODE_TOL = 1e-3
 SLOTS, FRAME_HW = 64, (1080, 1920)
 # K5-K7 outputs and gradients against their plain versions, relative to the
 # largest |plain| of each tensor: float32 sums in another order (the weight
@@ -165,6 +179,41 @@ def time_ms(torch, fn, window_ms: float = 50.0, windows: int = 5) -> float:
 
     reps = max(1, math.ceil(window_ms / max(window(1), 1e-3)))
     return statistics.median(window(reps) for _ in range(windows))
+
+
+def device_ms(torch, fn, reps: int = 200, windows: int = 5) -> float:
+    """Device time of one call of ``fn`` without the host's cost of issuing
+    it: a sleep kernel holds the stream while the host queues ``reps`` calls,
+    which then run back to back between two CUDA events; the median of
+    ``windows``.  For kernels shorter than their wrapper's host time, which
+    ``time_ms`` would measure instead.  A window whose sleep ended before
+    the host had queued it is run again with a sleep four times as long."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    queue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    cycles = int(4e9 * queue_s) + 1000000   # > 2x the queueing at 2 GHz
+
+    def window():
+        nonlocal cycles
+        for _ in range(4):
+            torch.cuda._sleep(cycles)
+            start.record()
+            for _ in range(reps):
+                fn()
+            end.record()
+            held = not start.query()        # the sleep still holds the stream
+            end.synchronize()
+            if held:
+                return start.elapsed_time(end) / reps
+            cycles *= 4
+        raise RuntimeError("device_ms: the sleep kernel never outlasted the host's queueing")
+
+    return statistics.median(window() for _ in range(windows))
 
 
 def max_rel_err(torch, got, ref) -> tuple:
@@ -341,28 +390,33 @@ def check_kernels(torch, model, rng, dev):
                           "plain_ms": time_ms(torch, lambda: plain(x, blk)),
                           "bound": bound(nbytes, ops), "library_ms": library_ms}
 
-    # K3: crops of SLOTS boxes (and 5) from a 1080p frame, bf16 and f32
+    # K3: geometry and crops of SLOTS boxes (and 5) from a 1080p frame, bf16
+    # and f32: the geometry equals crop_geometry's, the crops the plain
+    # version's bits (which the earlier gather kernel also gave)
     H, W = FRAME_HW
     frame = torch.from_numpy(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).to(dev)
     for M in (SLOTS, 5):
         boxes = torch.from_numpy(make_boxes(rng, M, H, W)).to(dev)
-        geo = preprocess.crop_geometry(boxes, (H, W))
-        for tdt, tol in ((torch.float32, 1e-5), (torch.bfloat16, 1e-2)):
-            got = sampler.sample_normalize(frame, geo, dtype=tdt)
-            ref = sampler.sample_normalize_plain(frame, geo, dtype=tdt)
+        want_geo = preprocess.pack_geometry(preprocess.crop_geometry(boxes, (H, W)))
+        for tdt in (torch.float32, torch.bfloat16):
+            got, geo = sampler.crop_normalize(frame, boxes, dtype=tdt)
+            ref, _ = sampler.crop_normalize_plain(frame, boxes, dtype=tdt)
             err, rel = max_rel_err(torch, got, ref)
-            print(f"check sampler M={M} {tdt}: max_abs_err {err:.3e} rel {rel:.3e}")
-            check(rel <= tol, f"sampler disagrees with its plain version: {rel}")
+            print(f"check sampler M={M} {tdt}: max_abs_err {err:.3e} rel {rel:.3e}, "
+                  f"geometry equal {torch.equal(geo, want_geo)}")
+            check(torch.equal(geo, want_geo), "sampler geometry differs from crop_geometry")
+            check(torch.equal(got, ref), f"sampler crops are not the plain version's bits: {err}")
             if M == SLOTS and tdt == torch.bfloat16:
-                nbytes = footprint_bytes(geo, H, W) + got.numel() * 2 + M * 32
+                nbytes = (footprint_bytes(preprocess.geometry_views(geo), H, W)
+                          + got.numel() * 2 + M * (16 + 32))
+                run = lambda: sampler.crop_normalize(frame, boxes, dtype=tdt)  # noqa: E731
                 out["sampler"] = {
-                    "max_abs_err": err,
-                    "ms": time_ms(torch, lambda: sampler.sample_normalize(frame, geo, dtype=tdt)),
-                    "plain_ms": time_ms(torch, lambda: sampler.sample_normalize_plain(
-                        frame, geo, dtype=tdt)),
+                    "max_abs_err": err, "ms": device_ms(torch, run), "issued_ms": time_ms(torch, run),
+                    "plain_ms": time_ms(torch, lambda: sampler.crop_normalize_plain(
+                        frame, boxes, dtype=tdt)),
                     "bound": bound(nbytes, {"f32": 40.0 * got.numel()}), "library_ms": None}
 
-    # K4: UDP modulate of SLOTS * 17 maps (and 5 * 17)
+    # K4, full map: UDP modulate of SLOTS * 17 maps (and 5 * 17)
     for M in (SLOTS, 5):
         hm = torch.from_numpy((rng.standard_normal((M, 17, 64, 48)) * 0.3 + 0.2)
                               .astype(np.float32)).to(dev)
@@ -371,12 +425,93 @@ def check_kernels(torch, model, rng, dev):
         print(f"check modulate M={M}: max_abs_err {err:.3e} rel {rel:.3e}")
         check(err <= 1e-5, f"modulate disagrees with its plain version: {err}")
         if M == SLOTS:
+            run = lambda: modulate.udp_modulate(hm)  # noqa: E731
             out["modulate"] = {
-                "max_abs_err": err, "ms": time_ms(torch, lambda: modulate.udp_modulate(hm)),
+                "max_abs_err": err, "ms": device_ms(torch, run), "issued_ms": time_ms(torch, run),
                 "plain_ms": time_ms(torch, lambda: modulate.udp_modulate_plain(hm)),
                 "bound": bound(2.0 * hm.numel() * 4, {"f32": 46.0 * hm.numel()}),
                 "library_ms": None}
     return out
+
+
+def decode_maps(rng, M: int, K: int = 17, H: int = 64, W: int = 48) -> np.ndarray:
+    """Heatmaps with one Gaussian peak each (sigma 2, random height and
+    place, some just off the map) and a little noise, with the decode's edge
+    cases written in: no peak in slot 0 (maximum < 0 in map 0, whose Newton
+    step reads the last map, and 0 in maps 1-2); in the last slot, peaks on
+    each border and corner and two tied maxima in its last map."""
+    y, x = np.mgrid[0:H, 0:W].astype(np.float32)
+    cy, cx = rng.uniform(-1, H, (M, K, 1, 1)), rng.uniform(-1, W, (M, K, 1, 1))
+    hm = rng.uniform(0.2, 1.0, (M, K, 1, 1)) * np.exp(-((y - cy) ** 2 + (x - cx) ** 2) / 8.0)
+    hm = (hm + 0.01 * rng.standard_normal(hm.shape)).astype(np.float32)
+    hm[0, 0] = -np.abs(hm[0, 0]) - 0.05
+    hm[0, 1:3] = 0.0
+    peaks = [(0, W // 2), (H - 1, W // 3), (H // 2, 0), (H // 3, W - 1),
+             (0, 0), (H - 1, W - 1), (0, W - 1), (H - 1, 0)]
+    for k, (py, px) in enumerate(peaks[:K]):           # in the last slot
+        hm[-1, k, py, px] = hm[-1, k].max() + 0.5
+    tie = hm[-1, -1]
+    tie[H // 4, W // 4] = tie[3 * H // 4, 3 * W // 4] = tie.max() + 0.25
+    return hm
+
+
+def decode_gap(torch, got, ref, geo, H: int, W: int) -> float:
+    """Largest coordinate gap between two (M, K, 3) keypoint sets, in
+    heatmap pixels (frame pixels over the UDP scale of each slot)."""
+    scale = torch.stack([geo[:, 5] / (H - 1), geo[:, 4] / (W - 1)], -1)[:, None, :]
+    return float(((got[..., :2] - ref[..., :2]).abs() / scale).max())
+
+
+def check_decode(torch, rng, dev) -> dict:
+    """The fused decode on SLOTS * 17 maps (and 5 * 17) against its plain
+    version: scores bit for bit, coordinates within DECODE_TOL heatmap px;
+    its seven modulated points per map bit for bit the full-map K4's at the
+    same positions; bf16 heatmaps (the int8 and bf16 steps' head output)
+    decode as their float32 widening."""
+    from easy_vitpose_tpu_torch.ops import decode, modulate, sampler
+
+    H, W = FRAME_HW
+    frame = torch.zeros((H, W, 3), dtype=torch.uint8, device=dev)
+    res = {}
+    for M, kernel in ((SLOTS, 11), (SLOTS, 17), (5, 11)):
+        hm = torch.from_numpy(decode_maps(rng, M)).to(dev)
+        _, geo = sampler.crop_normalize(frame, torch.from_numpy(make_boxes(rng, M, H, W)).to(dev))
+        mask = torch.arange(M, device=dev) != M - 2    # map 0 reads the last slot's maps
+        got, pts = decode.decode_keypoints(hm, geo, mask, kernel, with_points=True)
+        ref = decode.decode_keypoints_plain(hm, geo, mask, kernel)
+        gap = decode_gap(torch, got, ref, geo, *hm.shape[-2:])
+        coords, _ = decode.get_max_preds(hm)
+        full = modulate.udp_modulate(hm, kernel).reshape(-1)
+        want = full[decode.newton_point_index(coords, *hm.shape[-2:])]
+        pts_equal = torch.equal(pts[mask], want[mask])
+        hb = hm.bfloat16()
+        bf16_equal = torch.equal(decode.decode_keypoints(hb, geo, mask, kernel),
+                                 decode.decode_keypoints(hb.float(), geo, mask, kernel))
+        print(f"check decode M={M} kernel {kernel}: scores equal "
+              f"{torch.equal(got[..., 2], ref[..., 2])}, coordinate gap {gap:.3e} heatmap px, "
+              f"points equal K4 {pts_equal}, bf16 equal {bf16_equal}")
+        check(bool(torch.isfinite(got).all()) and bool((got[~mask] == 0).all()),
+              "decode keypoints not finite or masked slots not zero")
+        check(torch.equal(got[..., 2], ref[..., 2]), "decode scores are not the plain bits")
+        check(gap <= DECODE_TOL, f"decode coordinates disagree: {gap} heatmap px")
+        check(pts_equal, "decode's modulated points are not the full-map K4's bits")
+        check(bf16_equal, "bf16 heatmaps do not decode as their widening")
+        if M == SLOTS and kernel == 11:
+            res = {"max_abs_err": float((got - ref).abs().max()), "coordinate_gap_px": gap}
+            for name, x in (("f32", hm), ("bf16", hb)):
+                n_read = int(mask.sum()) * 17 * 64 * 48 * x.element_size()
+                run = lambda: decode.decode_keypoints(x, geo, mask)  # noqa: E731
+                res[f"ms_{name}"] = device_ms(torch, run)
+                res[f"issued_ms_{name}"] = time_ms(torch, run)
+                res[f"plain_ms_{name}"] = time_ms(
+                    torch, lambda: decode.decode_keypoints_plain(x, geo, mask))
+                res[f"bound_{name}"] = bound(n_read + M * (32 + 1) + got.numel() * 4,
+                                             {"f32": 1700.0 * int(mask.sum()) * 17})
+            # the int8 and bf16 steps hand it bf16 heatmaps: that is the row
+            res.update(ms=res["ms_bf16"], issued_ms=res["issued_ms_bf16"],
+                       plain_ms=res["plain_ms_bf16"], bound=res["bound_bf16"], library_ms=None)
+            print("decode:", json.dumps(res))
+    return res
 
 
 def train_block_work(B, N, D, hidden):
@@ -1117,7 +1252,8 @@ def run_pose_steps(torch, model, rng, reps, dev):
     """The main path at each serving dtype; returns launches and times."""
     from easy_vitpose_tpu_torch import kernels
     from easy_vitpose_tpu_torch.models.vitpose import serving_copy
-    from easy_vitpose_tpu_torch.pipeline.pose_step import pose_heatmaps, pose_step
+    from easy_vitpose_tpu_torch.ops import decode
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
 
     H, W = FRAME_HW
     depth = model.cfg.backbone.depth
@@ -1128,25 +1264,52 @@ def run_pose_steps(torch, model, rng, reps, dev):
     frame, boxes, mask = (torch.from_numpy(a).to(dev) for a in (frame_np, boxes_np, mask_np))
     block_kernel = {"int8": "block_q8", "bf16": "block", "fp32": "block"}
     results = {}
+    real_decode = ps.decode_keypoints
     for dtype in ("int8", "bf16", "fp32"):
         sm = serving_copy(model, dtype)
-        pose_step(sm, frame, boxes, mask)                 # warm-up
+        ps.pose_step(sm, frame, boxes, mask)              # warm-up
         torch.cuda.synchronize()
-        kernels.reset_launch_counts()
-        kp = pose_step(sm, frame_np, boxes_np, mask_np)   # as a caller would: numpy in
-        torch.cuda.synchronize()
-        counts = kernels.launch_counts()
+        seen = {}
+
+        def spy(heat, geo, mask_, *a, **k):               # the step's own decode inputs
+            seen.update(heat=heat, geo=geo, mask=mask_)
+            return real_decode(heat, geo, mask_, *a, **k)
+
+        ps.decode_keypoints = spy
+        try:
+            kernels.reset_launch_counts()
+            kp = ps.pose_step(sm, frame_np, boxes_np, mask_np)   # as a caller would: numpy in
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        finally:
+            ps.decode_keypoints = real_decode
         print(f"pose step {dtype}: launches {counts}")
-        want = {block_kernel[dtype]: depth, "sampler": 1, "modulate": 1}
+        want = {block_kernel[dtype]: depth, "sampler": 1, "decode": 1}
         check(counts == want, f"{dtype} pose step launched {counts}, expected {want}")
         check(kp.is_cuda and tuple(kp.shape) == (SLOTS, 17, 3),
               f"keypoints {kp.device} {tuple(kp.shape)}")
         check(bool(torch.isfinite(kp).all()), f"{dtype} keypoints are not finite")
         check(bool((kp[~mask] == 0).all()), f"{dtype} masked slots are not zero")
+        ref = decode.decode_keypoints_plain(seen["heat"], seen["geo"], seen["mask"])
+        gap = decode_gap(torch, kp, ref, seen["geo"], *seen["heat"].shape[-2:])
+        print(f"pose step {dtype}: heatmaps {seen['heat'].dtype}, keypoints vs the plain "
+              f"decode of its heatmaps: scores equal {torch.equal(kp[..., 2], ref[..., 2])}, "
+              f"coordinate gap {gap:.3e} heatmap px")
+        check(torch.equal(kp[..., 2], ref[..., 2]) and gap <= DECODE_TOL,
+              f"{dtype} keypoints disagree with the plain decode of the step's heatmaps")
+
+        # with its inputs on the card the step makes the host wait for nothing
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            ps.pose_step(sm, frame, boxes, mask)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        print(f"pose step {dtype}: no host synchronisation")
 
         with torch.no_grad():
-            hk, _ = pose_heatmaps(sm, frame, boxes)
-            hp, _ = pose_heatmaps(sm, frame, boxes, plain=True)
+            hk, _ = ps.pose_heatmaps(sm, frame, boxes)
+            hp, _ = ps.pose_heatmaps(sm, frame, boxes, plain=True)
         err = float((hk - hp).abs().max())
         rng_ = float(hp.max() - hp.min())
         print(f"pose step {dtype}: heatmaps vs plain max_abs_err {err:.3e} (range {rng_:.3f})")
@@ -1160,15 +1323,20 @@ def run_pose_steps(torch, model, rng, reps, dev):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(r):
-                pose_step(sm, frame, boxes, mask)
+                ps.pose_step(sm, frame, boxes, mask)
+            t1 = time.perf_counter()
             torch.cuda.synchronize()
-            return (time.perf_counter() - t0) * 1e3 / r
+            t2 = time.perf_counter()
+            return (t2 - t0) * 1e3 / r, (t1 - t0) * 1e3 / r
 
-        ms = statistics.median(window() for _ in range(5))
-        results[dtype] = {"launches": counts, "ms_per_step": ms,
+        wins = [window() for _ in range(5)]
+        ms = statistics.median(w[0] for w in wins)
+        host_ms = statistics.median(w[1] for w in wins)
+        results[dtype] = {"launches": counts, "ms_per_step": ms, "host_ms_per_step": host_ms,
                           "crops_per_s": SLOTS / ms * 1e3, "heatmap_max_abs_err": err,
-                          "heatmap_range": rng_}
-        print(f"pose step {dtype}: {ms:.3f} ms/step, {SLOTS / ms * 1e3:.1f} crops/s")
+                          "heatmap_range": rng_, "decode_gap_px": gap}
+        print(f"pose step {dtype}: {ms:.3f} ms/step, {SLOTS / ms * 1e3:.1f} crops/s, "
+              f"host {host_ms:.3f} ms/step to queue")
     return results
 
 
@@ -1202,6 +1370,7 @@ def main() -> int:
     model = init_params(cfg, args.seed).to(dev)
     with torch.no_grad():
         meas = check_kernels(torch, model, rng, dev)
+        meas["decode"] = check_decode(torch, np.random.default_rng(args.seed + 2), dev)
         steps = run_pose_steps(torch, model, rng, args.reps, dev)
     meas.update(check_train_kernels(torch, model, rng, dev))
     gemms = {"vit_b": check_train_gemms(torch, model, rng, dev)}
@@ -1234,8 +1403,11 @@ def main() -> int:
     spec = (("K1 fused_block bf16", "bf16", "block.cu", "models/fused_block.py:51", "bf16", "block"),
             ("K1 fused_block fp32", "fp32", "block.cu", "models/fused_block.py:51", "fp32", "block"),
             ("K2 fused_block_q8 int8", "int8", "block_q8.cu", "models/quant.py:171", "int8", "block_q8"),
-            ("K3 sample_normalize", "sampler", "sampler.cu", "ops/pallas_sampler.py:46", "int8", "sampler"),
-            ("K4 udp_modulate", "modulate", "modulate.cu", "ops/pallas_kernels.py:23", "int8", "modulate"))
+            ("K3 crop_normalize", "sampler", "sampler.cu", "ops/pallas_sampler.py:46", "int8", "sampler"),
+            ("K4 udp_modulate full map", "modulate", "modulate.cu", "ops/pallas_kernels.py:23", "int8",
+             "modulate"),
+            ("K4 decode_keypoints fused UDP decode", "decode", "decode.cu",
+             "ops/pallas_kernels.py:23", "int8", "decode"))
     for name, key, src, replaces, run, counter in spec:
         m = meas[key]
         rows.append({"name": name, "route": "cuda",
@@ -1276,6 +1448,8 @@ def main() -> int:
                      "library_ms": m["library_ms"]})
     print("train_step:", json.dumps({k: v for k, v in train.items() if k != "launches"}))
     print("train_step_l_int8:", json.dumps({k: v for k, v in train_l.items() if k != "launches"}))
+    print("crop_and_decode:", json.dumps({k: {f: meas[k][f] for f in (
+        "ms", "issued_ms", "plain_ms", "bound")} for k in ("sampler", "modulate", "decode")}))
     print("optimizer:", json.dumps({k: {f: meas[k][f] for f in (
         "ms", "table_ms", "norm_ms", "plain_ms", "library_ms", "host_ms", "bound", "table_bound",
         "norm_bound", "norm_plain_ms", "norm_library_ms")} for k in ("K8", "K9")}))

@@ -6,16 +6,11 @@
 // horizontal and then the vertical pass run there with reflect-101 borders
 // indexed in the kernel (no padded copy), and the clipped log is written
 // once.  Taps are summed in order from 0 with round-to-nearest intrinsics,
-// as ops/decode.py::gaussian_blur_2d sums them.
+// as ops/decode.py::gaussian_blur_2d sums them.  The pose step does not
+// launch it: its decode (decode.cu) evaluates the same sums at the seven
+// points the Newton step reads.
 #include "common.cuh"
-
-#define EVT_MAX_TAPS 32
-struct evt_taps { float v[EVT_MAX_TAPS]; };
-
-// reflect-101: -1 -> 1, n -> n - 2
-__device__ __forceinline__ int reflect101(int i, int n) {
-    return i < 0 ? -i : (i >= n ? 2 * (n - 1) - i : i);
-}
+#include "blur.cuh"
 
 __global__ void __launch_bounds__(256)
 modulate_kernel(const float* __restrict__ maps, evt_taps taps, float* __restrict__ out,
@@ -41,17 +36,21 @@ modulate_kernel(const float* __restrict__ maps, evt_taps taps, float* __restrict
         float acc = 0.f;
         for (int k = 0; k <= 2 * r; ++k)
             acc = __fadd_rn(acc, __fmul_rn(hz[reflect101(y + k - r, H) * W + x], taps.v[k]));
-        o[i] = logf(fminf(fmaxf(acc, 0.001f), 50.0f));
+        o[i] = clip_log(acc);
     }
+}
+
+// Allow up to smem_bytes of dynamic shared memory; once per device, before
+// the first launch there.
+EVT_EXPORT int evt_udp_modulate_setup(int smem_bytes, void* stream) {
+    (void)stream;
+    return static_cast<int>(cudaFuncSetAttribute(
+        modulate_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes));
 }
 
 EVT_EXPORT int evt_udp_modulate(const void* maps, evt_taps taps, void* out, int n_maps, int H,
                                 int W, int r, void* stream) {
     const size_t smem = 2 * sizeof(float) * (size_t)H * W;
-    cudaError_t err = cudaFuncSetAttribute(modulate_kernel,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
     modulate_kernel<<<n_maps, 256, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(maps), taps, static_cast<float*>(out), H, W, r);
     return static_cast<int>(cudaGetLastError());

@@ -43,7 +43,7 @@ MAX_TAPS = 32
 
 
 class Taps(ctypes.Structure):
-    """Filter taps passed by value (``struct evt_taps`` in csrc/modulate.cu)."""
+    """Filter taps passed by value (``struct evt_taps`` in csrc/blur.cuh)."""
     _fields_ = [("v", ctypes.c_float * MAX_TAPS)]
 
 
@@ -65,13 +65,21 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "evt_gemm_q8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "sampler": {
-        # frame, geo, out, M, H, W, OH, OW, mean[3], std[3], out_bf16, stream
-        "evt_sample_crops": [_P, _P, _P, _I, _I, _I, _I, _I,
-                             _F, _F, _F, _F, _F, _F, _I, _P],
+        # frame, boxes, geo (out), crops (out), M, H, W, OH, OW, mean[3], std[3],
+        # out_bf16, stream
+        "evt_crop_sample": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _F, _F, _F, _F, _F, _F, _I, _P],
     },
     "modulate": {
         # maps, taps, out, n_maps, H, W, radius, stream
         "evt_udp_modulate": [_P, Taps, _P, _I, _I, _I, _I, _P],
+        # max dynamic shared memory in bytes, stream
+        "evt_udp_modulate_setup": [_I, _P],
+    },
+    "decode": {
+        # heat, heat_bf16, geo, mask, taps, out, points (or null), M, K, H, W,
+        # radius, stream
+        "evt_decode_keypoints": [_P, _I, _P, _P, Taps, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "train_block": {
         # a, b, M, N, K, lda, ldb, b_kmaj, bf16, mode, bias, res, dp, tokens,

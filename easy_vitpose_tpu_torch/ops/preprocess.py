@@ -13,6 +13,7 @@ are clamped to the frame.  The TPU's matmul formulations are not ported.
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Tuple
 
 import torch
@@ -115,11 +116,14 @@ def sample_crops(frame: torch.Tensor, geo: Geometry,
     return r0 * wy0[:, :, None, None] + r1 * wy1[:, :, None, None]
 
 
+@functools.lru_cache(maxsize=None)
 def imagenet_mean_std(device=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """ImageNet mean and std on the [0, 255] scale, float32."""
-    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32, device=device) * 255.0
-    std = torch.tensor(IMAGENET_STD, dtype=torch.float32, device=device) * 255.0
-    return mean, std
+    """ImageNet mean and std on the [0, 255] scale, float32, made once per
+    device (a CUDA tensor built from Python numbers makes the host wait for
+    the card).  Callers must not write to them."""
+    mean = torch.tensor(IMAGENET_MEAN, dtype=torch.float32) * 255.0
+    std = torch.tensor(IMAGENET_STD, dtype=torch.float32) * 255.0
+    return mean.to(device), std.to(device)
 
 
 def normalize_crops(crops: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
@@ -129,5 +133,12 @@ def normalize_crops(crops: torch.Tensor, dtype=torch.float32) -> torch.Tensor:
 
 
 def pack_geometry(geo: Geometry) -> torch.Tensor:
-    """(M, 8) int32 rows [x1, y1, wc, hc, wp, hp, left, top] for the kernel."""
+    """(M, 8) int32 rows [x1, y1, wc, hc, wp, hp, left, top], as the crop
+    kernel writes them and the decode kernel reads them."""
     return torch.stack([geo[k] for k in GEO_KEYS], dim=-1).to(torch.int32).contiguous()
+
+
+def geometry_views(packed: torch.Tensor) -> Geometry:
+    """The :func:`crop_geometry` dict of a packed (M, 8) geometry: views of
+    its columns, no launches."""
+    return {k: packed[:, i] for i, k in enumerate(GEO_KEYS)}

@@ -1,18 +1,25 @@
-"""K3: the crop sampler with the ImageNet normalize fused in.
+"""K3: crop geometry, the crop sampler and the ImageNet normalize, fused.
 
 Replaces ``easy_vitpose_tpu/ops/pallas_sampler.py::_sampler_kernel``
 (``pl.pallas_call`` in ``sample_crops_pallas``), the TPU's window-streamed
 crop sampler that interpolates with one-hot matmuls on the MXU.
 
-On Hopper the natural form is the direct gather (``csrc/sampler.cu``): one
-thread per output pixel computes its two x and two y taps from the integer
-crop geometry exactly as :func:`..ops.preprocess.sample_crops` does, lerps
-the four uint8 taps in the working dtype, normalizes and writes the
-backbone's NHWC input in that dtype.  What bounds it on the H100 is bytes: the frame
-is read once through L2 (6.2 MB at 1080p) and the crops are written once
-(18.9 MB in bf16 at 64 slots), about 8 us at 3.35 TB/s; it does ~40 flops
-per output value.  Neighbouring threads take neighbouring output pixels, so
-the writes coalesce and the taps of a warp fall on a few frame rows.
+On Hopper the natural form is the direct gather (``csrc/sampler.cu``), and
+one launch takes the pose step from boxes to the backbone's input: a block
+takes one box and a band of 16 output rows, computes the box's geometry
+exactly as :func:`..ops.preprocess.crop_geometry` does, the taps of every
+output column once and of each of its rows once, exactly as
+:func:`..ops.preprocess.sample_crops` computes them.  A thread takes 8
+whole output pixels (4 in float32): each pixel's four frame reads (its
+three channels from the aligned 32-bit words that hold them) and taps
+serve all three channels, the lerps run in the working dtype (in bf16 as
+packed bf16x2 arithmetic with the same roundings), and the 24 values go
+out in three 16-byte stores.  The first band of each box also writes its
+packed geometry, which the decode reads.  What bounds it on the H100 is
+bytes: the frame under the boxes read once through L2 (at most 6.2 MB at
+1080p) and the crops written once (18.9 MB in bf16 at 64 slots), about 7
+us at 3.35 TB/s; it does ~40 flops per output value, and those, with the
+normalize's IEEE division, keep it several times above that bound.
 
 Numerics: the working dtype is the sampling dtype, as on JAX's main path
 (``pipeline/pose_step.py``, ``sample_dtype=compute_dtype``).  In bfloat16
@@ -23,53 +30,78 @@ float32 nothing rounds before the normalize.
 """
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import torch
 
 from .. import kernels
 from ..configs import IMAGE_SIZE
-from .preprocess import (Geometry, imagenet_mean_std, normalize_crops,
+from .preprocess import (Geometry, crop_geometry, imagenet_mean_std, normalize_crops,
                          pack_geometry, sample_crops)
 
 KERNEL = "sampler"
+MAX_OUT_W = 2048        # the column taps stay within 48 KB of shared memory
 
 
 def sample_normalize_plain(frame: torch.Tensor, geo: Geometry,
                            out_wh: Tuple[int, int] = IMAGE_SIZE,
                            dtype=torch.float32) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: (M, OH, OW, 3) normalized crops,
-    sampled in ``dtype``."""
+    """(M, OH, OW, 3) normalized crops of a :func:`crop_geometry`, sampled
+    in ``dtype``: the plain version of the kernel's crops."""
     return normalize_crops(sample_crops(frame, geo, out_wh, sample_dtype=dtype), dtype)
 
 
-def sample_normalize(frame: torch.Tensor, geo: Geometry,
-                     out_wh: Tuple[int, int] = IMAGE_SIZE,
-                     dtype=torch.float32) -> torch.Tensor:
-    """Crops of every box, normalized, in ``dtype`` (float32 or bfloat16).
+def crop_normalize_plain(frame: torch.Tensor, boxes: torch.Tensor,
+                         out_wh: Tuple[int, int] = IMAGE_SIZE,
+                         dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain PyTorch version of the kernel: ((M, OH, OW, 3) normalized
+    crops, (M, 8) int32 packed geometry)."""
+    geo = crop_geometry(boxes, tuple(frame.shape[:2]))
+    return sample_normalize_plain(frame, geo, out_wh, dtype), pack_geometry(geo)
 
+
+@functools.lru_cache(maxsize=None)
+def _mean_std() -> Tuple[float, ...]:
+    mean, std = imagenet_mean_std()
+    return (*mean.tolist(), *std.tolist())
+
+
+def crop_normalize(frame: torch.Tensor, boxes: torch.Tensor,
+                   out_wh: Tuple[int, int] = IMAGE_SIZE,
+                   dtype=torch.float32) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Crops of every box, normalized, in ``dtype`` (float32 or bfloat16),
+    and their packed geometry (rows [x1, y1, wc, hc, wp, hp, left, top];
+    :func:`..ops.preprocess.geometry_views` names its columns).
+
+    Args:
+      frame: (H, W, 3) uint8 RGB frame.
+      boxes: (M, 4) float32 [x1, y1, x2, y2] boxes, before inflation.
     A frame on the CPU takes the plain version; a CUDA frame launches the
-    kernel.
+    kernel once.
     """
     if frame.device.type == "cpu":
-        return sample_normalize_plain(frame, geo, out_wh, dtype)
-    dev = kernels.require_cuda(frame, geo["x1"])
-    if frame.dtype != torch.uint8 or frame.dim() != 3 or frame.shape[2] != 3:
+        return crop_normalize_plain(frame, boxes, out_wh, dtype)
+    dev = kernels.require_cuda(frame, boxes)
+    if (frame.dtype != torch.uint8 or frame.dim() != 3 or frame.shape[2] != 3
+            or frame.numel() == 0):
         raise ValueError(f"frame must be (H, W, 3) uint8, got {tuple(frame.shape)} {frame.dtype}")
+    if boxes.dtype != torch.float32 or boxes.dim() != 2 or boxes.shape[1] != 4:
+        raise ValueError(f"boxes must be (M, 4) float32, got {tuple(boxes.shape)} {boxes.dtype}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
-    frame = frame.contiguous()
-    H, W = frame.shape[:2]
     OW, OH = out_wh
-    g = pack_geometry(geo)
-    M = g.shape[0]
+    if not 0 < OW <= MAX_OUT_W or OH <= 0:
+        raise ValueError(f"output size {out_wh} is not supported")
+    frame, boxes = frame.contiguous(), boxes.contiguous()
+    H, W = frame.shape[:2]
+    M = boxes.shape[0]
     out = torch.empty((M, OH, OW, 3), dtype=dtype, device=dev)
+    geo = torch.empty((M, 8), dtype=torch.int32, device=dev)
     if M == 0:
-        return out
-    mean, std = imagenet_mean_std()
-    kernels.call(KERNEL, "evt_sample_crops", dev,
-                 frame.data_ptr(), g.data_ptr(), out.data_ptr(),
-                 M, H, W, OH, OW, *mean.tolist(), *std.tolist(),
+        return out, geo
+    kernels.call(KERNEL, "evt_crop_sample", dev, frame.data_ptr(), boxes.data_ptr(),
+                 geo.data_ptr(), out.data_ptr(), M, H, W, OH, OW, *_mean_std(),
                  int(dtype == torch.bfloat16))
     kernels.count_launch(KERNEL)
-    return out
+    return out, geo

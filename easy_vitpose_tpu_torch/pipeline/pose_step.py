@@ -4,13 +4,14 @@ Port of ``easy_vitpose_tpu/pipeline/pose_step.py``.  For one uint8 frame and
 a fixed batch of M person slots:
 
   frame (H, W, 3) uint8 + boxes (M, 4) + mask (M,)
-    -> crop_geometry, then the crop kernel with the normalize fused (K3)
+    -> crop geometry, crop, pad, resize and normalize: one launch (K3)
     -> ViTPose forward: blocks through K1 (fp32/bf16) or K2 (int8)
-    -> UDP decode, whose blur + clip + log is K4
-    -> un-crop to frame coordinates
+    -> UDP decode, un-crop to frame coordinates and the mask: one launch
     -> (M, K, 3) keypoints as (y, x, score); masked slots are all-zero.
 
-The model's dtype is the serving choice (``models.vitpose.serving_copy``).
+On the card the step makes the host wait for nothing: with its inputs
+already there, the host can queue the next step while the card runs this
+one.  The model's dtype is the serving choice (``models.vitpose.serving_copy``).
 The step runs on CUDA unless the caller asks for the CPU: pass
 ``device="cpu"`` or CPU tensors, and the kernels' plain versions run.
 """
@@ -25,9 +26,9 @@ from ..configs import IMAGE_SIZE
 from ..kernels import resolve_device
 from ..models.vitpose import ViTPose, compute_dtype, vitpose_forward
 from ..ops.affine import flip_back_heatmaps
-from ..ops.decode import keypoints_from_heatmaps_udp
-from ..ops.preprocess import Geometry, crop_geometry
-from ..ops.sampler import sample_normalize, sample_normalize_plain
+from ..ops.decode import decode_keypoints
+from ..ops.preprocess import Geometry, geometry_views
+from ..ops.sampler import crop_normalize, crop_normalize_plain
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -37,21 +38,28 @@ def _to(x: ArrayLike, device: torch.device, dtype=None) -> torch.Tensor:
     return t.to(device=device, dtype=dtype or t.dtype)
 
 
+def _heatmaps(model: ViTPose, frame: torch.Tensor, boxes: torch.Tensor,
+              flip_pairs, plain: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(heatmaps in the head's dtype, or float32 with the flip test;
+    packed (M, 8) crop geometry)."""
+    crop = crop_normalize_plain if plain else crop_normalize
+    x, geo = crop(frame, boxes, IMAGE_SIZE, compute_dtype(model))
+    heat = vitpose_forward(model, x, plain=plain)
+    if flip_pairs is not None:
+        # flip test: forward the mirrored crop, un-flip, average
+        flipped = vitpose_forward(model, x.flip(2), plain=plain).float()
+        heat = 0.5 * (heat.float() + flip_back_heatmaps(flipped, flip_pairs))
+    return heat, geo
+
+
 def pose_heatmaps(model: ViTPose, frame: torch.Tensor, boxes: torch.Tensor, *,
                   flip_pairs: Optional[Sequence[Sequence[int]]] = None,
                   plain: bool = False) -> Tuple[torch.Tensor, Geometry]:
     """Crop, sample and forward every box: ((M, K, 64, 48) float32 heatmaps,
     crop geometry).  Tensors must already be on the model's device.
     ``plain=True`` runs the kernels' plain versions on any device."""
-    geo = crop_geometry(boxes, tuple(frame.shape[:2]))
-    sample = sample_normalize_plain if plain else sample_normalize
-    x = sample(frame, geo, IMAGE_SIZE, compute_dtype(model))
-    heat = vitpose_forward(model, x, plain=plain).float()
-    if flip_pairs is not None:
-        # flip test: forward the mirrored crop, un-flip, average
-        flipped = vitpose_forward(model, x.flip(2), plain=plain).float()
-        heat = 0.5 * (heat + flip_back_heatmaps(flipped, flip_pairs))
-    return heat, geo
+    heat, geo = _heatmaps(model, frame, boxes, flip_pairs, plain)
+    return heat.float(), geometry_views(geo)
 
 
 @torch.no_grad()
@@ -77,15 +85,9 @@ def pose_step(model: ViTPose, frame: ArrayLike, boxes: ArrayLike, mask: ArrayLik
     frame = _to(frame, device)
     boxes = _to(boxes, device, torch.float32)
     mask = _to(mask, device, torch.bool)
-    heat, geo = pose_heatmaps(model, frame, boxes, flip_pairs=flip_pairs)
+    heat, geo = _heatmaps(model, frame, boxes, flip_pairs, plain=False)
     # decode with the padded crop's center (w//2, h//2) and size (w, h)
-    center = torch.stack([geo["wp"] // 2, geo["hp"] // 2], dim=-1).float()
-    scale = torch.stack([geo["wp"], geo["hp"]], dim=-1).float()
-    preds, maxvals = keypoints_from_heatmaps_udp(heat, center, scale)
-    off_x = (geo["x1"] - geo["left"]).float()[:, None]
-    off_y = (geo["y1"] - geo["top"]).float()[:, None]
-    kpts = torch.stack([preds[..., 1] + off_y, preds[..., 0] + off_x, maxvals[..., 0]], dim=-1)
-    return torch.where(mask[:, None, None], kpts, torch.zeros_like(kpts))
+    return decode_keypoints(heat, geo, mask)
 
 
 def bucket_slots(n: int, min_slots: int = 1, max_slots: int = 64) -> int:

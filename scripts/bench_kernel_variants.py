@@ -43,8 +43,24 @@ threads per SM) uncapped and capped for 6 (the same bits).  It tells
 whether bytes or the throughput of the division, log and square root
 instructions bound the body (``ncu`` does not run on the card's machine).
 
+With ``--crop-decode`` it times instead variants of the crop kernel (K3,
+``csrc/sampler.cu``) on the 1080p frame and 64 boxes of ``chip_smoke.py``
+at bf16, and of the fused decode (``csrc/decode.cu``) on 64 x 17 bf16
+maps, each variant built into a library of its own (device time,
+``chip_smoke.device_ms``; beside it ``chip_smoke.time_ms``, which includes
+the host's cost of issuing a launch).  K3: the shipped kernel; the bf16
+lerps in float32 with a rounding after each operation (``lerp<bf16>``)
+instead of packed bf16 arithmetic; byte loads
+in place of the aligned 32-bit frame reads; no frame loads (each tap a
+function of its offset); the normalize's IEEE division as a multiply
+(changes the bits); the taps and the stores only; bands of 8 and 32
+output rows; 64 and 256 threads a block.  The decode: the shipped kernel;
+the taps read from the by-value parameter (a local-memory copy) instead of
+shared memory; 64 and 256 threads; the argmax alone.  The variants that
+keep the arithmetic are checked for the shipped bits.
+
 Usage (a machine with the CUDA toolkit and a card):
-    python3 scripts/bench_kernel_variants.py [--out FILE] [--train-gemm | --adam-q8]
+    python3 scripts/bench_kernel_variants.py [--out FILE] [--train-gemm | --adam-q8 | --crop-decode]
 """
 import argparse
 import json
@@ -125,6 +141,35 @@ ADAM_Q8 = {
     "6_blocks_per_sm": [("__launch_bounds__(THREADS, 8)\nadam_q8_table_kernel",
                          "__launch_bounds__(THREADS, 6)\nadam_q8_table_kernel")],
 }
+
+_NORMALIZE = "v[3 * e + c] = __fdiv_rn(__fsub_rn(val[c], mv[c]), sv[c]);"
+SAMPLER = {
+    "shipped": [],
+    "float_lerps": [("if constexpr (std::is_same_v<TO, bf16>) {", "if constexpr (false) {")],
+    "byte_loads": [("if (reinterpret_cast<uintptr_t>(frame) % 4 == 0)", "if (false)")],
+    "no_frame_loads": [("return __funnelshift_r(w[0], sh > 1 ? w[1] : 0u, sh * 8);",
+                        "return static_cast<unsigned>(off * 2654435761u) + sh + (w == nullptr);")],
+    "normalize_by_multiply": [(_NORMALIZE,
+                               "v[3 * e + c] = __fmul_rn(__fsub_rn(val[c], mv[c]), sv[c]);")],
+    "taps_and_stores_only": [(_NORMALIZE, "v[3 * e + c] = static_cast<float>(q + c);")],
+    "band_8": [("constexpr int BAND = 16;", "constexpr int BAND = 8;")],
+    "band_32": [("constexpr int BAND = 16;", "constexpr int BAND = 32;")],
+    "threads_256": [("constexpr int THREADS = 128;", "constexpr int THREADS = 256;")],
+    "threads_64": [("constexpr int THREADS = 128;", "constexpr int THREADS = 64;")],
+}
+SAMPLER_SAME_BITS = ("float_lerps", "byte_loads", "band_8", "band_32", "threads_256",
+                     "threads_64")
+DECODE = {
+    "shipped": [],
+    "taps_by_value": [("__fmul_rn(to_f(row[reflect101(x + k - r, W)]), s_taps[k])",
+                       "__fmul_rn(to_f(row[reflect101(x + k - r, W)]), taps.v[k])")],
+    "threads_64": [("constexpr int THREADS = 128;", "constexpr int THREADS = 64;")],
+    "threads_256": [("constexpr int THREADS = 128;", "constexpr int THREADS = 256;")],
+    "argmax_only": [("    if (t != 0) return;\n\n    // 3.", "    if (t != 0 || bi >= 0) return;\n\n    // 3."),
+                    ("    for (int job = t; job < POINTS * taps_n; job += THREADS) {",
+                     "    for (int job = t; job < 0; job += THREADS) {")],
+}
+DECODE_SAME_BITS = ("taps_by_value", "threads_64", "threads_256")
 
 HARNESS = r"""
 #include <cstdio>
@@ -363,9 +408,99 @@ def train_gemm_variants(card: str) -> dict:
     return out
 
 
+def build_variants(lib_name: str, variants: dict) -> tuple:
+    """Each variant of ``csrc/<lib_name>.cu`` (a list of textual
+    substitutions) built into a library of its own, one ``nvcc`` each, all
+    at once: ({name: ctypes library}, the temporary directory)."""
+    import ctypes
+    import shutil
+
+    nvcc = kernels.nvcc_path()
+    tmp = tempfile.mkdtemp()
+    procs = {}
+    for name, subs in variants.items():
+        d = os.path.join(tmp, name)
+        shutil.copytree(kernels.CSRC, d)
+        path = os.path.join(d, f"{lib_name}.cu")
+        src = open(path).read()
+        for old, new in subs:
+            if old not in src:
+                raise RuntimeError(f"{lib_name} variant {name}: {old[:40]!r}... not in the source")
+            src = src.replace(old, new)
+        with open(path, "w") as f:
+            f.write(src)
+        so = os.path.join(d, f"lib{lib_name}.so")
+        procs[name] = (so, subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-I", d, "-o", so, path]))
+    libs = {}
+    for name, (so, proc) in procs.items():
+        if proc.wait():
+            raise RuntimeError(f"{lib_name} variant {name} did not build")
+        lib = ctypes.CDLL(so)
+        for fn, argtypes in kernels.SIGNATURES[lib_name].items():
+            getattr(lib, fn).argtypes = argtypes
+        libs[name] = lib
+    return libs, tmp
+
+
+def crop_decode_variants(card: str) -> dict:
+    """ms of one launch of each SAMPLER variant on the smoke's 1080p frame
+    and 64 boxes at bf16, and of each DECODE variant on 64 x 17 bf16 maps
+    (``chip_smoke.decode_maps``); whether the variants that keep the
+    arithmetic give the shipped bits."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from easy_vitpose_tpu_torch.ops import modulate, sampler
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    H, W = cs.FRAME_HW
+    M = cs.SLOTS
+    frame = torch.from_numpy(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).to(dev)
+    boxes = torch.from_numpy(cs.make_boxes(rng, M, H, W)).to(dev)
+    mean_std = sampler._mean_std()
+    heat = torch.from_numpy(cs.decode_maps(rng, M)).to(dev).bfloat16()
+    _, geo = sampler.crop_normalize(frame, boxes)
+    mask = torch.arange(M, device=dev) < M - 4
+    taps = modulate.taps_struct(11)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    out = {"card": card}
+    for lib_name, variants, same_bits in (("sampler", SAMPLER, SAMPLER_SAME_BITS),
+                                          ("decode", DECODE, DECODE_SAME_BITS)):
+        libs, tmp = build_variants(lib_name, variants)
+        res = {"ms": {}, "issued_ms": {}, "same_bits": {}}
+        results = {}
+        for name, lib in libs.items():
+            if lib_name == "sampler":
+                y = torch.empty((M, 256, 192, 3), dtype=torch.bfloat16, device=dev)
+                g = torch.empty((M, 8), dtype=torch.int32, device=dev)
+                fn = lambda: lib.evt_crop_sample(  # noqa: E731
+                    frame.data_ptr(), boxes.data_ptr(), g.data_ptr(), y.data_ptr(), M, H, W,
+                    256, 192, *mean_std, 1, stream())
+            else:
+                y = torch.empty((M, 17, 3), dtype=torch.float32, device=dev)
+                fn = lambda: lib.evt_decode_keypoints(  # noqa: E731
+                    heat.data_ptr(), 1, geo.data_ptr(), mask.data_ptr(), taps, y.data_ptr(),
+                    None, M, 17, 64, 48, 5, stream())
+            if fn():
+                raise RuntimeError(f"{lib_name} variant {name} refused the launch")
+            res["ms"][name] = cs.device_ms(torch, fn)
+            res["issued_ms"][name] = cs.time_ms(torch, fn)
+            results[name] = y
+        for name in same_bits:
+            res["same_bits"][name] = torch.equal(results[name], results["shipped"])
+            if not res["same_bits"][name]:
+                res.setdefault("values_differing", {})[name] = int(
+                    (results[name] != results["shipped"]).sum())
+        out[lib_name] = res
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
 def adam_q8_variants(card: str) -> dict:
     """ms of one table launch of each ADAM_Q8 variant (see the module doc)."""
-    import ctypes
     import shutil
 
     import torch
@@ -374,30 +509,7 @@ def adam_q8_variants(card: str) -> dict:
     from easy_vitpose_tpu_torch.models.vitpose import init_params
     from easy_vitpose_tpu_torch.train import fused_opt as fo
 
-    nvcc = kernels.nvcc_path()
-    tmp = tempfile.mkdtemp()
-    procs = {}
-    for name, subs in ADAM_Q8.items():
-        d = os.path.join(tmp, name)
-        shutil.copytree(kernels.CSRC, d)
-        path = os.path.join(d, "adam_q8.cu")
-        src = open(path).read()
-        for old, new in subs:
-            if old not in src:
-                raise RuntimeError(f"K9 variant {name}: {old[:40]!r}... not in the source")
-            src = src.replace(old, new)
-        with open(path, "w") as f:
-            f.write(src)
-        so = os.path.join(d, "libadam_q8.so")
-        procs[name] = (so, subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-I", d, "-o", so, path]))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        if proc.wait():
-            raise RuntimeError(f"K9 variant {name} did not build")
-        lib = ctypes.CDLL(so)
-        lib.evt_adam_q8_table.argtypes = kernels.SIGNATURES["adam_q8"]["evt_adam_q8_table"]
-        libs[name] = lib
-
+    libs, tmp = build_variants("adam_q8", ADAM_Q8)
     dev = torch.device("cuda")
     kernels.build(["adam", "adam_q8"])
     model = init_params(get_model_config("coco", "l"), 0).to(dev)
@@ -439,13 +551,16 @@ def main():
                     help="time the training GEMM's variants instead")
     ap.add_argument("--adam-q8", action="store_true",
                     help="time the variants of K9's body instead")
+    ap.add_argument("--crop-decode", action="store_true",
+                    help="time the variants of the crop kernel (K3) and the decode instead")
     args = ap.parse_args()
-    if args.train_gemm or args.adam_q8:
+    if args.train_gemm or args.adam_q8 or args.crop_decode:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True,
                               text=True).stdout.strip().splitlines()[0]
         line = json.dumps(train_gemm_variants(card) if args.train_gemm else
-                          adam_q8_variants(card))
+                          adam_q8_variants(card) if args.adam_q8 else
+                          crop_decode_variants(card))
         print(line)
         if args.out:
             with open(args.out, "w") as f:

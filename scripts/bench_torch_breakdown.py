@@ -3,15 +3,23 @@
 For ViT-B, 64 slots and a 1080p frame from ``--seed`` (random weights), at
 int8 and bf16:
 
-* stages of one pose step (crop geometry + sampler, backbone, head, decode),
-  device time between CUDA events, mean over ``--reps`` steps;
+* stages of one pose step (the crop kernel with its geometry, backbone,
+  head, the fused decode), device time between CUDA events, mean over
+  ``--reps`` steps, with each stage's device operations (kernels, copies,
+  fills) from ``torch.profiler``; beside them, on the same heatmaps, the
+  decode's plain version (``decode_keypoints_plain``), its time and
+  operations, and the operations of the geometry's plain version
+  (``crop_geometry`` + ``pack_geometry``).  A sleep kernel holds the
+  stream while the host queues each step, so no stage holds the host's
+  time to issue it;
 * each launch of one transformer block at the same shapes, beside one
   PyTorch call for the same sub-step as a yardstick (cuBLAS ``matmul`` /
   ``_int_mm`` for the GEMMs, ``scaled_dot_product_attention`` for the
   attention); the port never calls these.  Timed as ``chip_smoke.time_ms``
   does: the median of five windows of at least 50 ms;
-* the device's busy share over a few steps and the kernels that take the
-  most device time, from ``torch.profiler``;
+* the device's busy share over a few steps, its operations per step, the
+  kernels that take the most device time (``torch.profiler``) and the
+  host's time to queue a step;
 * the peak device memory one step allocates beyond the weights;
 * the train step as ``chip_smoke.py`` drives it (64 crops, AMP, drop-path,
   fused Adam) at ``--size`` (ViT-B by default) with Adam moments at
@@ -59,37 +67,79 @@ sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
 
 import chip_smoke as cs  # noqa: E402  (repo root; the smoke's timing helpers)
 
+STAGE_SLEEP_CYCLES = 20_000_000   # about 10 ms at 2 GHz: longer than the host queues a step
 
-def stage_times(torch, model, frame, boxes, reps):
+
+def device_ops(torch, fn, calls=3):
+    """Device operations (kernels, copies, fills) one call of ``fn``
+    launches, counted by ``torch.profiler``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return n / calls
+
+
+def stage_times(torch, model, frame, boxes, mask, reps):
+    """Device ms of each stage of the pose step's route (crop kernel,
+    backbone, head, fused decode) between CUDA events, mean over ``reps``;
+    the device operations of each stage; and, on the same heatmaps, the
+    decode's plain version (``decode_keypoints_plain``) and the device
+    operations of the geometry's.  A sleep kernel holds the stream while
+    the host queues each step, so the events time the device, not the
+    host's issuing."""
     from easy_vitpose_tpu_torch.configs import IMAGE_SIZE
     from easy_vitpose_tpu_torch.models.head import head_forward
     from easy_vitpose_tpu_torch.models.vit import vit_forward
     from easy_vitpose_tpu_torch.models.vitpose import compute_dtype
-    from easy_vitpose_tpu_torch.ops.decode import keypoints_from_heatmaps_udp
-    from easy_vitpose_tpu_torch.ops.preprocess import crop_geometry
-    from easy_vitpose_tpu_torch.ops.sampler import sample_normalize
+    from easy_vitpose_tpu_torch.ops.decode import decode_keypoints, decode_keypoints_plain
+    from easy_vitpose_tpu_torch.ops.preprocess import crop_geometry, pack_geometry
+    from easy_vitpose_tpu_torch.ops.sampler import crop_normalize
 
-    names = ("geometry_sampler", "backbone", "head", "decode")
-    total = dict.fromkeys(names, 0.0)
+    dt = compute_dtype(model)
+    stages = {
+        "sampler": lambda: crop_normalize(frame, boxes, IMAGE_SIZE, dt),
+        "backbone": lambda x: vit_forward(model.backbone, x),
+        "head": lambda f: head_forward(model.keypoint_head, f.permute(0, 3, 1, 2)).contiguous(),
+    }
+    total = dict.fromkeys(("sampler", "backbone", "head", "decode", "decode_plain"), 0.0)
     for rep in range(reps + 1):                      # the first is a warm-up
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+        torch.cuda._sleep(STAGE_SLEEP_CYCLES)
         ev[0].record()
-        geo = crop_geometry(boxes, tuple(frame.shape[:2]))
-        x = sample_normalize(frame, geo, IMAGE_SIZE, compute_dtype(model))
+        x, geo = stages["sampler"]()
         ev[1].record()
-        feats = vit_forward(model.backbone, x)
+        # the warm-up step makes the per-device constants, which waits for the sleep
+        cs.check(not rep or not ev[0].query(),
+                 "the sleep kernel ended before the crop stage was queued")
+        feats = stages["backbone"](x)
         ev[2].record()
-        heat = head_forward(model.keypoint_head, feats.permute(0, 3, 1, 2)).float()
+        heat = stages["head"](feats)
         ev[3].record()
-        center = torch.stack([geo["wp"] // 2, geo["hp"] // 2], -1).float()
-        scale = torch.stack([geo["wp"], geo["hp"]], -1).float()
-        keypoints_from_heatmaps_udp(heat.contiguous(), center, scale)
+        decode_keypoints(heat, geo, mask)
         ev[4].record()
+        decode_keypoints_plain(heat, geo, mask)
+        ev[5].record()
         torch.cuda.synchronize()
         if rep:
-            for i, n in enumerate(names):
+            for i, n in enumerate(total):
                 total[n] += ev[i].elapsed_time(ev[i + 1])
-    return {n: v / reps for n, v in total.items()}
+    out = {f"{n}_ms": v / reps for n, v in total.items()}
+    out["device_ops"] = {
+        "sampler": device_ops(torch, stages["sampler"]),
+        "backbone": device_ops(torch, lambda: stages["backbone"](x)),
+        "head": device_ops(torch, lambda: stages["head"](feats)),
+        "decode": device_ops(torch, lambda: decode_keypoints(heat, geo, mask)),
+        "decode_plain": device_ops(torch, lambda: decode_keypoints_plain(heat, geo, mask)),
+        "geometry_plain": device_ops(torch, lambda: pack_geometry(
+            crop_geometry(boxes, tuple(frame.shape[:2]))))}
+    return out
 
 
 def block_parts(torch, copies, dev):
@@ -191,6 +241,7 @@ def profile_step(torch, model, frame, boxes, mask, steps=5):
     t0 = time.perf_counter()
     for _ in range(steps):
         pose_step(model, frame, boxes, mask)
+    t1 = time.perf_counter()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3 / steps
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -199,8 +250,9 @@ def profile_step(torch, model, frame, boxes, mask, steps=5):
         torch.cuda.synchronize()
     rows = kernel_rows(prof, steps)
     device_ms = sum(r[1] for r in rows)
-    return {"wall_ms_per_step": wall_ms, "device_ms_per_step": device_ms,
-            "device_busy_share": device_ms / wall_ms,
+    return {"wall_ms_per_step": wall_ms, "host_queue_ms_per_step": (t1 - t0) * 1e3 / steps,
+            "device_ms_per_step": device_ms, "device_busy_share": device_ms / wall_ms,
+            "device_ops_per_step": sum(r[2] for r in rows),
             "top_kernels": [{"name": k[:80], "ms_per_step": ms, "calls_per_step": n}
                             for k, ms, n in rows[:10]]}
 
@@ -400,13 +452,13 @@ def main():
     H, W = cs.FRAME_HW
     frame = torch.from_numpy(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).to(dev)
     boxes = torch.from_numpy(cs.make_boxes(rng, cs.SLOTS, H, W)).to(dev)
-    mask = torch.ones(cs.SLOTS, dtype=torch.bool, device=dev)
+    mask = torch.arange(cs.SLOTS, device=dev) < cs.SLOTS - 4
     copies = {d: serving_copy(model, d) for d in ("int8", "bf16")}
 
     result = {"card": card, "config": "ViT-B coco, 64 slots, 1080p, random weights"}
     with torch.no_grad():
         for d, sm in copies.items():
-            result[f"stages_{d}"] = stage_times(torch, sm, frame, boxes, args.reps)
+            result[f"stages_{d}"] = stage_times(torch, sm, frame, boxes, mask, args.reps)
             torch.cuda.synchronize()
             base = torch.cuda.memory_allocated()
             torch.cuda.reset_peak_memory_stats()

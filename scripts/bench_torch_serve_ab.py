@@ -14,10 +14,16 @@ inputs from ``--seed``:
   attention, the four bf16 GEMMs (qkv, proj with the residual, fc1 with
   GELU, fc2 with the residual) and the four int8 GEMMs (the row
   quantisation included, as ``gemm_q8_cuda`` runs it);
+* counts the device operations (kernels, copies, fills) of one pose step
+  with ``torch.profiler``, and the host's time to queue a step;
 * runs the four int8 GEMMs of K2 once more on fixed inputs made with numpy
-  from ``--seed`` (ViT-B block 0's shapes, 64 crops: M = 12288) and records
-  a SHA-256 of each output's bytes.  With ``--against FILE`` (another run's
-  ``--out``) it reports whether each output is the same bits.
+  from ``--seed`` (ViT-B block 0's shapes, 64 crops: M = 12288), the crop
+  sampler (K3, with its geometry) on the pose step's frame and boxes at
+  bf16 and float32, and the pose step's decode (the fused kernel where the
+  checkout has it, else the eager route with the full-map K4) on fixed
+  heatmaps, geometry and mask, and records a SHA-256 of each output's
+  bytes.  With ``--against FILE`` (another run's ``--out``) it reports
+  whether each output is the same bits.
 
 It prints one JSON line and writes it to ``--out``.  To compare two
 checkouts on one card, run it on each in turns in one call, A, B, B, A:
@@ -35,6 +41,68 @@ import sys
 import time
 
 import numpy as np
+
+
+def sha(torch, t) -> str:
+    torch.cuda.synchronize()
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()
+
+
+def step_ops(torch, fn, steps=3):
+    """(device operations per call of ``fn`` from ``torch.profiler``, host
+    ms to queue one call)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    host_ms = (time.perf_counter() - t0) * 1e3 / steps
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+    n = sum(e.count for e in prof.key_averages() if e.device_type == DeviceType.CUDA)
+    return n / steps, host_ms
+
+
+def serving_digests(torch, frame, boxes, g, dev) -> dict:
+    """SHA-256 of the crop sampler's crops and geometry (bf16, float32) on
+    the pose step's frame and boxes, and of the pose step's decode on fixed
+    heatmaps, through whichever route this checkout has."""
+    from easy_vitpose_tpu_torch.configs import IMAGE_SIZE
+    from easy_vitpose_tpu_torch.ops import decode, preprocess, sampler
+
+    out = {}
+    for name, dt in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        if hasattr(sampler, "crop_normalize"):
+            crops, geo = sampler.crop_normalize(frame, boxes, IMAGE_SIZE, dt)
+        else:
+            geo_d = preprocess.crop_geometry(boxes, tuple(frame.shape[:2]))
+            crops = sampler.sample_normalize(frame, geo_d, IMAGE_SIZE, dt)
+            geo = preprocess.pack_geometry(geo_d)
+        out[f"sampler_{name}"] = sha(torch, crops)
+        out[f"geometry_{name}"] = sha(torch, geo)
+    M = boxes.shape[0]
+    heat = torch.from_numpy((g.standard_normal((M, 17, 64, 48)) * 0.3 + 0.3)
+                            .astype(np.float32)).to(dev)
+    geo = preprocess.pack_geometry(preprocess.crop_geometry(boxes, tuple(frame.shape[:2])))
+    mask = torch.arange(M, device=dev) < M - 4
+    if hasattr(decode, "decode_keypoints"):
+        kp = decode.decode_keypoints(heat, geo, mask)
+    else:                       # the eager route of pipeline/pose_step.py before the fused decode
+        gd = {k: geo[:, i] for i, k in enumerate(preprocess.GEO_KEYS)}
+        center = torch.stack([gd["wp"] // 2, gd["hp"] // 2], -1).float()
+        scale = torch.stack([gd["wp"], gd["hp"]], -1).float()
+        preds, maxvals = decode.keypoints_from_heatmaps_udp(heat, center, scale)
+        off_x = (gd["x1"] - gd["left"]).float()[:, None]
+        off_y = (gd["y1"] - gd["top"]).float()[:, None]
+        kp = torch.stack([preds[..., 1] + off_y, preds[..., 0] + off_x, maxvals[..., 0]], -1)
+        kp = torch.where(mask[:, None, None], kp, torch.zeros_like(kp))
+    out["decode_keypoints"] = sha(torch, kp)
+    return out
 
 
 def main():
@@ -87,6 +155,8 @@ def main():
                 return (time.perf_counter() - t0) * 1e3 / args.reps
 
             out[f"pose_step_{dt}_ms"] = statistics.median(window() for _ in range(5))
+            out[f"pose_step_{dt}_device_ops"], out[f"pose_step_{dt}_host_queue_ms"] = \
+                step_ops(torch, lambda: pose_step(sm, frame, boxes, mask))
 
         # per launch at block 0
         x = torch.from_numpy(rng.standard_normal((B, N, D)).astype(np.float32)).to(dev)
@@ -132,10 +202,15 @@ def main():
             out[f"gemm_int8_{name}_ms"] = cs.time_ms(torch, run)
         out["gemm_int8_sum_ms"] = sum(out[f"gemm_int8_{n}_ms"] for n in digests)
         out["int8_digests"] = digests
+        out["serving_digests"] = serving_digests(torch, frame, boxes, g, dev)
     if args.against:
         with open(args.against) as f:
-            other = json.load(f)["int8_digests"]
-        out["int8_bit_equal_to_against"] = {n: other.get(n) == d for n, d in digests.items()}
+            other = json.load(f)
+        out["int8_bit_equal_to_against"] = {n: other["int8_digests"].get(n) == d
+                                            for n, d in digests.items()}
+        out["serving_bit_equal_to_against"] = {
+            n: other.get("serving_digests", {}).get(n) == d
+            for n, d in out["serving_digests"].items()}
     line = json.dumps(out)
     print(line)
     if args.out:

@@ -17,7 +17,7 @@ import torch
 from easy_vitpose_tpu_torch import kernels
 from easy_vitpose_tpu_torch.models import fused_block as fb
 from easy_vitpose_tpu_torch.models import quant, vit
-from easy_vitpose_tpu_torch.ops import modulate, preprocess, sampler
+from easy_vitpose_tpu_torch.ops import decode, modulate, preprocess, sampler
 
 pytestmark = pytest.mark.cuda
 
@@ -156,10 +156,65 @@ def test_sampler_edges(dev):
                           [W - 80, H - 60, W + 20, H + 5], [100.5, 80.5, 101.5, 81.5],
                           [W + 50, H + 50, W + 90, H + 80], [5, 100, W - 5, 130]],
                          dtype=torch.float32, device=dev)
-    geo = preprocess.crop_geometry(boxes, (H, W))
     for dtype in (torch.float32, torch.bfloat16):
-        got = sampler.sample_normalize(frame, geo, dtype=dtype)
-        assert torch.equal(got, sampler.sample_normalize_plain(frame, geo, dtype=dtype))
+        got, geo = sampler.crop_normalize(frame, boxes, dtype=dtype)
+        ref, ref_geo = sampler.crop_normalize_plain(frame, boxes, dtype=dtype)
+        assert torch.equal(got, ref) and torch.equal(geo, ref_geo)
+    # a crop row of 17 * 3 values is no multiple of a 16-byte store
+    got, geo = sampler.crop_normalize(frame, boxes, (17, 23), torch.bfloat16)
+    ref, ref_geo = sampler.crop_normalize_plain(frame, boxes, (17, 23), torch.bfloat16)
+    assert torch.equal(got, ref) and torch.equal(geo, ref_geo)
+
+
+@pytest.mark.parametrize("shape,kernel", [((5, 17, 64, 48), 11), ((3, 4, 21, 15), 5),
+                                          ((2, 5, 64, 48), 17)])
+def test_decode(dev, shape, kernel):
+    """The fused decode against its plain version: scores and the argmax
+    bit for bit, coordinates within 1e-3 heatmap px, the seven modulated
+    points bit for bit those of the full-map kernel; bf16 heatmaps decode
+    as their widening.  (21, 15) maps take the kernel's one-value loads."""
+    from chip_smoke import decode_maps
+
+    M, K, H, W = shape
+    hm = torch.from_numpy(decode_maps(np.random.default_rng(0), *shape)).to(dev)
+    boxes = torch.tensor(np.random.default_rng(1).uniform(0, 300, (M, 4)), dtype=torch.float32,
+                         device=dev).sort(-1).values
+    geo = sampler.crop_normalize(torch.zeros(240, 320, 3, dtype=torch.uint8, device=dev),
+                                 boxes)[1]
+    mask = torch.arange(M, device=dev) != 1
+    got, pts = decode.decode_keypoints(hm, geo, mask, kernel, with_points=True)
+    ref = decode.decode_keypoints_plain(hm, geo, mask, kernel)
+    assert torch.equal(got[..., 2], ref[..., 2]) and (got[1] == 0).all()
+    scale = torch.stack([geo[:, 5] / (H - 1), geo[:, 4] / (W - 1)], -1)[:, None, :]
+    assert ((got[..., :2] - ref[..., :2]).abs() <= 1e-3 * scale + 1e-4).all()
+    coords, _ = decode.get_max_preds(hm)
+    full = modulate.udp_modulate(hm, kernel).reshape(-1)
+    want = full[decode.newton_point_index(coords, H, W)]
+    assert torch.equal(pts[mask], want[mask]) and (pts[~mask] == 0).all()
+    hb = hm.bfloat16()
+    assert torch.equal(decode.decode_keypoints(hb, geo, mask, kernel),
+                       decode.decode_keypoints(hb.float(), geo, mask, kernel))
+
+
+def test_pose_step_makes_the_host_wait_for_nothing(dev):
+    """With its inputs on the card, a pose step runs under PyTorch's
+    synchronisation check set to raise."""
+    from easy_vitpose_tpu_torch.configs import BackboneConfig, HeadConfig, ModelConfig
+    from easy_vitpose_tpu_torch.models.vitpose import init_params, serving_copy
+    from easy_vitpose_tpu_torch.pipeline.pose_step import pose_step
+
+    cfg = ModelConfig("small", "coco", BackboneConfig(embed_dim=128, depth=1, num_heads=2),
+                      HeadConfig(in_channels=128, num_keypoints=17, deconv_filters=(64, 64)))
+    model = serving_copy(init_params(cfg, 0).to(dev), "int8")
+    frame = torch.zeros(240, 320, 3, dtype=torch.uint8, device=dev)
+    boxes = torch.tensor([[30, 20, 160, 200], [150, 100, 151, 101]], device=dev)
+    mask = torch.ones(2, dtype=torch.bool, device=dev)
+    pose_step(model, frame, boxes, mask)                     # first use: builds, caches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        pose_step(model, frame, boxes, mask)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
 
 
 @pytest.mark.parametrize("shape,kernel", [((3, 17, 64, 48), 11), ((2, 5, 96, 72), 17)])
@@ -179,14 +234,36 @@ def test_counters_and_refusals(dev):
         fb.gemm_cuda(randn(dev, 8, 64), randn(dev, 96, 64), randn(dev, 96))
     with pytest.raises(ValueError, match="float32"):
         modulate.udp_modulate(hm.double())
+    geo = torch.zeros(1, 8, dtype=torch.int32, device=dev)
+    mask = torch.ones(1, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        decode.decode_keypoints(hm.double(), geo, mask)
+    with pytest.raises(ValueError, match="int32"):
+        decode.decode_keypoints(hm, geo.long(), mask)
+    with pytest.raises(ValueError, match="kernel 12"):
+        decode.decode_keypoints(hm, geo, mask, 12)
+    frame = torch.zeros(8, 8, 3, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="float32"):
+        sampler.crop_normalize(frame, torch.zeros(1, 4, dtype=torch.float64, device=dev))
+    assert kernels.launch_counts() == {"modulate": 2}
 
 
-def test_pose_step_from_numpy(dev):
+def test_pose_step_from_numpy(dev, monkeypatch):
     """The user's entry point with numpy inputs runs on the card, through
-    every kernel once per layer, and agrees with the plain path."""
+    every kernel once per layer, and agrees with the plain path; its
+    keypoints are the plain decode of its own heatmaps."""
     from easy_vitpose_tpu_torch.configs import BackboneConfig, HeadConfig, ModelConfig
     from easy_vitpose_tpu_torch.models.vitpose import init_params, serving_copy
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
     from easy_vitpose_tpu_torch.pipeline.pose_step import pose_heatmaps, pose_step
+
+    seen = {}
+
+    def spy(heat, geo, mask, *a, **k):
+        seen.update(heat=heat, geo=geo, mask=mask)
+        return decode.decode_keypoints(heat, geo, mask, *a, **k)
+
+    monkeypatch.setattr(ps, "decode_keypoints", spy)
 
     cfg = ModelConfig("small", "coco", BackboneConfig(embed_dim=128, depth=2, num_heads=2),
                       HeadConfig(in_channels=128, num_keypoints=17, deconv_filters=(64, 64)))
@@ -200,7 +277,7 @@ def test_pose_step_from_numpy(dev):
         sm = serving_copy(model, dtype)
         kernels.reset_launch_counts()
         kp = pose_step(sm, frame, boxes, mask)
-        assert kernels.launch_counts() == {block: 2, "sampler": 1, "modulate": 1}
+        assert kernels.launch_counts() == {block: 2, "sampler": 1, "decode": 1}
         assert kp.is_cuda and torch.isfinite(kp).all() and (kp[1] == 0).all()
         with torch.no_grad():
             t = [torch.from_numpy(a).to(dev) for a in (frame, boxes)]
@@ -208,6 +285,9 @@ def test_pose_step_from_numpy(dev):
             hp, _ = pose_heatmaps(sm, *t, plain=True)
         span = float(hp.max() - hp.min())
         assert float((hk - hp).abs().max()) <= (1e-4 if dtype == "fp32" else 0.05) * span
+        ref = decode.decode_keypoints_plain(seen["heat"], seen["geo"], seen["mask"])
+        assert torch.equal(kp[..., 2], ref[..., 2])
+        assert float((kp - ref).abs().max()) <= 1e-2
 
 
 @pytest.mark.parametrize("size", ["s", "b", "l", "h"])

@@ -66,8 +66,8 @@ def test_sampler_plain_matches_jax_pallas_sampler():
     H, W = 200, 256
     frame = np.random.default_rng(1).integers(0, 256, (H, W, 3), dtype=np.uint8)
     boxes = awkward_boxes(H, W)
-    geo = preprocess.crop_geometry(torch.from_numpy(boxes), (H, W))
-    got = sampler.sample_normalize(torch.from_numpy(frame), geo).numpy()
+    got, _ = sampler.crop_normalize(torch.from_numpy(frame), torch.from_numpy(boxes))
+    got = got.numpy()
     jgeo = jpre.crop_geometry(jnp.asarray(boxes), (H, W))
     crops = sample_crops_pallas(jnp.asarray(frame), jgeo, IMAGE_SIZE,
                                 sample_dtype=jnp.float32, interpret=True)
@@ -92,10 +92,9 @@ def test_sampler_bf16_rounds_once(g):
     frame, boxes = g["frame"], g["boxes"]
     H, W = frame.shape[:2]
     boxes = np.concatenate([boxes, awkward_boxes(H, W)])
-    geo = preprocess.crop_geometry(torch.from_numpy(boxes), (H, W))
-    f32 = sampler.sample_normalize(torch.from_numpy(frame), geo).numpy()
-    b16 = sampler.sample_normalize(torch.from_numpy(frame), geo,
-                                   dtype=torch.bfloat16).float().numpy()
+    f32 = sampler.crop_normalize(torch.from_numpy(frame), torch.from_numpy(boxes))[0].numpy()
+    b16 = sampler.crop_normalize(torch.from_numpy(frame), torch.from_numpy(boxes),
+                                 dtype=torch.bfloat16)[0].float().numpy()
     jgeo = jpre.crop_geometry(jnp.asarray(boxes), (H, W))
     jb16 = np.asarray(jpre.normalize_crops(
         jpre.sample_crops(jnp.asarray(frame), jgeo, IMAGE_SIZE, sample_dtype=jnp.bfloat16),
