@@ -31,6 +31,22 @@ toolkit:
    PyTorch's synchronisation check set to raise, and the heatmaps against
    the plain pose step on the card, and times it (host clock, median of
    five windows of ``--reps`` steps, and the host's time to queue them);
+4b. holds the detector's kernels against their plain versions on the 1080p
+   frame at YOLOv8n/320 and YOLOv8x/640 (random weights from ``--seed``,
+   scaled on that frame), float32 and bf16, square and rect letterbox: D1
+   (``csrc/letterbox.cu``) and D2 (``csrc/nms.cu``) bit for bit, and the
+   whole ``detect_frame_core`` against the same function with the plain D1
+   and D2 (the same packed rows); times D1, D2 (``device_ms``), their
+   plain versions and the detector's ms per frame;
+4c. drives ``VitInference`` (ViT-B from a ``.npz`` the script writes, with
+   YOLOv8n/320, int8 and bf16) in image mode at steady state: launches per
+   frame ({D1, D2, K3, K2/K1 x 12, the decode} once each), one host sync per
+   frame, the frame's launches queued under the synchronisation check set
+   to raise, the host's ms to queue them, ms per frame and the device's busy
+   share (``torch.profiler``); and the int8 model in video mode (SORT over
+   30 frames of the frame moving right); every frame held to the plain path
+   on the card (detections bit for bit, IDs equal, heatmaps within
+   ``HEATMAP_TOL``, keypoints the plain decode of their own heatmaps);
 5. holds the training kernels (K5 forward, K6a MLP backward, K7 attention
    backward at bf16 and fp32) against their plain versions at the main
    shapes and a ragged batch, and times each beside its plain version and
@@ -82,8 +98,9 @@ toolkit:
    the plain step with the same settings and drop-path masks;
 12. prints the optimizer's times (``optimizer``), the norm kernel's row
    (``grad_norm``: it replaces no Pallas kernel), one JSON line per kernel
-   set (``kernels``, 18 rows), the card line, and last ``{"ok": true,
-   "device": {...}}``.
+   set (``kernels``, 20 rows: D1 and D2 after K4's), the detector's and
+   ``VitInference``'s measurements (``detector``, ``vitinference``), the
+   card line, and last ``{"ok": true, "device": {...}}``.
 
 The A/B of each flavor against the default, interleaved in one process,
 is ``scripts/bench_torch_breakdown.py --flavors``.
@@ -1340,6 +1357,278 @@ def run_pose_steps(torch, model, rng, reps, dev):
     return results
 
 
+# ---------------------------------------------------- detector and VitInference
+
+DET_CONFIGS = (("n", 320), ("x", 640))   # README's YOLOv8n/320, and the largest at 640
+VI_FRAMES, VIDEO_FRAMES = 10, 30
+
+
+def sampled_bytes(geom, H: int, W: int) -> int:
+    """Bytes of the frame that D1's taps read: the distinct rows times the
+    distinct columns of the resized image's bilinear taps, 3 bytes each."""
+    r, new_w, new_h, left, top, cw, ch = geom
+
+    def taps(n, new_n):
+        s = np.float32(n / new_n)
+        src = (np.arange(new_n, dtype=np.float32) + np.float32(0.5)) * s - np.float32(0.5)
+        i0 = np.floor(np.clip(src, 0, n - 1)).astype(int)
+        return len(np.union1d(i0, np.minimum(i0 + 1, n - 1)))
+
+    return taps(W, new_w) * taps(H, new_h) * 3
+
+
+def detector_candidates(torch, yolo, model, frame, geom, spec, dtype):
+    """The detector up to D2's input: the score-sorted candidates of the
+    pipeline's "human" gate, as detect_frame_core makes them."""
+    x = yolo.letterbox_input(frame, geom, dtype)
+    boxes, scores = yolo.decode_detections(yolo.yolo_forward(model, x.permute(0, 2, 3, 1)),
+                                           spec.nc)
+    scores = torch.where(yolo._class_mask((0,), spec.nc, scores.device), scores[0], 0.0)
+    conf, cls = torch.max(scores, -1)
+    return yolo.nms_candidates(boxes[0], conf, cls.to(torch.int32), 0.25, 300)
+
+
+def check_detector(torch, frame_np, seed, dev) -> dict:
+    """D1 and D2 against their plain versions on the card, bit for bit, at
+    YOLOv8n/320 and YOLOv8x/640, float32 and bf16, square and rect, on the
+    1080p frame; the whole detect_frame_core against the same function with
+    the plain D1 and D2; each kernel's device time, its plain version's and
+    its bound; the detector's ms per frame."""
+    from easy_vitpose_tpu_torch.detect import yolo
+
+    H, W = frame_np.shape[:2]
+    frame = torch.from_numpy(frame_np).to(dev)
+    res, params = {}, {}
+    for scale, imgsz in DET_CONFIGS:
+        spec = yolo.YoloSpec(scale)
+        params[scale] = yolo.init_yolo_params(seed, spec, frame_np, imgsz)
+        for dtype in (torch.float32, torch.bfloat16):
+            model = yolo.yolo_params_from_jax(params[scale], spec, dtype, dev)
+            dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+            for rect in (False, True):
+                key = f"{scale}{imgsz}_{dt}_{'rect' if rect else 'square'}"
+                geom = yolo.letterbox_geometry(H, W, imgsz, rect=rect)
+                x = yolo.letterbox_input(frame, geom, dtype)
+                x_plain = yolo.letterbox_input_plain(frame, geom, dtype)
+                check(torch.equal(x, x_plain), f"{key}: D1 is not its plain version's bits")
+                cand = detector_candidates(torch, yolo, model, frame, geom, spec, dtype)
+                r, _, _, left, top = geom[:5]
+                got = yolo.nms_packed(*cand, 300, 0.7, left, top, r)
+                got_plain = yolo.nms_packed_plain(*cand, 300, 0.7, left, top, r)
+                check(torch.equal(got, got_plain), f"{key}: D2 is not its plain version's bits")
+                core = lambda plain=False: yolo.detect_frame_core(  # noqa: E731
+                    model, frame, geom, spec, imgsz, (0,), 0.25, 0.7, 300, dtype, plain=plain)
+                packed = core()
+                check(torch.equal(packed, core(True)),
+                      f"{key}: detect_frame_core differs from its plain-D1/D2 twin")
+                n_valid, n_kept = int((cand[1] > 0).sum()), int(packed[:, 6].sum())
+                row = {"candidates": int(cand[0].shape[0]), "valid": n_valid, "kept": n_kept,
+                       "ms_per_frame": time_ms(torch, core),
+                       "d1_err": float((x.float() - x_plain.float()).abs().max()),
+                       "d2_err": float((got - got_plain).abs().max())}
+                if scale == "n" or not rect:
+                    k = cand[0].shape[0]
+                    row.update(
+                        d1_ms=device_ms(torch, lambda: yolo.letterbox_input(frame, geom, dtype)),
+                        d1_plain_ms=time_ms(torch, lambda: yolo.letterbox_input_plain(
+                            frame, geom, dtype)),
+                        d1_bound=bound(sampled_bytes(geom, H, W) + x.numel() * x.element_size(),
+                                       {"f32": 30.0 * geom[5] * geom[6]}),
+                        d2_ms=device_ms(torch, lambda: yolo.nms_packed(*cand, 300, 0.7, left,
+                                                                       top, r)),
+                        d2_plain_ms=time_ms(torch, lambda: yolo.nms_packed_plain(
+                            *cand, 300, 0.7, left, top, r)),
+                        d2_bound=bound(k * 24 + 300 * 28, {"f32": 14.0 * n_valid * (n_valid - 1) / 2}))
+                res[key] = row
+                print(f"detector {key}: {json.dumps(row)}")
+    print("detector: D1 and D2 equal their plain versions bit for bit in every configuration; "
+          "library_ms none: no torchvision on the card's host, and no single PyTorch call "
+          "letterboxes or runs greedy NMS")
+    return {"configs": res, "params_n": params["n"]}
+
+
+def save_pose_npz(path: str, model) -> None:
+    """A float32 ViTPose written as the JAX package's .npz (uncompressed:
+    the format's reader takes both, and ViT-B's 344 MB compress slowly)."""
+    from easy_vitpose_tpu_torch.convert.vitpose_torch import convert_vitpose_state_dict
+    from easy_vitpose_tpu_torch.utils.checkpoint import flatten_params
+    np.savez(path, **flatten_params(convert_vitpose_state_dict(model.state_dict(), model.cfg)))
+
+
+@contextlib.contextmanager
+def decode_spy(ps, seen: list):
+    """Record the (heatmaps, geometry, mask) each pose step decodes, on the
+    kernel path and the plain one."""
+    real = ps.decode_keypoints, ps.decode_keypoints_plain
+
+    def wrap(fn):
+        def spy(heat, geo, mask, *a, **k):
+            seen.append((heat, geo, mask))
+            return fn(heat, geo, mask, *a, **k)
+        return spy
+
+    ps.decode_keypoints, ps.decode_keypoints_plain = wrap(real[0]), wrap(real[1])
+    try:
+        yield
+    finally:
+        ps.decode_keypoints, ps.decode_keypoints_plain = real
+
+
+def syncs_in(torch, fn) -> int:
+    """The host synchronisations ``fn`` makes: PyTorch's synchronisation
+    check set to warn, its warnings counted."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def hold_to_plain(torch, vi, vi_plain, frames, dtype: str) -> dict:
+    """The same frames through the kernel path and the plain path on the
+    card: detections bit for bit, the same IDs, the pose step's heatmaps
+    within HEATMAP_TOL of their range, the same crop geometry, and the
+    keypoints the plain decode of their own heatmaps (scores bit for bit,
+    coordinates within DECODE_TOL heatmap px)."""
+    from easy_vitpose_tpu_torch.ops import decode
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
+
+    worst = {"heatmap_rel_err": 0.0, "decode_gap_px": 0.0, "people": 0}
+    for f in frames:
+        got, ref = [], []
+        with decode_spy(ps, got):
+            out = vi.inference(f)
+        with decode_spy(ps, ref):
+            out_p = vi_plain.inference(f)
+        check(list(out) == list(out_p), f"{dtype}: IDs differ from the plain path")
+        check(np.array_equal(vi._yolo_res, vi_plain._yolo_res),
+              f"{dtype}: detections differ from the plain path")
+        check(len(got) == len(ref), f"{dtype}: pose steps differ from the plain path")
+        for (hk, gk, mk), (hp, gp, mp) in zip(got, ref):
+            check(torch.equal(gk, gp) and torch.equal(mk, mp), f"{dtype}: crop geometry differs")
+            span = float(hp.float().max() - hp.float().min())
+            err = float((hk.float() - hp.float()).abs().max())
+            check(err <= HEATMAP_TOL[dtype] * span, f"{dtype}: heatmaps differ: {err} of {span}")
+            kk = decode.decode_keypoints(hk, gk, mk)
+            kp = decode.decode_keypoints_plain(hk, gk, mk)
+            gap = decode_gap(torch, kk, kp, gk, *hk.shape[-2:])
+            check(torch.equal(kk[..., 2], kp[..., 2]) and gap <= DECODE_TOL,
+                  f"{dtype}: keypoints are not the plain decode of their heatmaps")
+            worst["heatmap_rel_err"] = max(worst["heatmap_rel_err"], err / span)
+            worst["decode_gap_px"] = max(worst["decode_gap_px"], gap)
+        for k in out:
+            check(np.isfinite(out[k]).all() and out[k].shape == (17, 3), f"{dtype}: keypoints")
+        worst["people"] += len(out)
+    return worst
+
+
+def run_vitinference(torch, model, frame_np, det, dev) -> dict:
+    """The user's entry point at full width: VitInference(ViT-B npz,
+    yolo=YOLOv8n npz, dtype int8, then bf16) on the 1080p frame, image mode
+    at steady state (after the slot high-water mark has risen) and video
+    mode (SORT over VIDEO_FRAMES frames of the frame moving right 8 px a
+    frame), each held to the plain path on the card; ms per frame, the
+    host's ms to queue one, the device's busy share, launches and host
+    synchronisations per frame."""
+    import tempfile
+    from torch.profiler import ProfilerActivity, profile
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.detect import yolo
+    from easy_vitpose_tpu_torch.detect.yolo import letterbox_geometry
+    from easy_vitpose_tpu_torch.pipeline.fused_detect import detect_pose
+    from easy_vitpose_tpu_torch.pipeline.inference import VitInference
+
+    res = {}
+    video = [np.roll(frame_np, 8 * t, axis=1) for t in range(VIDEO_FRAMES)]
+    with tempfile.TemporaryDirectory() as d:
+        pose, det_path = os.path.join(d, "vitpose-b-coco.npz"), os.path.join(d, "yolov8n.npz")
+        save_pose_npz(pose, model)
+        yolo.save_yolo_npz(det_path, det["params_n"], "n")
+        for dtype in ("int8", "bf16"):
+            t0 = time.perf_counter()
+            vi = VitInference(pose, yolo=det_path, model_name="b", dtype=dtype)
+            load_s = time.perf_counter() - t0
+            vi_plain = VitInference(pose, yolo=det_path, model_name="b", dtype=dtype, plain=True)
+            check(vi.device.type == "cuda" and vi.single_dispatch, "VitInference not on the card")
+            for _ in range(2):                      # the slot high-water mark rises
+                vi.inference(frame_np)
+                vi_plain.inference(frame_np)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            out = vi.inference(frame_np)
+            counts = kernels.launch_counts()
+            block = "block_q8" if dtype == "int8" else "block"
+            want = {"letterbox": 1, "nms": 1, "sampler": 1, block: 12, "decode": 1}
+            print(f"vitinference {dtype} image: launches per frame {counts}, people {len(out)}")
+            check(counts == want, f"{dtype} image frame launched {counts}, expected {want}")
+            syncs = syncs_in(torch, lambda: vi.inference(frame_np))
+            check(syncs == 1, f"{dtype} image frame made {syncs} host syncs, expected 1")
+            # the frame's queue of launches under the check set to raise
+            d_ = vi._detector
+            geom = letterbox_geometry(*frame_np.shape[:2], d_.imgsz, rect=d_.rect)
+            slots = vi._slots_highwater
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                t0 = time.perf_counter()
+                packed, kpts = detect_pose(d_.model, vi._model, vi._upload(frame_np), geom, d_.spec,
+                                           d_.imgsz, d_.classes, d_.conf, d_.iou, d_.max_det,
+                                           d_.dtype, slots, vi._gate())
+                queue_ms = (time.perf_counter() - t0) * 1e3
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            torch.cuda.synchronize()
+            held = hold_to_plain(torch, vi, vi_plain, [frame_np], dtype)
+
+            def frames(n):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    vi.inference(frame_np)
+                return (time.perf_counter() - t0) * 1e3 / n
+
+            ms = statistics.median(frames(VI_FRAMES) for _ in range(3))
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                wall = frames(5)
+            from torch.autograd import DeviceType
+            busy = sum(e.self_device_time_total for e in prof.key_averages()
+                       if e.device_type == DeviceType.CUDA) / 1e3 / 5
+            row = {"ms_per_frame": ms, "host_queue_ms": queue_ms, "device_ms_per_frame": busy,
+                   "profiled_ms_per_frame": wall, "device_busy_share": busy / ms,
+                   "slots": slots, "people": len(out), "launches_per_frame": counts,
+                   "host_syncs_per_frame": syncs, "load_s": load_s, **held}
+            print(f"vitinference {dtype} image: {json.dumps(row)}")
+            res[f"{dtype}_image"] = row
+            if dtype != "int8":
+                continue
+            # video mode: SORT, detect -> fetch -> track -> pose on the tracker's boxes
+            vv = VitInference(pose, yolo=det_path, model_name="b", dtype=dtype, is_video=True)
+            vv_plain = VitInference(pose, yolo=det_path, model_name="b", dtype=dtype,
+                                    is_video=True, plain=True)
+            held = hold_to_plain(torch, vv, vv_plain, video, dtype)
+            vv.reset()
+            ids = set()
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            for f in video:
+                ids |= set(vv.inference(f))
+            ms = (time.perf_counter() - t0) * 1e3 / VIDEO_FRAMES
+            counts = {k: v / VIDEO_FRAMES for k, v in kernels.launch_counts().items()}
+            syncs = syncs_in(torch, lambda: vv.inference(video[0]))
+            row = {"ms_per_frame": ms, "frames": VIDEO_FRAMES, "track_ids": len(ids),
+                   "launches_per_frame": counts, "host_syncs_per_frame": syncs, **held}
+            print(f"vitinference {dtype} video: {json.dumps(row)}")
+            check(len(ids) > 0, "video mode tracked nobody")
+            res[f"{dtype}_video"] = row
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1372,6 +1661,10 @@ def main() -> int:
         meas = check_kernels(torch, model, rng, dev)
         meas["decode"] = check_decode(torch, np.random.default_rng(args.seed + 2), dev)
         steps = run_pose_steps(torch, model, rng, args.reps, dev)
+        frame_np = np.random.default_rng(args.seed + 3).integers(0, 256, (*FRAME_HW, 3),
+                                                                 dtype=np.uint8)
+        det = check_detector(torch, frame_np, args.seed, dev)
+        vi = run_vitinference(torch, model, frame_np, det, dev)
     meas.update(check_train_kernels(torch, model, rng, dev))
     gemms = {"vit_b": check_train_gemms(torch, model, rng, dev)}
     train = run_train_step(torch, model, rng, args.seed, dev,
@@ -1417,6 +1710,16 @@ def main() -> int:
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                      "library_ms": m["library_ms"]})
+    d = det["configs"]["n320_bf16_square"]              # the detector of the main path
+    for name, src, replaces, counter, pre in (
+            ("D1 letterbox", "letterbox.cu", "detect/yolo.py:293 (XLA, no Pallas)", "letterbox", "d1"),
+            ("D2 nms", "nms.cu", "detect/yolo.py:196 (XLA, no Pallas)", "nms", "d2")):
+        rows.append({"name": name, "route": "cuda", "source": f"easy_vitpose_tpu_torch/csrc/{src}",
+                     "replaces": f"easy_vitpose_tpu/{replaces}",
+                     "launches": vi["int8_image"]["launches_per_frame"].get(counter, 0),
+                     "max_abs_err": d[f"{pre}_err"], "ms": d[f"{pre}_ms"],
+                     "plain_ms": d[f"{pre}_plain_ms"], "bound_ms": d[f"{pre}_bound"][0],
+                     "bound_by": d[f"{pre}_bound"][1], "library_ms": None})
     train_spec = (("K5 train_forward", "K5", "models/fused_block_train.py:95", "train_fwd", train),
                   ("K6a mlp_backward", "K6a", "models/fused_block_train.py:195", "train_bwd_mlp", train),
                   ("K6b mlp_backward_dx_save", "K6b", "models/fused_block_train.py:280",
@@ -1459,6 +1762,8 @@ def main() -> int:
                        ("train_step_b_grad_accum2_ema", accum)):
         print(label + ":", json.dumps({k: v for k, v in run.items() if k != "launches"}))
     print("train_gemms:", json.dumps(gemms))
+    print("detector:", json.dumps(det["configs"]))
+    print("vitinference:", json.dumps(vi))
     print("pose_steps:", json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "launches"}
                                      for k, v in steps.items()}))
     # the norm kernel on ViT-B's leaves, launched once by the main path's step

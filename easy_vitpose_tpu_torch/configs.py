@@ -2,12 +2,14 @@
 
 The port's own copy of the constants and dataclasses of
 ``easy_vitpose_tpu/configs.py``; the port imports nothing of the JAX package.
-Only what the pose step and the training step need is here: the hybrid CNN
-stem and the "simple" head variant are not ported yet.
+Only what the pose step, the training step and ``VitInference`` need is
+here: the hybrid CNN stem and the "simple" head variant are not ported yet.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
+import re
 from typing import Optional, Tuple
 
 IMAGE_SIZE: Tuple[int, int] = (192, 256)   # (W, H) of the pose crop
@@ -17,6 +19,8 @@ PATCH_PADDING = 2   # the reference's 4+2*(ratio//2-1) padding at ratio 1
 
 IMAGENET_MEAN = (0.485, 0.456, 0.406)
 IMAGENET_STD = (0.229, 0.224, 0.225)
+
+MODEL_ABBR = {"s": "small", "b": "base", "l": "large", "h": "huge"}
 
 DATASETS = ("coco", "coco_25", "wholebody", "mpii", "aic", "ap10k", "apt36k", "custom")
 
@@ -108,3 +112,31 @@ def get_model_config(dataset: str, size: str, *,
     k = num_keypoints if num_keypoints is not None else NUM_KEYPOINTS[dataset]
     head = HeadConfig(in_channels=bb.embed_dim, num_keypoints=k)
     return ModelConfig(name=size, dataset=dataset, backbone=bb, head=head)
+
+
+def infer_dataset_by_path(model_path: str) -> str:
+    """The dataset named in a checkpoint's file name, e.g.
+    ``vitpose-b-coco_25.pth`` -> ``coco_25``."""
+    name = os.path.basename(model_path)
+    m = re.search(r"-([a-zA-Z0-9_]+)\.(pth|onnx|engine|npz|safetensors|orbax)", name)
+    if not m:
+        raise ValueError(
+            f"Could not infer the dataset from ckpt name {name!r}; pass dataset=...")
+    return m.group(1)
+
+
+# detection class -> COCO class ids for the detector
+# (reference: easy_ViTPose/inference.py:36-48)
+DETC_TO_YOLO_YOLOC = {
+    "human": [0],
+    "cat": [15],
+    "dog": [16],
+    "horse": [17],
+    "sheep": [18],
+    "cow": [19],
+    "elephant": [20],
+    "bear": [21],
+    "zebra": [22],
+    "giraffe": [23],
+    "animals": [15, 16, 17, 18, 19, 20, 21, 22, 23],
+}

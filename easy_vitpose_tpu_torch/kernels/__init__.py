@@ -112,6 +112,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         # table, leaves, width, units, partial, out, max_norm, stream
         "evt_grad_norm": [_P, _I, _I, _L, _P, _P, _F, _P],
     },
+    "letterbox": {
+        # frame, out, H, W, cw, ch, new_w, new_h, left, top, scale_x, scale_y,
+        # out_bf16, stream
+        "evt_letterbox": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    },
+    "nms": {
+        # boxes, scores, cls, out, k, max_det, iou_t, class_aware, left, top, r,
+        # stream
+        "evt_nms": [_P, _P, _P, _P, _I, _I, _F, _I, _F, _F, _F, _P],
+    },
 }
 SOURCES = tuple(SIGNATURES)
 

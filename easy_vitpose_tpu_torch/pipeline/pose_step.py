@@ -26,7 +26,7 @@ from ..configs import IMAGE_SIZE
 from ..kernels import resolve_device
 from ..models.vitpose import ViTPose, compute_dtype, vitpose_forward
 from ..ops.affine import flip_back_heatmaps
-from ..ops.decode import decode_keypoints
+from ..ops.decode import decode_keypoints, decode_keypoints_plain
 from ..ops.preprocess import Geometry, geometry_views
 from ..ops.sampler import crop_normalize, crop_normalize_plain
 
@@ -65,7 +65,7 @@ def pose_heatmaps(model: ViTPose, frame: torch.Tensor, boxes: torch.Tensor, *,
 @torch.no_grad()
 def pose_step(model: ViTPose, frame: ArrayLike, boxes: ArrayLike, mask: ArrayLike, *,
               flip_pairs: Optional[Sequence[Sequence[int]]] = None,
-              device=None) -> torch.Tensor:
+              device=None, plain: bool = False) -> torch.Tensor:
     """Pose estimation for up to M people on one frame.
 
     Args:
@@ -75,6 +75,7 @@ def pose_step(model: ViTPose, frame: ArrayLike, boxes: ArrayLike, mask: ArrayLik
       mask: (M,) bool; False slots are padding.
       device: where to run; default: the frame's device if it is a tensor,
         else CUDA (raises if there is none).
+      plain: run every kernel's plain version, on any device (for checks).
     Returns:
       (M, K, 3) float32 keypoints as (y, x, score) in frame coordinates;
       masked slots are all-zero.
@@ -85,9 +86,9 @@ def pose_step(model: ViTPose, frame: ArrayLike, boxes: ArrayLike, mask: ArrayLik
     frame = _to(frame, device)
     boxes = _to(boxes, device, torch.float32)
     mask = _to(mask, device, torch.bool)
-    heat, geo = _heatmaps(model, frame, boxes, flip_pairs, plain=False)
+    heat, geo = _heatmaps(model, frame, boxes, flip_pairs, plain)
     # decode with the padded crop's center (w//2, h//2) and size (w, h)
-    return decode_keypoints(heat, geo, mask)
+    return (decode_keypoints_plain if plain else decode_keypoints)(heat, geo, mask)
 
 
 def bucket_slots(n: int, min_slots: int = 1, max_slots: int = 64) -> int:

@@ -59,6 +59,17 @@ the taps read from the by-value parameter (a local-memory copy) instead of
 shared memory; 64 and 256 threads; the argmax alone.  The variants that
 keep the arithmetic are checked for the shipped bits.
 
+With ``--nms`` it times instead variants of D2 (``csrc/nms.cu``) on the
+k = 300 candidates of the smoke's main-path detector, each a library of
+its own (``chip_smoke.device_ms``): the shipped kernel (1024 threads, the
+sweep a word of 32 candidates at a time in registers); 256 and 512
+threads; the first version's sweep (one shared-memory step per
+candidate), at 1024 and at 256 threads (the first version); the bitmask
+alone (no sweep) and the sweep alone (every mask word zero, so every valid
+candidate is kept); and the IoU's IEEE division as ``__fdividef`` (changes
+the bits).  The thread and sweep variants are checked for the shipped
+bits.
+
 Usage (a machine with the CUDA toolkit and a card):
     python3 scripts/bench_kernel_variants.py [--out FILE] [--train-gemm | --adam-q8 | --crop-decode]
 """
@@ -170,6 +181,69 @@ DECODE = {
                      "    for (int job = t; job < 0; job += THREADS) {")],
 }
 DECODE_SAME_BITS = ("taps_by_value", "threads_64", "threads_256")
+
+# D2 (csrc/nms.cu): where its time goes; fewer threads for the bitmask; and
+# the first version's sweep, one shared-memory step per candidate, in place
+# of the shipped one, which resolves a word of 32 candidates in registers
+OLD_SWEEP = """            const int iend = min(32 * w + 32, n);
+            for (int i = 32 * w; i < iend; ++i) {
+                const bool sup = (cur >> (i & 31)) & 1u;
+                if (lane == 0) {
+                    keep[i] = !sup;
+                    before[i] = kept;
+                }
+                if (!sup) {
+                    const unsigned* row = mask + static_cast<size_t>(i) * words;
+                    cur |= row[w];
+#pragma unroll
+                    for (int s = 0; s < MAX_WORDS / 32; ++s) {
+                        const int ww = lane + 32 * s;
+                        if (ww > w && ww < words) rem[s] |= row[ww];
+                    }
+                    ++kept;
+                }
+            }"""
+NEW_SWEEP = """            const int i0 = 32 * w, cnt = min(32, n - i0);
+            // lane b holds word w of row i0 + b; the 32 steps run in registers
+            const unsigned rw = lane < cnt ? mask[static_cast<size_t>(i0 + lane) * words + w] : 0u;
+            unsigned kb = 0u;
+#pragma unroll
+            for (int b = 0; b < 32; ++b) {
+                const unsigned rb = __shfl_sync(0xffffffffu, rw, b);
+                if (b < cnt && !((cur >> b) & 1u)) {
+                    kb |= 1u << b;
+                    cur |= rb;
+                }
+            }
+            if (lane < cnt) {
+                keep[i0 + lane] = (kb >> lane) & 1u;
+                before[i0 + lane] = kept + __popc(kb & ((1u << lane) - 1u));
+            }
+            kept += __popc(kb);
+            for (unsigned m = kb; m; m &= m - 1) {         // the kept rows' later words
+                const unsigned* row = mask + static_cast<size_t>(i0 + __ffs(m) - 1) * words;
+#pragma unroll
+                for (int s = 0; s < MAX_WORDS / 32; ++s) {
+                    const int ww = lane + 32 * s;
+                    if (ww > w && ww < words) rem[s] |= row[ww];
+                }
+            }"""
+NMS = {
+    "shipped": [],
+    "threads_256": [("constexpr int THREADS = 1024;", "constexpr int THREADS = 256;")],
+    "threads_512": [("constexpr int THREADS = 1024;", "constexpr int THREADS = 512;")],
+    "step_sweep": [(NEW_SWEEP, OLD_SWEEP)],
+    "step_sweep_256": [(NEW_SWEEP, OLD_SWEEP),
+                       ("constexpr int THREADS = 1024;", "constexpr int THREADS = 256;")],
+    "mask_only": [("    if (threadIdx.x < 32) {\n        const int lane",
+                   "    if (threadIdx.x == 0) n_kept = 0;\n"
+                   "    if (threadIdx.x < 0) {\n        const int lane")],
+    "sweep_only": [("    for (int t = threadIdx.x; t < n * words; t += THREADS) {",
+                    "    for (int t = threadIdx.x; t < n * words; t += THREADS) {\n"
+                    "        if (t >= 0) { mask[t] = 0u; continue; }")],
+    "fdividef": [("return __fdiv_rn(inter, den);", "return __fdividef(inter, den);")],
+}
+NMS_SAME_BITS = ("threads_256", "threads_512", "step_sweep", "step_sweep_256")
 
 HARNESS = r"""
 #include <cstdio>
@@ -499,6 +573,48 @@ def crop_decode_variants(card: str) -> dict:
     return out
 
 
+def nms_variants(card: str) -> dict:
+    """ms of one launch of each NMS variant on the candidates of the smoke's
+    main-path detector (YOLOv8n/320 at bf16, square, random weights scaled
+    on the smoke's 1080p frame: k = 300), by ``chip_smoke.device_ms``; and
+    whether the variants that keep the arithmetic give the shipped bits."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import chip_smoke as cs
+    from easy_vitpose_tpu_torch.detect import yolo
+
+    dev = torch.device("cuda")
+    H, W = cs.FRAME_HW
+    frame_np = np.random.default_rng(3).integers(0, 256, (H, W, 3), dtype=np.uint8)
+    spec = yolo.YoloSpec("n")
+    model = yolo.yolo_params_from_jax(yolo.init_yolo_params(0, spec, frame_np, 320), spec,
+                                      torch.bfloat16, dev)
+    geom = yolo.letterbox_geometry(H, W, 320)
+    boxes, scores, cls = cs.detector_candidates(torch, yolo, model, torch.from_numpy(frame_np)
+                                                .to(dev), geom, spec, torch.bfloat16)
+    k = boxes.shape[0]
+    r, _, _, left, top = geom[:5]
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    libs, tmp = build_variants("nms", NMS)
+    res = {"card": card, "k": k, "valid": int((scores > 0).sum()), "ms": {}, "same_bits": {}}
+    results = {}
+    for name, lib in libs.items():
+        y = torch.empty((300, 7), dtype=torch.float32, device=dev)
+        fn = lambda: lib.evt_nms(boxes.data_ptr(), scores.data_ptr(), cls.data_ptr(),  # noqa: E731
+                                 y.data_ptr(), k, 300, 0.7, 1, float(left), float(top), r,
+                                 stream())
+        if fn():
+            raise RuntimeError(f"nms variant {name} refused the launch")
+        res["ms"][name] = cs.device_ms(torch, fn)
+        results[name] = y
+    for name in NMS_SAME_BITS:
+        res["same_bits"][name] = torch.equal(results[name], results["shipped"])
+    shutil.rmtree(tmp, ignore_errors=True)
+    return res
+
+
 def adam_q8_variants(card: str) -> dict:
     """ms of one table launch of each ADAM_Q8 variant (see the module doc)."""
     import shutil
@@ -553,13 +669,16 @@ def main():
                     help="time the variants of K9's body instead")
     ap.add_argument("--crop-decode", action="store_true",
                     help="time the variants of the crop kernel (K3) and the decode instead")
+    ap.add_argument("--nms", action="store_true",
+                    help="time the variants of the NMS kernel (D2) instead")
     args = ap.parse_args()
-    if args.train_gemm or args.adam_q8 or args.crop_decode:
+    if args.train_gemm or args.adam_q8 or args.crop_decode or args.nms:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True,
                               text=True).stdout.strip().splitlines()[0]
         line = json.dumps(train_gemm_variants(card) if args.train_gemm else
                           adam_q8_variants(card) if args.adam_q8 else
+                          nms_variants(card) if args.nms else
                           crop_decode_variants(card))
         print(line)
         if args.out:

@@ -879,3 +879,172 @@ def test_grad_accum_ema_and_eval_steps_on_the_card(dev):
     cpu["step"] = state["step"].cpu()
     ref = tstep.make_eval_step(cfg)(cpu, batch)
     assert abs(float(loss) - float(ref)) <= 2e-2 * float(ref)
+
+
+# ------------------------------------------------- the detector: D1 and D2
+
+@pytest.mark.parametrize("hw,imgsz,rect", [((1080, 1920), 320, False), ((1080, 1920), 640, True),
+                                           ((37, 61), 96, False), ((200, 90), 64, True),
+                                           ((481, 641), 320, True)])
+def test_letterbox_kernel_bits(dev, hw, imgsz, rect):
+    """D1 equals its plain version bit for bit at float32, and at bf16
+    after the one rounding; also on a frame that starts off 4 bytes."""
+    from easy_vitpose_tpu_torch.detect import yolo
+    g = np.random.default_rng(sum(hw))
+    base = torch.from_numpy(g.integers(0, 256, (hw[0] * hw[1] * 3 + 1,), dtype=np.uint8)).to(dev)
+    geom = yolo.letterbox_geometry(*hw, imgsz, rect=rect)
+    for frame in (base[:-1].view(*hw, 3), base[1:].view(*hw, 3)):
+        for dt in (torch.float32, torch.bfloat16):
+            kernels.reset_launch_counts()
+            got = yolo.letterbox_input(frame, geom, dt)
+            assert kernels.launch_counts() == {"letterbox": 1}
+            ref = yolo.letterbox_input_plain(frame, geom, dt)
+            assert got.shape == ref.shape == (1, 3, geom[6], geom[5]) and got.dtype == dt
+            assert got.is_contiguous(memory_format=torch.channels_last)
+            assert torch.equal(got, ref)
+
+
+def nms_candidates_on(dev, seed, n, max_det, conf_t=0.25, classes=3, ties=False):
+    from easy_vitpose_tpu_torch.detect import yolo
+    g = np.random.default_rng(seed)
+    c = g.uniform(20, 600, (n, 2))
+    wh = g.uniform(10, 90, (n, 2))
+    boxes = np.concatenate([c - wh / 2, c + wh / 2], 1).astype(np.float32)
+    scores = g.uniform(0.05, 1.0, n).astype(np.float32)
+    if ties:
+        scores[::3] = 0.6
+    cls = g.integers(0, classes, n).astype(np.int32)
+    return yolo.nms_candidates(torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev),
+                               torch.from_numpy(cls).to(dev), conf_t, max_det)
+
+
+@pytest.mark.parametrize("n,max_det,ties,conf_t", [(2100, 300, False, 0.25), (2100, 300, True, 0.25),
+                                                   (150, 300, False, 0.25), (150, 300, True, 0.9),
+                                                   (40, 40, False, -1.0), (1000, 1000, True, 0.5)])
+@pytest.mark.parametrize("agnostic", [False, True])
+def test_nms_kernel_bits(dev, n, max_det, ties, conf_t, agnostic):
+    """D2 equals its plain version (JAX's fixpoint) bit for bit on the same
+    sorted candidates: k < max_det (zero padding), ties at the -1 fill and
+    above the gate, class-aware and agnostic."""
+    from easy_vitpose_tpu_torch.detect import yolo
+    cand = nms_candidates_on(dev, n + max_det, n, max_det, conf_t, ties=ties)
+    kernels.reset_launch_counts()
+    got = yolo.nms_packed(*cand, max_det, 0.5, 7, 70, 0.3, class_agnostic=agnostic)
+    assert kernels.launch_counts() == {"nms": 1}
+    ref = yolo.nms_packed_plain(*cand, max_det, 0.5, 7, 70, 0.3, class_agnostic=agnostic)
+    assert got.shape == (max_det, 7) and torch.equal(got, ref)
+    kept, valid = int(got[:, 6].sum()), int((cand[1] > 0).sum())
+    assert 0 < kept <= valid and (kept < valid or valid < 100)  # dense sets suppress some
+
+
+def test_nms_kernel_refuses(dev):
+    from easy_vitpose_tpu_torch.detect import yolo
+    kmax = max(k for k in range(1, 4096) if yolo.nms_smem_bytes(k) <= yolo.SMEM_LIMIT)
+    cand = nms_candidates_on(dev, 0, kmax, kmax)
+    got = yolo.nms_packed(*cand, kmax, 0.7, 0, 0, 1.0)          # the largest k that fits
+    assert torch.equal(got, yolo.nms_packed_plain(*cand, kmax, 0.7, 0, 0, 1.0))
+    cand = nms_candidates_on(dev, 0, kmax + 1, kmax + 1)
+    with pytest.raises(ValueError, match="shared memory"):
+        yolo.nms_packed(*cand, kmax + 1, 0.7, 0, 0, 1.0)
+    cand = nms_candidates_on(dev, 0, 50, 50)
+    with pytest.raises(ValueError, match="k <= max_det"):
+        yolo.nms_packed(*cand, 40, 0.7, 0, 0, 1.0)
+    with pytest.raises(ValueError, match="int32"):
+        yolo.nms_packed(cand[0], cand[1], cand[2].long(), 50, 0.7, 0, 0, 1.0)
+
+
+def test_wrappers_raise_when_a_kernel_fails(dev, monkeypatch):
+    """A wrapper given CUDA tensors whose launch fails raises; it does not
+    fall back to its plain version."""
+    from easy_vitpose_tpu_torch.detect import yolo
+
+    def refuse(name, fn, device, *args):
+        raise RuntimeError(f"{name}.{fn}: CUDA error 1 (refused)")
+
+    def plain(*a, **k):
+        raise AssertionError("fell back to the plain version")
+
+    frame = torch.zeros(48, 64, 3, dtype=torch.uint8, device=dev)
+    cand = nms_candidates_on(dev, 1, 100, 100)
+    monkeypatch.setattr(kernels, "call", refuse)
+    monkeypatch.setattr(yolo, "letterbox_input_plain", plain)
+    monkeypatch.setattr(yolo, "nms_packed_plain", plain)
+    with pytest.raises(RuntimeError, match="letterbox"):
+        yolo.letterbox_input(frame, yolo.letterbox_geometry(48, 64, 64))
+    with pytest.raises(RuntimeError, match="nms"):
+        yolo.nms_packed(*cand, 100, 0.7, 0, 0, 1.0)
+
+
+def small_files(dev, tmp_path, frame):
+    """A small ViTPose (.npz, the JAX layout) and a YOLOv8n (.npz) from
+    random weights, and the ViTPose config."""
+    from easy_vitpose_tpu_torch.configs import BackboneConfig, HeadConfig, ModelConfig
+    from easy_vitpose_tpu_torch.convert.vitpose_torch import convert_vitpose_state_dict
+    from easy_vitpose_tpu_torch.detect import yolo
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.utils.checkpoint import save_params
+
+    cfg = ModelConfig("small", "coco", BackboneConfig(embed_dim=128, depth=2, num_heads=2),
+                      HeadConfig(in_channels=128, num_keypoints=17, deconv_filters=(64, 64)))
+    pose = str(tmp_path / "vitpose-s-coco.npz")
+    save_params(pose, convert_vitpose_state_dict(init_params(cfg, 0).state_dict(), cfg))
+    det = str(tmp_path / "yolov8n.npz")
+    yolo.save_yolo_npz(det, yolo.init_yolo_params(0, yolo.YoloSpec("n"), frame, 320), "n")
+    return pose, det, cfg
+
+
+def test_detect_frame_core_kernels_equal_plain(dev):
+    """The whole detector on the card, D1 and D2 against their plain
+    versions on the card: the same packed rows at float32, and at bf16."""
+    from easy_vitpose_tpu_torch.detect import yolo
+    g = np.random.default_rng(0)
+    frame_np = g.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    spec = yolo.YoloSpec("n")
+    params = yolo.init_yolo_params(0, spec, frame_np, 320)
+    frame = torch.from_numpy(frame_np).to(dev)
+    for dt in (torch.float32, torch.bfloat16):
+        model = yolo.yolo_params_from_jax(params, spec, dt, dev)
+        for rect in (False, True):
+            geom = yolo.letterbox_geometry(1080, 1920, 320, rect=rect)
+            kernels.reset_launch_counts()
+            got = yolo.detect_frame_core(model, frame, geom, spec, 320, (0,), 0.25, 0.7, 300, dt)
+            assert kernels.launch_counts() == {"letterbox": 1, "nms": 1}
+            ref = yolo.detect_frame_core(model, frame, geom, spec, 320, (0,), 0.25, 0.7, 300, dt,
+                                         plain=True)
+            assert torch.equal(got, ref)
+            assert int(got[:, 6].sum()) > 0
+
+
+def test_vitinference_frame_queues_without_host_wait(dev, tmp_path):
+    """An image-mode detection frame through VitInference on the card:
+    detector and pose step queue under PyTorch's synchronisation check set
+    to raise, the one fetch outside it; launches per frame; the same
+    detections as the plain path."""
+    from easy_vitpose_tpu_torch.detect.yolo import letterbox_geometry
+    from easy_vitpose_tpu_torch.pipeline.fused_detect import detect_pose
+    from easy_vitpose_tpu_torch.pipeline.inference import VitInference
+
+    img = np.random.default_rng(1).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    pose, det, cfg = small_files(dev, tmp_path, img)
+    vi = VitInference(pose, yolo=det, model_name="b", model_cfg=cfg, dtype="int8")
+    assert vi.device.type == "cuda" and vi.single_dispatch
+    out = vi.inference(img)                                   # first use: builds, caches
+    assert all(np.isfinite(k).all() and k.shape == (17, 3) for k in out.values())
+    d = vi._detector
+    geom = letterbox_geometry(480, 640, d.imgsz, rect=d.rect)
+    slots = max(vi._slots_highwater, 1)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        kernels.reset_launch_counts()
+        frame = vi._upload(img)
+        packed, kpts = detect_pose(d.model, vi._model, frame, geom, d.spec, d.imgsz, d.classes,
+                                   d.conf, d.iou, d.max_det, d.dtype, slots, vi._gate())
+        counts = kernels.launch_counts()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert counts == {"letterbox": 1, "nms": 1, "sampler": 1, "block_q8": 2, "decode": 1}
+    assert packed.shape == (300, 7) and kpts.shape == (slots, 17, 3)
+    plain = VitInference(pose, yolo=det, model_name="b", model_cfg=cfg, dtype="int8", plain=True)
+    assert plain.inference(img).keys() == vi.inference(img).keys()
+    np.testing.assert_array_equal(plain._yolo_res, vi._yolo_res)

@@ -30,6 +30,20 @@ MODULES = [
     "easy_vitpose_tpu_torch.ops.affine",
     "easy_vitpose_tpu_torch.ops.heatmap",
     "easy_vitpose_tpu_torch.pipeline.pose_step",
+    "easy_vitpose_tpu_torch.pipeline.fused_detect",
+    "easy_vitpose_tpu_torch.pipeline.inference",
+    "easy_vitpose_tpu_torch.detect.yolo",
+    "easy_vitpose_tpu_torch.track.kalman",
+    "easy_vitpose_tpu_torch.track.sort",
+    "easy_vitpose_tpu_torch.track.bytetrack",
+    "easy_vitpose_tpu_torch.ops.one_euro",
+    "easy_vitpose_tpu_torch.skeletons",
+    "easy_vitpose_tpu_torch.skeletons_data",
+    "easy_vitpose_tpu_torch.convert.vitpose_torch",
+    "easy_vitpose_tpu_torch.utils.checkpoint",
+    "easy_vitpose_tpu_torch.utils.io",
+    "easy_vitpose_tpu_torch.utils.visualization",
+    "easy_vitpose_tpu_torch.cli.infer",
     "easy_vitpose_tpu_torch.train",
     "easy_vitpose_tpu_torch.train.losses",
     "easy_vitpose_tpu_torch.train.fused_opt",
