@@ -47,6 +47,35 @@ toolkit:
    30 frames of the frame moving right); every frame held to the plain path
    on the card (detections bit for bit, IDs equal, heatmaps within
    ``HEATMAP_TOL``, keypoints the plain decode of their own heatmaps);
+   the detection frame is a CUDA graph replay (``pipeline/graphs.py``): the
+   replay equals the eager ``detect_pose`` bit for bit and counts the
+   captured launches, and the host's ms to queue a frame is the replay's;
+   the pipelined video (``inference_pipelined``) equals the sync path's
+   results one frame late; a batched window of 16 frames
+   (``inference_batched``) has the per-frame path's IDs and heatmaps within
+   ``HEATMAP_TOL`` on the same detections; the fused tick's keypoint
+   divergence (single dispatch against two-program, video mode) in px;
+4d. holds K3 over a stack of 8 frames (64 boxes in per-frame blocks, a
+   frame index per box; the 1080p stack and a 1079x1917 one, bf16 and fp32)
+   and D1 and D2 over 8 frames (YOLOv8n/320 square bf16 and fp32, YOLOv8x/640
+   rect bf16) bit for bit against their plain versions and against
+   single-frame launches, ``detect_batch_core`` against its plain twin, and
+   times the stacked launches;
+4e. drives ``MultiStreamPose`` at BASELINE config 5 (ViT-H int8 + YOLOv8x/640
+   rect bf16, 8 streams of 1080p, 8 people a stream): every two-program tick
+   against ``plain=True`` (detections bit for bit, IDs, heatmaps within
+   ``DEEP_HEATMAP_TOL``, keypoints the plain decode of their heatmaps), the
+   fused tick's graph against its eager program and that against the plain
+   one, single-dispatch IDs equal to the two-program path's, pipelined ticks
+   equal to sync ones a tick late (both kinds); ms per tick, stream-frames/s,
+   host ms, busy share, launches and syncs per tick, peak memory, the fused
+   keypoint divergence;
+4f. drives ``cli/serve_http.py``'s ``PoseService`` (ViT-B int8 + YOLOv8n/320)
+   with and without its micro-batcher: 24 requests with boxes and with the
+   detector, on 1080p and on a 433x577 frame that ``_bucket_pad`` pads, each
+   single answer equal to a direct ``VitInference`` call, each micro-batched
+   crop's heatmaps within ``HEATMAP_TOL`` of the single path's; ms per
+   request;
 5. holds the training kernels (K5 forward, K6a MLP backward, K7 attention
    backward at bf16 and fp32) against their plain versions at the main
    shapes and a ragged batch, and times each beside its plain version and
@@ -98,9 +127,12 @@ toolkit:
    the plain step with the same settings and drop-path masks;
 12. prints the optimizer's times (``optimizer``), the norm kernel's row
    (``grad_norm``: it replaces no Pallas kernel), one JSON line per kernel
-   set (``kernels``, 20 rows: D1 and D2 after K4's), the detector's and
-   ``VitInference``'s measurements (``detector``, ``vitinference``), the
-   card line, and last ``{"ok": true, "device": {...}}``.
+   set (``kernels``, 20 rows: D1 and D2 after K4's; K3's, D1's and D2's
+   launches count the image frame's and a multi-stream tick's), the
+   detector's, ``VitInference``'s, the stacked kernels', the multi-stream
+   and the HTTP measurements (``detector``, ``detector_stacked``,
+   ``sampler_stacked``, ``vitinference``, ``multistream``, ``serve_http``),
+   the card line, and last ``{"ok": true, "device": {...}}``.
 
 The A/B of each flavor against the default, interleaved in one process,
 is ``scripts/bench_torch_breakdown.py --flavors``.
@@ -137,6 +169,10 @@ UPDATE_TOL = {"fp32": 1e-5, "bf16": 1.5e-2, "int8": 2e-2}
 LAUNCH_TOL = {"torch.float32": 1e-5, "torch.bfloat16": 1e-2}
 # pose-step heatmaps against the plain pose step, relative to their range
 HEATMAP_TOL = {"fp32": 1e-5, "bf16": 2e-2, "int8": 2e-2}
+# ViT-H's 32 blocks against ViT-B's 12: a rounding flip's error compounds
+# through the blocks as a random walk, so the multi-stream phase's bound is
+# HEATMAP_TOL times sqrt(32 / 12)
+DEEP_HEATMAP_TOL = HEATMAP_TOL["int8"] * math.sqrt(32 / 12)
 # the fused decode's coordinates against its plain version, in heatmap px:
 # the same operations in the same order, so 0 is expected; the kernel's logf
 # and the eager log may differ by an ulp, which the Newton step magnifies
@@ -448,6 +484,51 @@ def check_kernels(torch, model, rng, dev):
                 "plain_ms": time_ms(torch, lambda: modulate.udp_modulate_plain(hm)),
                 "bound": bound(2.0 * hm.numel() * 4, {"f32": 46.0 * hm.numel()}),
                 "library_ms": None}
+    return out
+
+
+def check_stacked_sampler(torch, rng, dev) -> dict:
+    """K3 over a stack of STACK frames, SLOTS boxes in per-frame blocks
+    (the multi-stream tick's layout), at bf16 and fp32, on the 1080p stack
+    and on a 1079x1917 one (H * W * 3 not a multiple of 4, so frames after
+    the first start off a word): crops and packed geometry bit for bit
+    against the plain version and against per-frame launches; the 1080p
+    bf16 launch timed by device_ms."""
+    from easy_vitpose_tpu_torch.ops import preprocess, sampler
+
+    out = {}
+    per = SLOTS // STACK
+    fidx = torch.arange(SLOTS, dtype=torch.int32, device=dev) // per
+    for H, W in (FRAME_HW, (1079, 1917)):
+        frames = torch.from_numpy(rng.integers(0, 256, (STACK, H, W, 3), dtype=np.uint8)).to(dev)
+        boxes = torch.from_numpy(np.concatenate([make_boxes(rng, per, H, W)
+                                                 for _ in range(STACK)])).to(dev)
+        for tdt in (torch.float32, torch.bfloat16):
+            got, geo = sampler.crop_normalize(frames, boxes, dtype=tdt, frame_idx=fidx)
+            ref, rgeo = sampler.crop_normalize_plain(frames, boxes, dtype=tdt, frame_idx=fidx)
+            check(torch.equal(geo, rgeo), f"stacked sampler {H}x{W}: geometry differs")
+            check(torch.equal(got, ref), f"stacked sampler {H}x{W} {tdt}: crops are not the "
+                                         "plain version's bits")
+            for f in range(STACK):
+                one, g1 = sampler.crop_normalize(frames[f], boxes[f * per:(f + 1) * per], dtype=tdt)
+                check(torch.equal(got[f * per:(f + 1) * per], one) and
+                      torch.equal(geo[f * per:(f + 1) * per], g1),
+                      f"stacked sampler {H}x{W} {tdt}: frame {f} differs from its own launch")
+            print(f"check sampler stacked S={STACK} M={SLOTS} {H}x{W} {tdt}: bit-equal to the "
+                  "plain version and to per-frame launches")
+            if (H, W) == FRAME_HW and tdt == torch.bfloat16:
+                nbytes = sum(footprint_bytes(preprocess.geometry_views(geo[f * per:(f + 1) * per]),
+                                             H, W) for f in range(STACK))
+                nbytes += got.numel() * 2 + SLOTS * (16 + 32 + 4)
+                run = lambda: sampler.crop_normalize(frames, boxes, dtype=tdt,  # noqa: E731
+                                                     frame_idx=fidx)
+                out = {"max_abs_err": 0.0, "ms": device_ms(torch, run),
+                       "issued_ms": time_ms(torch, run),
+                       "plain_ms": time_ms(torch, lambda: sampler.crop_normalize_plain(
+                           frames, boxes, dtype=tdt, frame_idx=fidx)),
+                       "bound": bound(nbytes, {"f32": 40.0 * got.numel()}), "library_ms": None,
+                       "frames": STACK, "boxes": SLOTS}
+    print("sampler_stacked:", json.dumps(out))
     return out
 
 
@@ -1361,6 +1442,8 @@ def run_pose_steps(torch, model, rng, reps, dev):
 
 DET_CONFIGS = (("n", 320), ("x", 640))   # README's YOLOv8n/320, and the largest at 640
 VI_FRAMES, VIDEO_FRAMES = 10, 30
+STACK = 8                 # frames of a stacked launch: the multi-stream tick's streams
+BATCH_WINDOW = 16         # frames of an inference_batched window
 
 
 def sampled_bytes(geom, H: int, W: int) -> int:
@@ -1441,10 +1524,85 @@ def check_detector(torch, frame_np, seed, dev) -> dict:
                         d2_bound=bound(k * 24 + 300 * 28, {"f32": 14.0 * n_valid * (n_valid - 1) / 2}))
                 res[key] = row
                 print(f"detector {key}: {json.dumps(row)}")
+    stacked = check_stacked_detector(torch, frame_np, params, dev)
     print("detector: D1 and D2 equal their plain versions bit for bit in every configuration; "
           "library_ms none: no torchvision on the card's host, and no single PyTorch call "
           "letterboxes or runs greedy NMS")
-    return {"configs": res, "params_n": params["n"]}
+    return {"configs": res, "stacked": stacked, "params_n": params["n"], "params_x": params["x"]}
+
+
+def stack_frames(frame_np, S: int, step: int = 240) -> np.ndarray:
+    """S frames of one stack: the frame rolled right by ``step`` px each."""
+    return np.stack([np.roll(frame_np, step * s, axis=1) for s in range(S)])
+
+
+def stack_candidates(torch, yolo, model, frames, geom, spec, dtype):
+    """detector_candidates for a stack: (S, k) score-sorted candidates."""
+    x = yolo.letterbox_input(frames, geom, dtype)
+    boxes, scores = yolo.decode_detections(yolo.yolo_forward(model, x.permute(0, 2, 3, 1)),
+                                           spec.nc)
+    scores = torch.where(yolo._class_mask((0,), spec.nc, scores.device), scores, 0.0)
+    conf, cls = torch.max(scores, -1)
+    return yolo.nms_candidates(boxes, conf, cls.to(torch.int32), 0.25, 300)
+
+
+def check_stacked_detector(torch, frame_np, params, dev) -> dict:
+    """D1 and D2 over an S-frame stack (one launch each) at YOLOv8n/320
+    (square, bf16 and fp32) and YOLOv8x/640 (rect, bf16): bit for bit
+    against their plain versions and against S single-frame launches, and
+    detect_batch_core against its plain-D1/D2 twin; the stacked launches'
+    device ms, plain ms and bounds."""
+    from easy_vitpose_tpu_torch.detect import yolo
+
+    H, W = frame_np.shape[:2]
+    frames = torch.from_numpy(stack_frames(frame_np, STACK)).to(dev)
+    res = {}
+    for scale, imgsz, rect, dtype in (("n", 320, False, torch.bfloat16),
+                                      ("n", 320, False, torch.float32),
+                                      ("x", 640, True, torch.bfloat16)):
+        spec = yolo.YoloSpec(scale)
+        model = yolo.yolo_params_from_jax(params[scale], spec, dtype, dev)
+        dt = "bf16" if dtype == torch.bfloat16 else "fp32"
+        key = f"{scale}{imgsz}_{dt}_{'rect' if rect else 'square'}_S{STACK}"
+        geom = yolo.letterbox_geometry(H, W, imgsz, rect=rect)
+        x = yolo.letterbox_input(frames, geom, dtype)
+        check(torch.equal(x, yolo.letterbox_input_plain(frames, geom, dtype)),
+              f"{key}: stacked D1 is not its plain version's bits")
+        check(all(torch.equal(x[s:s + 1], yolo.letterbox_input(frames[s], geom, dtype))
+                  for s in range(STACK)), f"{key}: stacked D1 differs from single-frame launches")
+        cand = stack_candidates(torch, yolo, model, frames, geom, spec, dtype)
+        r, _, _, left, top = geom[:5]
+        got = yolo.nms_packed(*cand, 300, 0.7, left, top, r)
+        check(torch.equal(got, yolo.nms_packed_plain(*cand, 300, 0.7, left, top, r)),
+              f"{key}: stacked D2 is not its plain version's bits")
+        check(all(torch.equal(got[s], yolo.nms_packed(cand[0][s], cand[1][s], cand[2][s], 300,
+                                                      0.7, left, top, r))
+                  for s in range(STACK)), f"{key}: stacked D2 differs from single-frame launches")
+        core = lambda plain=False: yolo.detect_batch_core(  # noqa: E731
+            model, frames, geom, spec, (0,), 0.25, 0.7, 300, dtype, plain=plain)
+        packed = core()
+        check(torch.equal(packed, core(True)),
+              f"{key}: detect_batch_core differs from its plain-D1/D2 twin")
+        valid = (cand[1] > 0).sum(1).tolist()
+        row = {"valid_per_frame": valid, "kept_per_frame": packed[:, :, 6].sum(1).tolist()}
+        if dtype == torch.bfloat16:
+            k = cand[0].shape[1]
+            row.update(
+                d1_ms=device_ms(torch, lambda: yolo.letterbox_input(frames, geom, dtype)),
+                d1_plain_ms=time_ms(torch, lambda: yolo.letterbox_input_plain(frames, geom, dtype)),
+                d1_bound=bound(STACK * sampled_bytes(geom, H, W) + x.numel() * x.element_size(),
+                               {"f32": 30.0 * geom[5] * geom[6] * STACK}),
+                d1_err=float((x.float() - yolo.letterbox_input_plain(frames, geom, dtype)
+                              .float()).abs().max()),
+                d2_ms=device_ms(torch, lambda: yolo.nms_packed(*cand, 300, 0.7, left, top, r)),
+                d2_plain_ms=time_ms(torch, lambda: yolo.nms_packed_plain(*cand, 300, 0.7, left,
+                                                                         top, r)),
+                d2_bound=bound(STACK * (k * 24 + 300 * 28),
+                               {"f32": 14.0 * sum(n * (n - 1) / 2 for n in valid)}),
+                d2_err=0.0, ms_per_stack=time_ms(torch, core))
+        res[key] = row
+        print(f"detector stacked {key}: {json.dumps(row)}")
+    return res
 
 
 def save_pose_npz(path: str, model) -> None:
@@ -1489,19 +1647,32 @@ def syncs_in(torch, fn) -> int:
     return sum("called a synchronizing" in str(w.message) for w in caught)
 
 
+@contextlib.contextmanager
+def eager_graphs(det):
+    """Run ``det``'s graphed programs eagerly (its cache's ``run`` calls the
+    program), so a spy sees their pose steps; a replay's bits equal the
+    eager program's, which run_vitinference and the CUDA tests check."""
+    det.graphs.run = lambda key, fn, *inputs: fn(*inputs)
+    try:
+        yield
+    finally:
+        del det.graphs.run
+
+
 def hold_to_plain(torch, vi, vi_plain, frames, dtype: str) -> dict:
     """The same frames through the kernel path and the plain path on the
     card: detections bit for bit, the same IDs, the pose step's heatmaps
     within HEATMAP_TOL of their range, the same crop geometry, and the
     keypoints the plain decode of their own heatmaps (scores bit for bit,
-    coordinates within DECODE_TOL heatmap px)."""
+    coordinates within DECODE_TOL heatmap px).  The kernel path's programs
+    run eagerly here, so the spy sees its pose steps."""
     from easy_vitpose_tpu_torch.ops import decode
     from easy_vitpose_tpu_torch.pipeline import pose_step as ps
 
     worst = {"heatmap_rel_err": 0.0, "decode_gap_px": 0.0, "people": 0}
     for f in frames:
         got, ref = [], []
-        with decode_spy(ps, got):
+        with decode_spy(ps, got), eager_graphs(vi._detector):
             out = vi.inference(f)
         with decode_spy(ps, ref):
             out_p = vi_plain.inference(f)
@@ -1568,21 +1739,33 @@ def run_vitinference(torch, model, frame_np, det, dev) -> dict:
             check(counts == want, f"{dtype} image frame launched {counts}, expected {want}")
             syncs = syncs_in(torch, lambda: vi.inference(frame_np))
             check(syncs == 1, f"{dtype} image frame made {syncs} host syncs, expected 1")
-            # the frame's queue of launches under the check set to raise
+            # the frame's queue of launches under the check set to raise:
+            # eagerly, and as the graph replay that inference() makes
             d_ = vi._detector
             geom = letterbox_geometry(*frame_np.shape[:2], d_.imgsz, rect=d_.rect)
             slots = vi._slots_highwater
+            frame_dev = vi._upload(frame_np)
+            key = ("detect_pose", tuple(frame_dev.shape), slots, vi._gate())
             torch.cuda.synchronize()
             torch.cuda.set_sync_debug_mode("error")
             try:
                 t0 = time.perf_counter()
-                packed, kpts = detect_pose(d_.model, vi._model, vi._upload(frame_np), geom, d_.spec,
+                packed, kpts = detect_pose(d_.model, vi._model, frame_dev, geom, d_.spec,
                                            d_.imgsz, d_.classes, d_.conf, d_.iou, d_.max_det,
                                            d_.dtype, slots, vi._gate())
-                queue_ms = (time.perf_counter() - t0) * 1e3
+                eager_queue_ms = (time.perf_counter() - t0) * 1e3
             finally:
                 torch.cuda.set_sync_debug_mode("default")
             torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            replay = d_.graphs.run(key, None, frame_dev)
+            queue_ms = (time.perf_counter() - t0) * 1e3
+            check(torch.equal(replay[0], packed) and torch.equal(replay[1], kpts),
+                  f"{dtype} image frame: the graph replay differs from the eager detect_pose")
+            check(d_.graphs.launches(key) == want,
+                  f"{dtype} image frame graph launches {d_.graphs.launches(key)}, expected {want}")
+            print(f"vitinference {dtype} image: graph replay equals eager detect_pose bit for bit; "
+                  f"{len(d_.graphs)} graphs captured")
             held = hold_to_plain(torch, vi, vi_plain, [frame_np], dtype)
 
             def frames(n):
@@ -1598,7 +1781,8 @@ def run_vitinference(torch, model, frame_np, det, dev) -> dict:
             from torch.autograd import DeviceType
             busy = sum(e.self_device_time_total for e in prof.key_averages()
                        if e.device_type == DeviceType.CUDA) / 1e3 / 5
-            row = {"ms_per_frame": ms, "host_queue_ms": queue_ms, "device_ms_per_frame": busy,
+            row = {"ms_per_frame": ms, "host_queue_ms": queue_ms,
+                   "eager_host_queue_ms": eager_queue_ms, "device_ms_per_frame": busy,
                    "profiled_ms_per_frame": wall, "device_busy_share": busy / ms,
                    "slots": slots, "people": len(out), "launches_per_frame": counts,
                    "host_syncs_per_frame": syncs, "load_s": load_s, **held}
@@ -1621,12 +1805,495 @@ def run_vitinference(torch, model, frame_np, det, dev) -> dict:
             ms = (time.perf_counter() - t0) * 1e3 / VIDEO_FRAMES
             counts = {k: v / VIDEO_FRAMES for k, v in kernels.launch_counts().items()}
             syncs = syncs_in(torch, lambda: vv.inference(video[0]))
+            vv.reset()
+            busy_ms, busy = busy_share(torch, lambda: [vv.inference(f) for f in video],
+                                       len(video))
             row = {"ms_per_frame": ms, "frames": VIDEO_FRAMES, "track_ids": len(ids),
-                   "launches_per_frame": counts, "host_syncs_per_frame": syncs, **held}
+                   "launches_per_frame": counts, "host_syncs_per_frame": syncs,
+                   "host_queue_ms": detect_queue_ms(torch, vv, video[0]),
+                   "device_ms_per_frame": busy_ms, "device_busy_share": busy, **held}
             print(f"vitinference {dtype} video: {json.dumps(row)}")
             check(len(ids) > 0, "video mode tracked nobody")
             res[f"{dtype}_video"] = row
+            mk = lambda **kw: VitInference(pose, yolo=det_path, model_name="b",  # noqa: E731
+                                           dtype=dtype, is_video=True, **kw)
+            res[f"{dtype}_pipelined"] = run_pipelined(torch, vv, mk(), video)
+            res[f"{dtype}_batched"] = run_batched(torch, mk(), mk(), video[:BATCH_WINDOW], dtype)
+            res["fused_divergence"] = fused_divergence(torch, mk(), mk(single_dispatch=True),
+                                                        video)
+        http = run_serve_http(torch, pose, det_path, frame_np)
+    return res, http
+
+
+def busy_share(torch, run, n: int) -> tuple:
+    """(device ms per unit, the device's busy share) of ``run()`` over its n
+    units, from torch.profiler."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3
+    return busy / n, busy / wall
+
+
+def detect_queue_ms(torch, vi, frame) -> float:
+    """The host's ms to queue a video frame's first program: the upload and
+    the detector's graph replay, without the fetch."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vi._detector.detect_async(vi._upload(frame))
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return ms
+
+
+def same_results(a, b) -> bool:
+    """Two per-frame results: the same IDs and bit-equal keypoints."""
+    return list(a) == list(b) and all(np.array_equal(a[k], b[k]) for k in a)
+
+
+def run_pipelined(torch, vv, vp, video) -> dict:
+    """inference_pipelined over the video against the sync path one frame
+    late (the same programs, so the same bits), and its ms per frame."""
+    vv.reset()
+    seq = [vv.inference(f) for f in video]
+    got = [vp.inference_pipelined(f) for f in video]
+    check(got[0] is None, "the first pipelined frame returned results")
+    got = got[1:] + [vp.flush()]
+    check(all(same_results(a, b) for a, b in zip(seq, got)),
+          "pipelined results differ from the sync path's one frame late")
+    vp.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in video:
+        vp.inference_pipelined(f)
+    vp.flush()
+    ms = (time.perf_counter() - t0) * 1e3 / len(video)
+    vv.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for f in video:
+        vv.inference(f)
+    sync_ms = (time.perf_counter() - t0) * 1e3 / len(video)
+    vp.reset()
+    busy_ms, busy = busy_share(torch, lambda: [vp.inference_pipelined(f) for f in video]
+                               + [vp.flush()], len(video))
+    row = {"ms_per_frame": ms, "sync_ms_per_frame": sync_ms, "frames": len(video),
+           "host_queue_ms": detect_queue_ms(torch, vp, video[0]),
+           "device_ms_per_frame": busy_ms, "device_busy_share": busy,
+           "equal_to_sync_one_frame_late": True}
+    print(f"vitinference pipelined: {json.dumps(row)}")
+    return row
+
+
+def run_batched(torch, vb, vs, window, dtype: str) -> dict:
+    """inference_batched over a window against per-frame inference on the
+    same detections (the window's batched detector rows, fed to the
+    per-frame path as boxes): the same IDs on every frame, each box's
+    heatmaps within HEATMAP_TOL of the per-frame step's; how many frames'
+    batched detections are the single-frame detector's bits (cuDNN's bf16
+    convolutions at batch 16 and at batch 1 may round apart); ms per frame
+    of the window."""
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
+    hb, hs, packed = [], [], []
+    with decode_spy(ps, hb), unpack_spy(vb._detector, packed):
+        outs = vb.inference_batched(window)
+    H, W = window[0].shape[:2]
+    dets = vb._detector.unpack_batch(packed[0], (H, W))
+    with decode_spy(ps, hs):
+        seq = [vs.inference(f, bboxes=vs._filter_dets(r)) for f, r in zip(window, dets)]
+    check(all(list(a) == list(b) for a, b in zip(outs, seq)),
+          "batched window IDs differ from per-frame inference on the same detections")
+    n = sum(len(o) for o in outs)
+    check(len(hb) == 1 and n > 0, "the batched window did not pose in one step")
+    heat_b, geo_b, _ = hb[0]
+    posed = [o for o in seq if o]
+    heat_s = torch.cat([h[:len(o)] for (h, _, _), o in zip(hs, posed)])
+    geo_s = torch.cat([g[:len(o)] for (_, g, _), o in zip(hs, posed)])
+    check(torch.equal(geo_b[:n], geo_s), "batched window crop geometry differs")
+    span = float(heat_s.float().max() - heat_s.float().min())
+    err = float((heat_b[:n].float() - heat_s.float()).abs().max())
+    check(err <= HEATMAP_TOL[dtype] * span,
+          f"batched window heatmaps differ from per-frame ones: {err} of {span}")
+    single = [vs._detector(f) for f in window]
+    same_dets = sum(np.array_equal(a, b) for a, b in zip(dets, single))
+    gaps = [float(np.abs(a[:, 4] - b[:, 4]).max()) for a, b in zip(dets, single)
+            if a.shape == b.shape and len(a)]
+    score_gap = max(gaps) if gaps else None
+    vb.reset()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vb.inference_batched(window)
+    ms = (time.perf_counter() - t0) * 1e3 / len(window)
+    vb.reset()
+    busy_ms, busy = busy_share(torch, lambda: vb.inference_batched(window), len(window))
+    # the host's ms to queue the window's first program (upload, batched detector)
+    stack = np.stack(window)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vb._detector.detect_batch_async(vb._upload(stack))
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    row = {"ms_per_frame": ms, "frames": len(window), "people": n,
+           "host_queue_ms_per_window": queue_ms, "device_ms_per_frame": busy_ms,
+           "device_busy_share": busy,
+           "heatmap_rel_err": err / span, "ids_equal": True,
+           "frames_with_single_frame_detections": same_dets, "detector_score_gap": score_gap}
+    print(f"vitinference batched: {json.dumps(row)}")
+    return row
+
+
+def divergence(pairs) -> dict:
+    """Keypoint distances in px between pairs of (K, 3) results."""
+    d = np.concatenate([np.abs(a[:, :2] - b[:, :2]).max(-1) for a, b in pairs]) \
+        if pairs else np.zeros(0)
+    return {"people": len(pairs),
+            "median_px": float(np.median(d)) if len(d) else 0.0,
+            "p95_px": float(np.percentile(d, 95)) if len(d) else 0.0,
+            "max_px": float(d.max()) if len(d) else 0.0,
+            "within_2px_share": float((d <= 2).mean()) if len(d) else 0.0}
+
+
+def fused_divergence(torch, vt, vf, video) -> dict:
+    """The fused tick's keypoint divergence in video mode: single dispatch
+    (pose on the raw detection boxes) against the two-program path (pose on
+    the tracker's Kalman boxes), the same IDs on every frame."""
+    pairs = []
+    for f in video:
+        a, b = vt.inference(f), vf.inference(f)
+        check(set(a) == set(b), "single dispatch IDs differ from the two-program path's")
+        pairs += [(a[k], b[k]) for k in a]
+    row = divergence(pairs)
+    print(f"vitinference fused_divergence: {json.dumps(row)}")
+    return row
+
+
+MS_TICKS = 6                  # ticks of each multi-stream mode after its warm-up
+
+
+@contextlib.contextmanager
+def unpack_spy(det, seen: list):
+    """Record the packed rows each fetch of ``det``'s batched detections
+    unpacks (the two-program and the fused ticks both fetch through it)."""
+    real = det.unpack_batch
+
+    def spy(packed, frame_hw):
+        seen.append(np.array(packed))
+        return real(packed, frame_hw)
+
+    det.unpack_batch = spy
+    try:
+        yield
+    finally:
+        del det.unpack_batch
+
+
+def ms_ticks(frame_np, n: int, t0: int = 0) -> list:
+    """n ticks of STACK streams: stream s shows the frame rolled by 240 s px,
+    moving 8 px a tick."""
+    return [[np.roll(frame_np, 240 * s + 8 * t, axis=1) for s in range(STACK)]
+            for t in range(t0, t0 + n)]
+
+
+def hold_tick_to_plain(torch, ms, ms_plain, frames, what: str) -> dict:
+    """One two-program tick through the kernels and through the plain path:
+    detections bit for bit, the same IDs, the pose step's heatmaps within
+    HEATMAP_TOL of their range, keypoints the plain decode of their own
+    heatmaps."""
+    from easy_vitpose_tpu_torch.ops import decode
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
+    got, ref, pk, pp = [], [], [], []
+    with decode_spy(ps, got), unpack_spy(ms.detector, pk):
+        out = ms.step(frames)
+    with decode_spy(ps, ref), unpack_spy(ms_plain.detector, pp):
+        out_p = ms_plain.step(frames)
+    check(len(pk) == len(pp) and all(np.array_equal(a, b) for a, b in zip(pk, pp)),
+          f"{what}: detections differ from the plain path")
+    check([list(r) for r in out] == [list(r) for r in out_p], f"{what}: IDs differ from plain")
+    worst = {"heatmap_rel_err": 0.0, "decode_gap_px": 0.0}
+    for (hk, gk, mk), (hp, gp, mp) in zip(got, ref):
+        check(torch.equal(gk, gp) and torch.equal(mk, mp), f"{what}: crop geometry differs")
+        span = float(hp.float().max() - hp.float().min())
+        err = float((hk.float() - hp.float()).abs().max())
+        check(err <= DEEP_HEATMAP_TOL * span, f"{what}: heatmaps differ: {err} of {span}")
+        kk, kp = decode.decode_keypoints(hk, gk, mk), decode.decode_keypoints_plain(hk, gk, mk)
+        gap = decode_gap(torch, kk, kp, gk, *hk.shape[-2:])
+        check(torch.equal(kk[..., 2], kp[..., 2]) and gap <= DECODE_TOL,
+              f"{what}: keypoints are not the plain decode of their heatmaps")
+        worst["heatmap_rel_err"] = max(worst["heatmap_rel_err"], err / span)
+        worst["decode_gap_px"] = max(worst["decode_gap_px"], gap)
+    return worst
+
+
+def hold_fused_to_plain(torch, msf, det_plain, model, frames, slots: int) -> dict:
+    """The fused tick's program: its graph replay equal to the eager program
+    bit for bit, the eager program against the plain one (detections bit
+    for bit, heatmaps within HEATMAP_TOL, keypoints the plain decode of
+    their own heatmaps)."""
+    from easy_vitpose_tpu_torch.ops import decode
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
+    from easy_vitpose_tpu_torch.pipeline.fused_detect import detect_pose_multi
+    det = msf.detector
+    dev_frames = msf._upload(frames)
+    geom = det.geometry(tuple(dev_frames.shape[1:3]))
+    key = ("detect_pose_multi", tuple(dev_frames.shape), slots, float(msf._det_gate))
+    replay = det.graphs.run(key, None, dev_frames)
+    got, ref = [], []
+    with decode_spy(ps, got):
+        eager = detect_pose_multi(det.model, model, dev_frames, geom, det.spec, det.classes,
+                                  det.conf, det.iou, det.max_det, det.dtype, slots, 0.35)
+    with decode_spy(ps, ref):
+        plain = detect_pose_multi(det_plain.model, model, dev_frames, geom, det.spec,
+                                  det.classes, det.conf, det.iou, det.max_det, det.dtype, slots,
+                                  0.35, plain=True)
+    check(torch.equal(replay[0], eager[0]) and torch.equal(replay[1], eager[1]),
+          "the fused multi-stream graph replay differs from the eager program")
+    check(torch.equal(eager[0], plain[0]), "fused tick detections differ from the plain path")
+    (hk, gk, mk), (hp, gp, mp) = got[0], ref[0]
+    check(torch.equal(gk, gp) and torch.equal(mk, mp), "fused tick crop geometry differs")
+    span = float(hp.float().max() - hp.float().min())
+    err = float((hk.float() - hp.float()).abs().max())
+    check(err <= DEEP_HEATMAP_TOL * span, f"fused tick heatmaps differ: {err} of {span}")
+    kp = decode.decode_keypoints_plain(hk, gk, mk)
+    gap = decode_gap(torch, eager[1], kp, gk, *hk.shape[-2:])
+    check(torch.equal(eager[1][..., 2], kp[..., 2]) and gap <= DECODE_TOL,
+          "fused tick keypoints are not the plain decode of their heatmaps")
+    return {"heatmap_rel_err": err / span, "decode_gap_px": gap,
+            "launches_per_replay": det.graphs.launches(key)}
+
+
+def time_ticks(torch, ms, ticks, pipelined: bool) -> dict:
+    """ms per tick, the host's ms to queue a tick, launches and host syncs
+    per tick, the device's busy share (torch.profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from easy_vitpose_tpu_torch import kernels
+
+    def run(seq):
+        out = [ms.step_pipelined(f) if pipelined else ms.step(f) for f in seq]
+        if pipelined:
+            out.append(ms.flush())
+        return out
+
+    run(ticks[:2])                                   # warm-up: kernels, graphs
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    run(ticks)
+    wall = (time.perf_counter() - t0) * 1e3 / len(ticks)
+    launches = {k: v / len(ticks) for k, v in kernels.launch_counts().items()}
+    syncs = syncs_in(torch, lambda: run(ticks[:2])) / 2
+    # the host's time to queue one tick's device work: the upload and the
+    # programs of a detection tick, without its fetches
+    torch.cuda.synchronize()
+    frames = ms._upload(ticks[0])
+    t0 = time.perf_counter()
+    if ms.single_dispatch:
+        ms._dispatch_fused(frames)
+    else:
+        ms._dispatch_detect(frames)
+    queue_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run(ticks[:3])
+        torch.cuda.synchronize()
+        prof_ms = (time.perf_counter() - t0) * 1e3 / 3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA) / 1e3 / 3
+    return {"ms_per_tick": wall, "stream_frames_per_s": STACK * 1e3 / wall,
+            "host_dispatch_ms": queue_ms, "device_ms_per_tick": busy,
+            "device_busy_share": busy / prof_ms, "launches_per_tick": launches,
+            "host_syncs_per_tick": syncs}
+
+
+def run_multistream(torch, frame_np, params_x, seed, dev) -> dict:
+    """BASELINE.json config 5 at full width: ViT-H int8 + YOLOv8x/640 rect
+    at bf16 over STACK 1080p streams, max_people_per_stream 8 (64 pose
+    slots); two-program and single-dispatch ticks, each sync and pipelined;
+    every tick held to plain=True; single-dispatch IDs equal to the
+    two-program path's; pipelined results equal to sync ones a tick late;
+    ms per tick, stream-frames/s, host ms, busy share, launches and syncs
+    per tick, peak memory, the fused tick's keypoint divergence."""
+    import tempfile
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.detect import yolo
+    from easy_vitpose_tpu_torch.models.vitpose import init_params, serving_copy
+    from easy_vitpose_tpu_torch.pipeline.stream import MultiStreamPose
+
+    t0 = time.perf_counter()
+    model = serving_copy(init_params(get_model_config("coco", "h"), seed).to(dev), "int8")
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "yolov8x.npz")
+        yolo.save_yolo_npz(path, params_x, "x")
+        kw = dict(imgsz=640, classes=(0,), conf=0.25, dtype=torch.bfloat16, rect=True)
+        det = yolo.YoloDetector(path, **kw)
+        det_plain = yolo.YoloDetector(path, plain=True, **kw)
+        det_f = yolo.YoloDetector(path, **kw)
+    load_s = time.perf_counter() - t0
+    slots = 8
+
+    def mk(detector, **k):
+        return MultiStreamPose(model, detector=detector, n_streams=STACK,
+                               max_people_per_stream=slots, **k)
+
+    ticks = ms_ticks(frame_np, MS_TICKS)
+    res = {"load_s": load_s}
+    # two-program ticks against the plain path; single dispatch's IDs
+    ms, ms_plain = mk(det), mk(det_plain, plain=True)
+    msf = mk(det_f, single_dispatch=True)
+    held = {"heatmap_rel_err": 0.0, "decode_gap_px": 0.0}
+    pairs, people = [], 0
+    for t, frames in enumerate(ticks):
+        w = hold_tick_to_plain(torch, ms, ms_plain, frames, f"multistream tick {t}")
+        held = {k: max(held[k], w[k]) for k in held}
+    res["held_to_plain"] = held
+    # the same ticks through a fresh two-program and a single-dispatch instance
+    ref, fus = mk(det), msf
+    for frames in ticks:
+        a, b = ref.step(frames), fus.step(frames)
+        check([set(r) for r in a] == [set(r) for r in b],
+              "single-dispatch IDs differ from the two-program path's")
+        for ra, rb in zip(a, b):
+            pairs += [(ra[k], rb[k]) for k in ra]
+            people += len(ra)
+    check(people > 0, "multi-stream ticks found nobody")
+    res["fused_divergence"] = divergence(pairs)
+    res["fused_held_to_plain"] = hold_fused_to_plain(torch, msf, det_plain, model, ticks[0], slots)
+    # pipelined ticks equal sync ticks one tick late, both kinds
+    for name, k in (("two_program", {}), ("single_dispatch", {"single_dispatch": True})):
+        sync, pipe = mk(det, **k), mk(det_f if k else det, **k)
+        want = [sync.step(f) for f in ticks]
+        got = [pipe.step_pipelined(f) for f in ticks]
+        check(got[0] is None, f"{name}: the first pipelined tick returned results")
+        got = got[1:] + [pipe.flush()]
+        for a, b in zip(want, got):
+            check(all(same_results(x, y) for x, y in zip(a, b)),
+                  f"{name}: pipelined results differ from sync ones a tick late")
+    # timing of each mode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    timed = ms_ticks(frame_np, MS_TICKS, MS_TICKS)
+    for name, k in (("two_program", {}), ("single_dispatch", {"single_dispatch": True})):
+        for pipelined in (False, True):
+            row = time_ticks(torch, mk(det_f if k else det, **k), timed, pipelined)
+            res[f"{name}_{'pipelined' if pipelined else 'sync'}"] = row
+            print(f"multistream {name} {'pipelined' if pipelined else 'sync'}: {json.dumps(row)}")
+    res["peak_memory_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["people_per_tick"] = people / len(ticks)
+    res["graphs"] = len(det.graphs) + len(det_f.graphs)
+    print(f"multistream: fused divergence {json.dumps(res['fused_divergence'])}, held "
+          f"{json.dumps(held)}, peak {res['peak_memory_gib']:.2f} GiB")
     return res
+
+
+def run_serve_http(torch, pose, det_path, frame_np) -> dict:
+    """cli/serve_http.py's PoseService (what the handler calls) on ViT-B int8
+    + YOLOv8n/320, without and with its micro-batcher: requests with boxes
+    and with the detector's own, on the 1080p frame and on a smaller frame
+    that _bucket_pad pads.  Each single answer equals a direct VitInference
+    call on the same padded image; each micro-batched answer with boxes has
+    its boxes' heatmaps within HEATMAP_TOL of the single path's (rows matched
+    by crop geometry), and with the detector the same people as the single
+    path; ms per request, single and micro-batched (concurrent pairs)."""
+    import threading
+    from types import SimpleNamespace
+    from easy_vitpose_tpu_torch.cli import serve_http
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
+    from easy_vitpose_tpu_torch.pipeline.inference import VitInference
+
+    args = SimpleNamespace(model=pose, yolo=det_path, model_name="b", dataset=None,
+                           yolo_size=320, dtype="int8", fixed_slots=16, batch_window_ms=0,
+                           batch_max_frames=8, device=None)
+    small = np.ascontiguousarray(frame_np[:433, :577])
+    imgs = [np.roll(frame_np, 16 * i, axis=1) for i in range(4)] + [small, np.roll(small, 9, 1)]
+    base = np.array([[300, 200, 700, 1000, 0.9], [900, 150, 1300, 900, 0.8],
+                     [100, 50, 300, 400, 0.7]], np.float32)
+    # boxes inside each frame, unique per request (its crops are found in a
+    # micro-batch by their geometry)
+    boxes = [base * np.float32([1, 1, 1, 1, 1] if i < 4 else [.4, .4, .4, .4, 1])
+             + np.float32([4 * i, 2 * i, 4 * i, 2 * i, 0]) for i in range(len(imgs))]
+    svc = serve_http.PoseService(args)
+    svc.warmup([(1080, 1920), (433, 577)])
+    direct = VitInference(pose, yolo=det_path, model_name="b", dtype="int8", fixed_slots=16)
+    answered, single_ms, heat_single, people_single = 0, [], {}, {}
+    for i, img in enumerate(imgs):
+        for with_boxes in (True, False):
+            bx = boxes[i] if with_boxes else None
+            seen = []
+            with decode_spy(ps, seen):
+                t0 = time.perf_counter()
+                out = svc.pose(img, bx)
+                single_ms.append(((time.perf_counter() - t0) * 1e3, img.shape[0]))
+            ref = direct.inference(serve_http._bucket_pad(img), bboxes=bx)
+            direct.reset()
+            check(list(out["keypoints"]) == list(ref) and all(
+                np.array_equal(out["keypoints"][k], ref[k]) for k in ref),
+                f"serve_http request {i}: differs from a direct VitInference call")
+            if with_boxes:
+                heat_single[i] = (seen[0][0][:len(bx)], seen[0][1][:len(bx)])
+            else:
+                people_single[i] = len(out["keypoints"])
+            answered += 1
+    svc_b = serve_http.PoseService(SimpleNamespace(**{**vars(args), "batch_window_ms": 5.0}))
+    try:
+        svc_b.warmup([(1080, 1920), (433, 577)])
+        worst, batched_ms, frames_seen = 0.0, [], []
+        for with_boxes in (True, False):
+            for i in range(0, len(imgs), 2):
+                outs, seen = [None, None], []
+
+                def go(j):
+                    t = time.perf_counter()
+                    outs[j] = svc_b.pose(imgs[i + j], boxes[i + j] if with_boxes else None)
+                    batched_ms.append((time.perf_counter() - t) * 1e3)
+
+                with decode_spy(ps, seen):
+                    th = [threading.Thread(target=go, args=(j,)) for j in range(2)]
+                    for t in th:
+                        t.start()
+                    for t in th:
+                        t.join(timeout=300)
+                        check(not t.is_alive(), "a micro-batched request did not finish")
+                for j, out in enumerate(outs):
+                    frames_seen.append(out["batched_frames"])
+                    answered += 1
+                    if not with_boxes:
+                        check(len(out["keypoints"]) == people_single[i + j],
+                              "a micro-batched detector request posed other people")
+                        continue
+                    check(list(out["keypoints"]) == list(range(len(boxes[i + j]))),
+                          "a micro-batched answer has other people than its boxes")
+                    ref_h, ref_g = heat_single[i + j]
+                    span = float(ref_h.float().max() - ref_h.float().min())
+                    for r in range(len(ref_g)):
+                        rows = [(h, k) for h, g, _ in seen for k in range(g.shape[0])
+                                if torch.equal(g[k], ref_g[r])]
+                        check(len(rows) == 1, "a micro-batched crop is not in the batch once")
+                        h, k = rows[0]
+                        err = float((h[k].float() - ref_h[r].float()).abs().max())
+                        worst = max(worst, err / span)
+        check(worst <= HEATMAP_TOL["int8"],
+              f"micro-batched heatmaps differ from the single path's: {worst}")
+    finally:
+        svc_b.close()
+    check(answered >= 20, f"serve_http answered {answered} requests")
+    row = {"requests": answered,
+           "single_ms_per_request_1080p": statistics.median(
+               ms for ms, h in single_ms if h == FRAME_HW[0]),
+           "single_ms_per_request_433x577": statistics.median(
+               ms for ms, h in single_ms if h != FRAME_HW[0]),
+           "batched_ms_per_request": statistics.median(batched_ms),
+           "batched_frames_seen": sorted(set(frames_seen)),
+           "batched_heatmap_rel_err": worst}
+    print(f"serve_http: {json.dumps(row)}")
+    return row
 
 
 def main() -> int:
@@ -1661,10 +2328,17 @@ def main() -> int:
         meas = check_kernels(torch, model, rng, dev)
         meas["decode"] = check_decode(torch, np.random.default_rng(args.seed + 2), dev)
         steps = run_pose_steps(torch, model, rng, args.reps, dev)
+        meas["sampler_stacked"] = check_stacked_sampler(torch, np.random.default_rng(args.seed + 4),
+                                                        dev)
         frame_np = np.random.default_rng(args.seed + 3).integers(0, 256, (*FRAME_HW, 3),
                                                                  dtype=np.uint8)
         det = check_detector(torch, frame_np, args.seed, dev)
-        vi = run_vitinference(torch, model, frame_np, det, dev)
+        vi, http = run_vitinference(torch, model, frame_np, det, dev)
+        ms = run_multistream(torch, frame_np, det["params_x"], args.seed, dev)
+    torch.cuda.empty_cache()
+    print("vitinference:", json.dumps(vi))
+    print("multistream:", json.dumps(ms))
+    print("serve_http:", json.dumps(http))
     meas.update(check_train_kernels(torch, model, rng, dev))
     gemms = {"vit_b": check_train_gemms(torch, model, rng, dev)}
     train = run_train_step(torch, model, rng, args.seed, dev,
@@ -1710,13 +2384,17 @@ def main() -> int:
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                      "library_ms": m["library_ms"]})
+    # K3, D1 and D2 also launch once per multi-stream tick, stacked
+    tick = ms["two_program_sync"]["launches_per_tick"]
+    rows[3]["launches"] += int(tick.get("sampler", 0))
     d = det["configs"]["n320_bf16_square"]              # the detector of the main path
     for name, src, replaces, counter, pre in (
             ("D1 letterbox", "letterbox.cu", "detect/yolo.py:293 (XLA, no Pallas)", "letterbox", "d1"),
             ("D2 nms", "nms.cu", "detect/yolo.py:196 (XLA, no Pallas)", "nms", "d2")):
         rows.append({"name": name, "route": "cuda", "source": f"easy_vitpose_tpu_torch/csrc/{src}",
                      "replaces": f"easy_vitpose_tpu/{replaces}",
-                     "launches": vi["int8_image"]["launches_per_frame"].get(counter, 0),
+                     "launches": (vi["int8_image"]["launches_per_frame"].get(counter, 0)
+                                  + int(tick.get(counter, 0))),
                      "max_abs_err": d[f"{pre}_err"], "ms": d[f"{pre}_ms"],
                      "plain_ms": d[f"{pre}_plain_ms"], "bound_ms": d[f"{pre}_bound"][0],
                      "bound_by": d[f"{pre}_bound"][1], "library_ms": None})
@@ -1763,7 +2441,8 @@ def main() -> int:
         print(label + ":", json.dumps({k: v for k, v in run.items() if k != "launches"}))
     print("train_gemms:", json.dumps(gemms))
     print("detector:", json.dumps(det["configs"]))
-    print("vitinference:", json.dumps(vi))
+    print("detector_stacked:", json.dumps(det["stacked"]))
+    print("sampler_stacked:", json.dumps(meas["sampler_stacked"]))
     print("pose_steps:", json.dumps({k: {kk: vv for kk, vv in v.items() if kk != "launches"}
                                      for k, v in steps.items()}))
     # the norm kernel on ViT-B's leaves, launched once by the main path's step

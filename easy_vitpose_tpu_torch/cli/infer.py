@@ -1,10 +1,12 @@
 """Inference CLI of the port: image / video / webcam / directory input,
 FPS stats, annotated image/video output, JSON keypoint dumps.
 
-Port of ``easy_vitpose_tpu/cli/infer.py`` with the same parser.  Runs on
-CUDA unless ``--device cpu`` is given.  ``--pipelined``, ``--batch`` and
-``--target-fps`` are not ported yet (ROADMAP A11) and exit with a message.
-Media input and output need cv2.
+Port of ``easy_vitpose_tpu/cli/infer.py`` with the same parser and flag
+rules.  Runs on CUDA unless ``--device cpu`` is given.  Video modes:
+``--pipelined`` (``VitInference.inference_pipelined``, one frame late),
+``--batch N`` (offline windows of N frames, ``inference_batched``) and
+``--target-fps`` (``pipeline/autotune.py`` retunes ``yolo_step``).  Media
+input and output need cv2.
 
 Usage:
   python -m easy_vitpose_tpu_torch.cli.infer --input video.mp4 --model ckpt.npz \\
@@ -65,10 +67,13 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch device to run on; default CUDA ('cpu' runs the kernels' "
                         "plain versions)")
     p.add_argument("--pipelined", action="store_true",
-                   help="not ported yet (ROADMAP A11)")
-    p.add_argument("--batch", type=int, default=0, help="not ported yet (ROADMAP A11)")
+                   help="video: queue frame t's detection before fetching frame t-1's "
+                        "pose (results one frame late)")
+    p.add_argument("--batch", type=int, default=0,
+                   help="offline video: windows of N frames, one batched detector program "
+                        "and one multi-frame pose step each (0 = off)")
     p.add_argument("--target-fps", type=float, default=None,
-                   help="not ported yet (ROADMAP A11)")
+                   help="video/webcam: auto-tune yolo_step to hold this frame rate")
     p.add_argument("--single-dispatch", action="store_true", default=None,
                    help="queue detector + pose as one unit with one fetch on detection "
                         "frames; default on for images / --single-pose, opt-in for video "
@@ -106,6 +111,11 @@ def run_one(args, input_path: str) -> None:
         frames = [cv2.cvtColor(img, cv2.COLOR_BGR2RGB)]
         meta = {"fps": 1}
 
+    single_dispatch = args.single_dispatch
+    if single_dispatch is None and (args.batch or args.pipelined):
+        # the default-on resolution (images / --single-pose) must not leak
+        # into the modes with their own dispatch schedules
+        single_dispatch = False
     smooth_params = ({"fps": float(meta["fps"])}
                      if args.smooth and is_video and meta.get("fps") else None)
     model = VitInference(args.model, yolo=args.yolo, model_name=args.model_name,
@@ -114,19 +124,68 @@ def run_one(args, input_path: str) -> None:
                          single_pose=args.single_pose, yolo_step=args.yolo_step,
                          dtype=args.dtype, smooth=args.smooth, smooth_params=smooth_params,
                          fixed_slots=args.fixed_slots, device=args.device,
-                         tracker=args.tracker, single_dispatch=args.single_dispatch)
+                         tracker=args.tracker, single_dispatch=single_dispatch)
     print(f">>> model loaded: {args.model} (dataset={model.dataset}, dtype={args.dtype}, "
           f"device={model.device})")
 
     save_media = (args.save_img or args.show) or bool(args.output_path)
     base = os.path.splitext(os.path.basename(str(input_path)))[0]
 
+    tuner = None
+    if args.target_fps and is_video:
+        from ..pipeline.autotune import YoloStepAutoTuner
+        tuner = YoloStepAutoTuner(args.target_fps, min_step=args.yolo_step)
+
+    use_pipeline = args.pipelined and is_video and args.yolo
+    frame_iter = iter(frames)
+
+    def stream():
+        if args.batch and is_video and not str(input_path).isdigit():
+            # offline windows: one batched detector program and one
+            # multi-frame pose step per window of N frames
+            def emit(window):
+                outs = model.inference_batched(window)
+                for k, (fr, out) in enumerate(zip(window, outs)):
+                    if save_media:
+                        model.select_frame_state(k)  # draw() per frame
+                    yield fr, out
+
+            window = []
+            for f in frame_iter:
+                window.append(f)
+                if len(window) == args.batch:
+                    yield from emit(window)
+                    window = []
+            if window:
+                yield from emit(window)
+            return
+        if not use_pipeline:
+            for f in frame_iter:
+                yield f, model.inference(f)
+            return
+        prev = None
+        for f in frame_iter:
+            out = model.inference_pipelined(f)
+            if out is not None:
+                yield prev, out
+            prev = f
+        out = model.flush()
+        if out is not None:
+            yield prev, out
+
     t_prev = time.perf_counter()
-    for frame in frames:
-        kpts = model.inference(frame)
+    for i, (frame, kpts) in enumerate(stream()):
         now = time.perf_counter()
-        fps_hist.append(1.0 / max(now - t_prev, 1e-9))
+        dt = now - t_prev
         t_prev = now
+        fps_hist.append(1.0 / max(dt, 1e-9))
+        if tuner is not None and i >= 3:  # the first frames build the kernels
+            new_step = tuner.update(dt)
+            if new_step != model.yolo_step:
+                print(f">>> auto-tune: yolo_step -> {new_step} "
+                      f"(ema {1.0 / max(tuner._avg_dt, 1e-9):.1f} fps, "
+                      f"target {args.target_fps})")
+                model.set_yolo_step(new_step)
         if args.save_json:
             keypoints_log.append({str(k): v for k, v in kpts.items()})
         if save_media:
@@ -179,13 +238,24 @@ def _trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
+def check_flags(args) -> None:
+    """JAX's mode-conflict rules, checked before the model loads."""
+    if args.batch and (args.target_fps or args.pipelined):
+        raise SystemExit(
+            "--batch is the offline windowed mode; it is incompatible with the live-pacing "
+            "flags --target-fps (the auto-tuner needs steady per-frame timing, not "
+            "whole-window bursts) and --pipelined (the window already overlaps detect "
+            "and pose)")
+    if args.single_dispatch and (args.batch or args.pipelined):
+        raise SystemExit(
+            "--single-dispatch fuses detector+pose into one program on plain per-frame "
+            "inference only; --pipelined and --batch route through their own dispatch "
+            "schedules and would silently ignore it")
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, on in (("--pipelined", args.pipelined), ("--batch", args.batch),
-                     ("--target-fps", args.target_fps)):
-        if on:
-            raise SystemExit(f"{flag} is not ported to the PyTorch package yet (ROADMAP A11); "
-                             "run without it for per-frame inference")
+    check_flags(args)
     with (_trace(args.trace) if args.trace else contextlib.nullcontext()):
         if os.path.isdir(args.input):
             inputs = sorted(sum((glob(os.path.join(args.input, "*" + e))

@@ -1,9 +1,12 @@
-// D1: the detector's letterbox, from the uint8 frame to its input, in one
-// launch.  Replaces the XLA code of easy_vitpose_tpu/detect/yolo.py::
-// letterbox_sample (a clamped bilinear gather with cv2's half-pixel map, 114
-// outside the resized image) and the divide by 255 and cast of
-// detect_frame_core; in JAX XLA fuses them, where eager PyTorch would issue
-// some twenty launches a frame (detect/yolo.py::letterbox_input_plain).
+// D1: the detector's letterbox, from S uint8 frames of one size to its
+// input, in one launch.  Replaces the XLA code of easy_vitpose_tpu/detect/
+// yolo.py::letterbox_sample (a clamped bilinear gather with cv2's half-pixel
+// map, 114 outside the resized image) and the divide by 255 and cast of
+// detect_frame_core, and their vmap over the stack in detect_batch_core; in
+// JAX XLA fuses them, where eager PyTorch would issue some twenty launches a
+// frame (detect/yolo.py::letterbox_input_plain).  The grid's second
+// dimension takes the frames: every frame has the same geometry, and frame
+// s writes canvas s of the (S, ch, cw, 3) output.
 //
 // One thread makes one canvas pixel, its three channels: the x taps and the
 // y taps of the pixel, four 3-byte frame reads, the x lerp on both rows and
@@ -50,10 +53,12 @@ __device__ __forceinline__ float lerp(float a, float wa, float b, float wb) {
 
 template <typename TO>
 __global__ void __launch_bounds__(THREADS)
-letterbox_kernel(const uint8_t* __restrict__ frame, TO* __restrict__ out, int H, int W, int cw,
+letterbox_kernel(const uint8_t* __restrict__ frames, TO* __restrict__ outs, int H, int W, int cw,
                  int ch, int new_w, int new_h, int left, int top, float scale_x, float scale_y) {
     const int p = blockIdx.x * THREADS + threadIdx.x;
     if (p >= cw * ch) return;
+    const uint8_t* __restrict__ frame = frames + static_cast<size_t>(blockIdx.y) * H * W * 3;
+    TO* __restrict__ out = outs + static_cast<size_t>(blockIdx.y) * cw * ch * 3;
     const int y = p / cw, x = p - y * cw;
     float v[3];
     if (x >= left && x < left + new_w && y >= top && y < top + new_h) {
@@ -76,26 +81,27 @@ letterbox_kernel(const uint8_t* __restrict__ frame, TO* __restrict__ out, int H,
 }
 
 template <typename TO>
-int launch(const uint8_t* frame, void* out, int H, int W, int cw, int ch, int new_w, int new_h,
-           int left, int top, float sx, float sy, cudaStream_t st) {
-    const int blocks = (cw * ch + THREADS - 1) / THREADS;
-    letterbox_kernel<TO><<<blocks, THREADS, 0, st>>>(frame, static_cast<TO*>(out), H, W, cw, ch,
-                                                     new_w, new_h, left, top, sx, sy);
+int launch(const uint8_t* frames, void* out, int S, int H, int W, int cw, int ch, int new_w,
+           int new_h, int left, int top, float sx, float sy, cudaStream_t st) {
+    const dim3 grid((cw * ch + THREADS - 1) / THREADS, S);
+    letterbox_kernel<TO><<<grid, THREADS, 0, st>>>(frames, static_cast<TO*>(out), H, W, cw, ch,
+                                                   new_w, new_h, left, top, sx, sy);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// frame: (H, W, 3) uint8; out: (ch, cw, 3) float32 or bf16; scale_x, scale_y:
-// W / new_w and H / new_h rounded to float32.
-EVT_EXPORT int evt_letterbox(const void* frame, void* out, int H, int W, int cw, int ch,
+// frames: (S, H, W, 3) uint8; out: (S, ch, cw, 3) float32 or bf16; scale_x,
+// scale_y: W / new_w and H / new_h rounded to float32.
+EVT_EXPORT int evt_letterbox(const void* frames, void* out, int S, int H, int W, int cw, int ch,
                              int new_w, int new_h, int left, int top, float scale_x,
                              float scale_y, int out_bf16, void* stream) {
-    if (H <= 0 || W <= 0 || cw <= 0 || ch <= 0) return static_cast<int>(cudaErrorInvalidValue);
-    const uint8_t* f = static_cast<const uint8_t*>(frame);
+    if (S <= 0 || S > 65535 || H <= 0 || W <= 0 || cw <= 0 || ch <= 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    const uint8_t* f = static_cast<const uint8_t*>(frames);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return out_bf16 ? launch<bf16>(f, out, H, W, cw, ch, new_w, new_h, left, top, scale_x,
+    return out_bf16 ? launch<bf16>(f, out, S, H, W, cw, ch, new_w, new_h, left, top, scale_x,
                                    scale_y, st)
-                    : launch<float>(f, out, H, W, cw, ch, new_w, new_h, left, top, scale_x,
+                    : launch<float>(f, out, S, H, W, cw, ch, new_w, new_h, left, top, scale_x,
                                     scale_y, st);
 }

@@ -5,8 +5,10 @@
 // for sequential loops; in eager PyTorch its exit test would make the host
 // wait every round) and the un-letterbox and packing of detect_frame_core.
 //
-// One block of 1024 threads, the form of the reference's bitmask NMS
-// (nms_kernel.cu): the IoU of every pair among the n valid candidates
+// One block of 1024 threads per frame (the grid takes a stack of S frames'
+// candidates, replacing JAX's vmap of nms_fixed in detect_batch_core; each
+// block counts its own frame's valid prefix), the form of the reference's
+// bitmask NMS (nms_kernel.cu): the IoU of every pair among the n valid candidates
 // (score > 0, a prefix of the score order) goes into a bitmask in shared
 // memory, row i holding the later candidates j > i that i suppresses (k x
 // ceil(k/32) words: 12 KB at k = 300); then one warp sweeps the rows in
@@ -50,10 +52,15 @@ __device__ __forceinline__ float iou(float4 a, float area_a, float4 b, float are
 }
 
 __global__ void __launch_bounds__(THREADS)
-nms_kernel(const float* __restrict__ boxes, const float* __restrict__ scores,
-           const int* __restrict__ cls, float* __restrict__ out, int k, int max_det,
+nms_kernel(const float* __restrict__ all_boxes, const float* __restrict__ all_scores,
+           const int* __restrict__ all_cls, float* __restrict__ all_out, int k, int max_det,
            float iou_t, int class_aware, float left, float top, float r) {
     extern __shared__ __align__(16) unsigned char smem[];
+    const size_t f = blockIdx.x;        // this block's frame
+    const float* __restrict__ boxes = all_boxes + f * k * 4;
+    const float* __restrict__ scores = all_scores + f * k;
+    const int* __restrict__ cls = all_cls + f * k;
+    float* __restrict__ out = all_out + f * max_det * 7;
     const int words = (k + 31) / 32;
     float4* nb = reinterpret_cast<float4*>(smem);                  // offset boxes
     float* area = reinterpret_cast<float*>(nb + k);
@@ -169,20 +176,20 @@ nms_kernel(const float* __restrict__ boxes, const float* __restrict__ scores,
 
 }  // namespace
 
-// boxes (k, 4), scores (k,) float32 and cls (k,) int32: the score-sorted
-// candidates; out: (max_det, 7) float32 packed rows; k <= max_det.
-EVT_EXPORT int evt_nms(const void* boxes, const void* scores, const void* cls, void* out, int k,
-                       int max_det, float iou_t, int class_aware, float left, float top,
+// boxes (S, k, 4), scores (S, k) float32 and cls (S, k) int32: each frame's
+// score-sorted candidates; out: (S, max_det, 7) float32 packed rows;
+// k <= max_det.  The kernel's shared-memory limit is raised once, at the
+// first call (made before any CUDA graph capture), to the most any k takes.
+EVT_EXPORT int evt_nms(const void* boxes, const void* scores, const void* cls, void* out, int S,
+                       int k, int max_det, float iou_t, int class_aware, float left, float top,
                        float r, void* stream) {
     const size_t smem = smem_bytes(k);
-    if (k <= 0 || k > max_det || k > 32 * MAX_WORDS || smem > MAX_SMEM)
+    if (S <= 0 || k <= 0 || k > max_det || k > 32 * MAX_WORDS || smem > MAX_SMEM)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (smem > 48 * 1024) {
-        const cudaError_t e = cudaFuncSetAttribute(
-            nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-        if (e != cudaSuccess) return static_cast<int>(e);
-    }
-    nms_kernel<<<1, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        nms_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(MAX_SMEM));
+    if (attr != cudaSuccess) return static_cast<int>(attr);
+    nms_kernel<<<S, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
         static_cast<const float*>(boxes), static_cast<const float*>(scores),
         static_cast<const int*>(cls), static_cast<float*>(out), k, max_det, iou_t, class_aware,
         left, top, r);

@@ -1,8 +1,15 @@
 // K3: crop geometry, bilinear crop + zero pad + resize of M boxes from a
-// uint8 (H, W, 3) frame, with the ImageNet normalize fused, in one launch:
-// (M, 4) float32 boxes -> the backbone's (M, OH, OW, 3) input in float32 or
-// bf16, and the packed (M, 8) int32 geometry the decode reads.
-// Replaces easy_vitpose_tpu/ops/pallas_sampler.py::_sampler_kernel.
+// uint8 (H, W, 3) frame, or from a stack of S frames (S, H, W, 3) with one
+// frame index per box, with the ImageNet normalize fused, in one launch:
+// (M, 4) float32 frame-local boxes -> the backbone's (M, OH, OW, 3) input in
+// float32 or bf16, and the packed (M, 8) int32 geometry the decode reads.
+// Replaces easy_vitpose_tpu/ops/pallas_sampler.py::_sampler_kernel and, for
+// a stack, the frame-indexed gather of ops/preprocess.py::sample_crops.
+//
+// A stacked box reads its own frame: its block offsets the frame pointer by
+// its index times H * W * 3.  The index is taken as JAX's gather takes it
+// (a negative one counts from the end, then it is clamped to [0, S - 1]), so
+// no index reads outside the stack and the host checks none.
 //
 // The geometry is ops/preprocess.py::crop_geometry on each box: rintf (half
 // to even, as torch.round), the +/-10 px inflation clipped to the frame, the
@@ -107,9 +114,10 @@ __device__ __forceinline__ void store(TO* dst, const float* v) {
 }
 
 // The three channels of the frame pixel at byte offset off, in the low three
-// bytes: with WORDS (a 4-byte aligned frame) from the one or two aligned
-// words that hold them, else byte by byte.  No byte past the pixel's word
-// is read, so the frame's last pixel reads nothing beyond the frame.
+// bytes: with WORDS (every frame 4-byte aligned, the stack a whole number of
+// words) from the one or two aligned words that hold them, else byte by
+// byte.  No byte past the pixel's word is read, so the stack's last pixel
+// reads nothing beyond the stack.
 template <bool WORDS>
 __device__ __forceinline__ unsigned pixel_bytes(const uint8_t* __restrict__ frame, size_t off) {
     if constexpr (WORDS) {
@@ -161,13 +169,16 @@ __device__ __forceinline__ unsigned ch2(unsigned p) { return bf16_bits(channel(p
 // channels.
 template <typename TO, int VEC, bool WORDS>
 __global__ void __launch_bounds__(THREADS)
-crop_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ boxes,
-            int* __restrict__ geo, TO* __restrict__ out, int H, int W, int OH, int OW,
-            float3 mean, float3 stdv) {
+crop_kernel(const uint8_t* __restrict__ stack, const int* __restrict__ frame_idx, int S,
+            const float* __restrict__ boxes, int* __restrict__ geo, TO* __restrict__ out,
+            int H, int W, int OH, int OW, float3 mean, float3 stdv) {
     extern __shared__ AxisTaps col[];
     __shared__ AxisTaps rows[BAND];
     __shared__ Geo sg;
     const int m = blockIdx.y, r0 = blockIdx.x * BAND, t = threadIdx.x;
+    int fi = frame_idx ? frame_idx[m] : 0;
+    fi = min(max(fi < 0 ? fi + S : fi, 0), S - 1);
+    const uint8_t* __restrict__ frame = stack + (size_t)fi * H * W * 3;
     if (t == 0) {
         sg = box_geometry(boxes + m * 4, H, W);
         if (blockIdx.x == 0) {
@@ -233,42 +244,49 @@ crop_kernel(const uint8_t* __restrict__ frame, const float* __restrict__ boxes,
 }
 
 template <typename TO, int VEC>
-void launch_vec(const uint8_t* frame, const float* boxes, int* geo, TO* out, int M, int H,
-                int W, int OH, int OW, float3 mean, float3 stdv, cudaStream_t st) {
+void launch_vec(const uint8_t* stack, const int* fidx, int S, const float* boxes, int* geo,
+                TO* out, int M, int H, int W, int OH, int OW, float3 mean, float3 stdv,
+                cudaStream_t st) {
     const dim3 grid((OH + BAND - 1) / BAND, M);
     const size_t smem = sizeof(AxisTaps) * OW;
-    // aligned 32-bit frame reads when the frame starts on 4 bytes
-    if (reinterpret_cast<uintptr_t>(frame) % 4 == 0)
-        crop_kernel<TO, VEC, true><<<grid, THREADS, smem, st>>>(frame, boxes, geo, out, H, W,
-                                                                OH, OW, mean, stdv);
+    // aligned 32-bit frame reads when every frame of the stack starts on 4
+    // bytes and the stack ends on a word: then no word read runs past it
+    const bool words = reinterpret_cast<uintptr_t>(stack) % 4 == 0 && (size_t)H * W * 3 % 4 == 0;
+    if (words)
+        crop_kernel<TO, VEC, true><<<grid, THREADS, smem, st>>>(stack, fidx, S, boxes, geo, out,
+                                                                H, W, OH, OW, mean, stdv);
     else
-        crop_kernel<TO, VEC, false><<<grid, THREADS, smem, st>>>(frame, boxes, geo, out, H, W,
-                                                                 OH, OW, mean, stdv);
+        crop_kernel<TO, VEC, false><<<grid, THREADS, smem, st>>>(stack, fidx, S, boxes, geo, out,
+                                                                 H, W, OH, OW, mean, stdv);
 }
 
 template <typename TO>
-int launch(const uint8_t* frame, const float* boxes, int* geo, void* out, int M, int H, int W,
-           int OH, int OW, float3 mean, float3 stdv, cudaStream_t st) {
+int launch(const uint8_t* stack, const int* fidx, int S, const float* boxes, int* geo, void* out,
+           int M, int H, int W, int OH, int OW, float3 mean, float3 stdv, cudaStream_t st) {
     constexpr int VEC = 16 / sizeof(TO);
     TO* o = static_cast<TO*>(out);
     // 16-byte stores when every crop row starts on 16 bytes and holds whole groups
     if (OW % VEC == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0)
-        launch_vec<TO, VEC>(frame, boxes, geo, o, M, H, W, OH, OW, mean, stdv, st);
+        launch_vec<TO, VEC>(stack, fidx, S, boxes, geo, o, M, H, W, OH, OW, mean, stdv, st);
     else
-        launch_vec<TO, 1>(frame, boxes, geo, o, M, H, W, OH, OW, mean, stdv, st);
+        launch_vec<TO, 1>(stack, fidx, S, boxes, geo, o, M, H, W, OH, OW, mean, stdv, st);
     return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-EVT_EXPORT int evt_crop_sample(const void* frame, const void* boxes, void* geo, void* out, int M,
-                               int H, int W, int OH, int OW, float m0, float m1, float m2,
-                               float s0, float s1, float s2, int out_bf16, void* stream) {
-    const uint8_t* f = static_cast<const uint8_t*>(frame);
+// frames: (S, H, W, 3) uint8; frame_idx: (M,) int32, or null for S = 1.
+EVT_EXPORT int evt_crop_sample(const void* frames, const void* frame_idx, int S,
+                               const void* boxes, void* geo, void* out, int M, int H, int W,
+                               int OH, int OW, float m0, float m1, float m2, float s0, float s1,
+                               float s2, int out_bf16, void* stream) {
+    if (S <= 0 || (S > 1 && frame_idx == nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+    const uint8_t* f = static_cast<const uint8_t*>(frames);
+    const int* fi = static_cast<const int*>(frame_idx);
     const float* b = static_cast<const float*>(boxes);
     int* g = static_cast<int*>(geo);
     const float3 mean = make_float3(m0, m1, m2), stdv = make_float3(s0, s1, s2);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    return out_bf16 ? launch<bf16>(f, b, g, out, M, H, W, OH, OW, mean, stdv, st)
-                    : launch<float>(f, b, g, out, M, H, W, OH, OW, mean, stdv, st);
+    return out_bf16 ? launch<bf16>(f, fi, S, b, g, out, M, H, W, OH, OW, mean, stdv, st)
+                    : launch<float>(f, fi, S, b, g, out, M, H, W, OH, OW, mean, stdv, st);
 }

@@ -14,19 +14,24 @@ kernel too.
 Two of JAX's XLA stages are kernels written for the card:
 
 * D1, the letterbox (``csrc/letterbox.cu``, replacing ``letterbox_sample``
-  and the divide by 255 of ``detect_frame_core``): one launch from the uint8
-  frame to the detector's input; :func:`letterbox_input_plain` is its plain
-  version.
+  and the divide by 255 of ``detect_frame_core``, and their vmap in
+  ``detect_batch_core``): one launch from the uint8 frame, or a stack of S
+  frames of one size, to the detector's input; :func:`letterbox_input_plain`
+  is its plain version.
 * D2, greedy NMS (``csrc/nms.cu``, replacing ``nms_fixed`` and the
-  un-letterbox of ``detect_frame_core``): one block builds the IoU bitmask
-  of the score-sorted candidates in shared memory and one warp sweeps it;
+  un-letterbox of ``detect_frame_core``, and their vmap in
+  ``detect_batch_core``): one block per frame builds the IoU bitmask of its
+  score-sorted candidates in shared memory and one warp sweeps it;
   :func:`nms_packed_plain` is its plain version, JAX's Jacobi fixpoint.
 
 Each wrapper takes its plain version for a tensor on the CPU and launches
 its kernel, or raises, for a CUDA tensor.  The rest (convolutions, SiLU,
 pooling, upsampling, the DFL decode, the class gate, the stable sort) are
 PyTorch calls.  Nothing between the frame's upload and the packed rows makes
-the host wait: the per-device constants are made once.
+the host wait: the per-device constants are made once.  On the card,
+``YoloDetector.detect_async`` and ``detect_batch_async`` replay one CUDA
+graph per frame shape (``pipeline/graphs.py``), the counterpart of JAX's
+``detect_frame_jit`` and ``detect_batch_jit``.
 
 Numerics: the float32 detector assumes float32 convolutions, i.e.
 ``torch.backends.cudnn.allow_tf32 = False`` on the card (PyTorch's default
@@ -63,15 +68,6 @@ STRIDES = (8, 16, 32)
 LETTERBOX_FILL = 114.0
 NUM_CLASSES = 80  # COCO
 CLASS_OFFSET = 7680.0  # per-class coordinate shift of the class-aware NMS
-
-
-
-
-
-
-
-
-
 
 SMEM_LIMIT = 232448 - 64   # D2's dynamic shared memory: 227 KB less its counters
 
@@ -411,12 +407,13 @@ def _scale(n: int, new_n: int) -> float:
 
 def letterbox_sample_plain(frame: torch.Tensor, canvas_wh, r: float, new_w: int,
                            new_h: int, left: int, top: int) -> torch.Tensor:
-    """Bilinear sample of the (H, W, 3) uint8 frame into the canvas, 114
-    outside the resized image: (canvas_h, canvas_w, 3) float32 in [0, 255].
+    """Bilinear sample of the (H, W, 3) uint8 frame (or (S, H, W, 3) stack)
+    into the canvas, 114 outside the resized image: (canvas_h, canvas_w, 3)
+    (or (S, canvas_h, canvas_w, 3)) float32 in [0, 255].
     A literal transcription of JAX's ``letterbox_sample`` (cv2's half-pixel
     map, the x lerp then the y lerp, each ``a * (1 - f) + b * f``)."""
     cw, ch = (canvas_wh, canvas_wh) if isinstance(canvas_wh, int) else canvas_wh
-    H, W = frame.shape[:2]
+    H, W = frame.shape[-3:-1]
     dev = frame.device
     xs = torch.arange(cw, dtype=torch.float32, device=dev)
     ys = torch.arange(ch, dtype=torch.float32, device=dev)
@@ -432,8 +429,8 @@ def letterbox_sample_plain(frame: torch.Tensor, canvas_wh, r: float, new_w: int,
     fy = (sy - y0)[:, None, None]
     x1 = torch.clamp(x0 + 1, max=W - 1)
     y1 = torch.clamp(y0 + 1, max=H - 1)
-    xv = frame[:, x0].float() * (1 - fx) + frame[:, x1].float() * fx    # (H, cw, 3)
-    out = xv[y0] * (1 - fy) + xv[y1] * fy                              # (ch, cw, 3)
+    xv = frame[..., x0, :].float() * (1 - fx) + frame[..., x1, :].float() * fx  # (.., H, cw, 3)
+    out = xv[..., y0, :, :] * (1 - fy) + xv[..., y1, :, :] * fy          # (.., ch, cw, 3)
     mask = (in_y[:, None] & in_x[None, :])[..., None]
     return torch.where(mask, out, LETTERBOX_FILL)
 
@@ -447,34 +444,38 @@ def _const(value: float, device: torch.device) -> torch.Tensor:
 
 
 def letterbox_input_plain(frame: torch.Tensor, geom, dtype=torch.float32) -> torch.Tensor:
-    """Plain PyTorch version of D1: the letterboxed frame divided by 255
-    and cast: (1, 3, canvas_h, canvas_w) in ``dtype``, channels_last."""
+    """Plain PyTorch version of D1: the letterboxed frame (or stack of S
+    frames) divided by 255 and cast: (1 or S, 3, canvas_h, canvas_w) in
+    ``dtype``, channels_last."""
     r, new_w, new_h, left, top, cw, ch = geom
     img = letterbox_sample_plain(frame, (cw, ch), r, new_w, new_h, left, top)
     x = (img / _const(255.0, frame.device)).to(dtype)
-    return x[None].permute(0, 3, 1, 2)
+    return (x[None] if frame.dim() == 3 else x).permute(0, 3, 1, 2)
 
 
 def letterbox_input(frame: torch.Tensor, geom, dtype=torch.float32) -> torch.Tensor:
-    """D1: the (H, W, 3) uint8 frame -> the detector's input (1, 3,
-    canvas_h, canvas_w) in ``dtype`` (float32 or bfloat16), channels_last:
-    the letterbox, the divide by 255 and the cast in one launch.  A frame on
-    the CPU takes :func:`letterbox_input_plain`."""
+    """D1: the (H, W, 3) uint8 frame, or an (S, H, W, 3) stack of frames of
+    one size -> the detector's input (1 or S, 3, canvas_h, canvas_w) in
+    ``dtype`` (float32 or bfloat16), channels_last: the letterbox, the
+    divide by 255 and the cast in one launch.  A frame on the CPU takes
+    :func:`letterbox_input_plain`."""
     if frame.device.type == "cpu":
         return letterbox_input_plain(frame, geom, dtype)
     dev = kernels.require_cuda(frame)
-    if (frame.dtype != torch.uint8 or frame.dim() != 3 or frame.shape[2] != 3
+    if (frame.dtype != torch.uint8 or frame.dim() not in (3, 4) or frame.shape[-1] != 3
             or frame.numel() == 0):
-        raise ValueError(f"frame must be (H, W, 3) uint8, got {tuple(frame.shape)} {frame.dtype}")
+        raise ValueError(f"frame must be (H, W, 3) or (S, H, W, 3) uint8, got "
+                         f"{tuple(frame.shape)} {frame.dtype}")
     if dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"dtype must be float32 or bfloat16, got {dtype}")
     r, new_w, new_h, left, top, cw, ch = geom
     if min(new_w, new_h, cw, ch) <= 0:
         raise ValueError(f"letterbox geometry {geom} is empty")
     frame = frame.contiguous()
-    H, W = frame.shape[:2]
-    out = torch.empty((1, ch, cw, 3), dtype=dtype, device=dev)
-    kernels.call("letterbox", "evt_letterbox", dev, frame.data_ptr(), out.data_ptr(), H, W,
+    H, W = frame.shape[-3:-1]
+    S = 1 if frame.dim() == 3 else frame.shape[0]
+    out = torch.empty((S, ch, cw, 3), dtype=dtype, device=dev)
+    kernels.call("letterbox", "evt_letterbox", dev, frame.data_ptr(), out.data_ptr(), S, H, W,
                  cw, ch, new_w, new_h, left, top, _scale(W, new_w), _scale(H, new_h),
                  int(dtype == torch.bfloat16))
     kernels.count_launch("letterbox")
@@ -486,14 +487,16 @@ def letterbox_input(frame: torch.Tensor, geom, dtype=torch.float32) -> torch.Ten
 def nms_candidates(boxes: torch.Tensor, scores: torch.Tensor, class_ids: torch.Tensor,
                    conf_threshold: float, max_det: int):
     """The score-sorted top-k candidates, k = min(max_det, A): (boxes (k, 4),
-    scores (k,), classes (k,)); scores not above ``conf_threshold`` become
-    -1.  A stable descending sort puts lower indices first among equal
-    scores, as ``lax.top_k`` does (``torch.topk``'s tie order on CUDA is
-    not specified)."""
-    k = min(max_det, boxes.shape[0])
+    scores (k,), classes (k,)), or per frame of a stack ((S, A, 4) boxes ->
+    (S, k, 4), ...); scores not above ``conf_threshold`` become -1.  A
+    stable descending sort along the last axis puts lower indices first
+    among equal scores, as ``lax.top_k`` does (``torch.topk``'s tie order
+    on CUDA is not specified)."""
+    k = min(max_det, boxes.shape[-2])
     s = torch.where(scores > conf_threshold, scores, -1.0)
-    idx = torch.sort(s, descending=True, stable=True).indices[:k]
-    return boxes[idx], s[idx], class_ids[idx]
+    idx = torch.sort(s, dim=-1, descending=True, stable=True).indices[..., :k]
+    top_b = torch.gather(boxes, -2, idx[..., None].expand(*idx.shape, 4))
+    return top_b, torch.gather(s, -1, idx), torch.gather(class_ids, -1, idx)
 
 
 def greedy_keep_plain(top_b: torch.Tensor, top_s: torch.Tensor, top_c: torch.Tensor,
@@ -559,7 +562,12 @@ def nms_packed_plain(top_b: torch.Tensor, top_s: torch.Tensor, top_c: torch.Tens
     """Plain PyTorch version of D2: greedy NMS over score-sorted candidates
     (:func:`nms_candidates`), compaction, the un-letterbox ``(b - [left,
     top, left, top]) / r`` and the packing into (max_det, 7) float32 rows
-    [x1, y1, x2, y2, conf, cls, valid]."""
+    [x1, y1, x2, y2, conf, cls, valid]; for (S, k) candidates, frame by
+    frame into (S, max_det, 7)."""
+    if top_b.dim() == 3:
+        return torch.stack([nms_packed_plain(b, s, c, max_det, iou_threshold, left, top, r,
+                                             class_agnostic)
+                            for b, s, c in zip(top_b, top_s, top_c)])
     keep = greedy_keep_plain(top_b, top_s, top_c, iou_threshold, class_agnostic)
     b, s, c, v = _compact(keep, top_b, top_s, top_c, max_det)
     dev = top_b.device
@@ -579,20 +587,23 @@ def nms_packed(top_b: torch.Tensor, top_s: torch.Tensor, top_c: torch.Tensor,
     """D2: greedy NMS of the (k, 4) float32 boxes, (k,) float32 scores and
     (k,) int32 classes of :func:`nms_candidates` -> (max_det, 7) packed rows,
     un-letterboxed, in one launch (k <= max_det; rows past k are JAX's
-    zero padding, un-letterboxed too).  Candidates on the CPU take
-    :func:`nms_packed_plain`.  Raises for a k whose bitmask does not fit in
-    one block's shared memory (:func:`nms_smem_bytes` over
-    :data:`SMEM_LIMIT`)."""
+    zero padding, un-letterboxed too); or of a stack's (S, k, ...)
+    candidates -> (S, max_det, 7), one block per frame, in one launch.
+    Candidates on the CPU take :func:`nms_packed_plain`.  Raises for a k
+    whose bitmask does not fit in one block's shared memory
+    (:func:`nms_smem_bytes` over :data:`SMEM_LIMIT`)."""
     if top_b.device.type == "cpu":
         return nms_packed_plain(top_b, top_s, top_c, max_det, iou_threshold, left, top, r,
                                 class_agnostic)
     dev = kernels.require_cuda(top_b, top_s, top_c)
-    k = top_b.shape[0]
-    if (top_b.dtype != torch.float32 or tuple(top_b.shape) != (k, 4)
-            or top_s.dtype != torch.float32 or tuple(top_s.shape) != (k,)
-            or top_c.dtype != torch.int32 or tuple(top_c.shape) != (k,)):
-        raise ValueError("candidates must be (k, 4) float32 boxes, (k,) float32 scores and "
-                         f"(k,) int32 classes, got {tuple(top_b.shape)} {top_b.dtype}, "
+    lead = tuple(top_b.shape[:-2])
+    k = top_b.shape[-2] if top_b.dim() >= 2 else 0
+    if (top_b.dtype != torch.float32 or top_b.dim() not in (2, 3)
+            or tuple(top_b.shape) != (*lead, k, 4)
+            or top_s.dtype != torch.float32 or tuple(top_s.shape) != (*lead, k)
+            or top_c.dtype != torch.int32 or tuple(top_c.shape) != (*lead, k)):
+        raise ValueError("candidates must be ([S,] k, 4) float32 boxes, ([S,] k) float32 scores "
+                         f"and ([S,] k) int32 classes, got {tuple(top_b.shape)} {top_b.dtype}, "
                          f"{tuple(top_s.shape)} {top_s.dtype}, {tuple(top_c.shape)} {top_c.dtype}")
     if not 0 < k <= max_det:
         raise ValueError(f"need 0 < k <= max_det, got k={k}, max_det={max_det}")
@@ -600,9 +611,10 @@ def nms_packed(top_b: torch.Tensor, top_s: torch.Tensor, top_c: torch.Tensor,
         raise ValueError(f"k={k} candidates need {nms_smem_bytes(k)} bytes of shared memory, "
                          f"more than one block's {SMEM_LIMIT}")
     top_b, top_s, top_c = top_b.contiguous(), top_s.contiguous(), top_c.contiguous()
-    out = torch.empty((max_det, 7), dtype=torch.float32, device=dev)
+    S = lead[0] if lead else 1
+    out = torch.empty((*lead, max_det, 7), dtype=torch.float32, device=dev)
     kernels.call("nms", "evt_nms", dev, top_b.data_ptr(), top_s.data_ptr(), top_c.data_ptr(),
-                 out.data_ptr(), k, max_det, iou_threshold, int(not class_agnostic),
+                 out.data_ptr(), S, k, max_det, iou_threshold, int(not class_agnostic),
                  float(left), float(top), r)
     kernels.count_launch("nms")
     return out
@@ -619,24 +631,34 @@ def _class_mask(classes: Tuple[int, ...], nc: int, device: torch.device) -> torc
 
 
 @torch.no_grad()
-def detect_frame_core(model: Yolo, frame: torch.Tensor, geom, spec: YoloSpec, imgsz: int,
-                      classes, conf_t: float, iou_t: float, max_det: int, dtype,
+def detect_batch_core(model: Yolo, frames: torch.Tensor, geom, spec: YoloSpec, classes,
+                      conf_t: float, iou_t: float, max_det: int, dtype,
                       plain: bool = False) -> torch.Tensor:
-    """letterbox (D1) -> YOLO -> DFL decode -> class gate -> score-sorted
-    candidates -> NMS and un-letterbox (D2): (max_det, 7) float32 rows
-    [x1, y1, x2, y2, conf, cls, valid] on the frame's device, kept rows
-    first.  ``plain=True`` takes D1's and D2's plain versions on any
-    device.  On the card nothing here makes the host wait."""
+    """(S, H, W, 3) uint8 frames of one size -> letterbox (D1, one launch
+    for the stack) -> YOLO at batch S -> DFL decode -> class gate -> each
+    frame's score-sorted candidates -> NMS and un-letterbox (D2, one launch,
+    a block per frame): (S, max_det, 7) float32 rows [x1, y1, x2, y2, conf,
+    cls, valid], kept rows first per frame.  ``plain=True`` takes D1's and
+    D2's plain versions on any device.  On the card nothing here makes the
+    host wait."""
     r, new_w, new_h, left, top, cw, ch = geom
-    x = (letterbox_input_plain if plain else letterbox_input)(frame, geom, dtype)
+    x = (letterbox_input_plain if plain else letterbox_input)(frames, geom, dtype)
     boxes, scores = decode_detections(yolo_forward(model, x.permute(0, 2, 3, 1)), spec.nc)
-    boxes, scores = boxes[0], scores[0]
     if classes is not None:
         scores = torch.where(_class_mask(tuple(classes), spec.nc, scores.device), scores, 0.0)
     conf, cls = torch.max(scores, -1)
     top_b, top_s, top_c = nms_candidates(boxes, conf, cls.to(torch.int32), conf_t, max_det)
     nms = nms_packed_plain if plain else nms_packed
     return nms(top_b, top_s, top_c, max_det, iou_t, left, top, r)
+
+
+def detect_frame_core(model: Yolo, frame: torch.Tensor, geom, spec: YoloSpec, imgsz: int,
+                      classes, conf_t: float, iou_t: float, max_det: int, dtype,
+                      plain: bool = False) -> torch.Tensor:
+    """One (H, W, 3) uint8 frame through :func:`detect_batch_core` as a
+    stack of one: (max_det, 7) float32 rows on the frame's device."""
+    return detect_batch_core(model, frame[None], geom, spec, classes, conf_t, iou_t, max_det,
+                             dtype, plain=plain)[0]
 
 
 def to_device(a, device: torch.device) -> torch.Tensor:
@@ -657,8 +679,10 @@ class YoloDetector:
 
     Takes the JAX package's ``.npz`` params (``convert/yolo_torch.py``'s
     ``save_yolo_npz``, with a ``__meta__`` scale and class count).  Runs on
-    ``device``: CUDA unless the caller asks for the CPU.  ``plain=True``
-    takes D1's and D2's plain versions (for checks)."""
+    ``device``: CUDA unless the caller asks for the CPU.  On the card each
+    program is a CUDA graph replay (``graphs``, shared with the pipelines
+    that hold this detector); ``plain=True`` takes D1's and D2's plain
+    versions, eagerly (for checks)."""
 
     def __init__(self, path: str, imgsz: int = 320,
                  classes: Optional[Sequence[int]] = None,
@@ -687,15 +711,57 @@ class YoloDetector:
         self.dtype = dtype
         self.rect = rect
         self.plain = plain
+        from ..pipeline.graphs import GraphCache
+        self.graphs = GraphCache()
+
+    @property
+    def graphed(self) -> bool:
+        """True where programs run as CUDA graph replays (the card, not
+        ``plain``)."""
+        return self.device.type == "cuda" and not self.plain
+
+    def geometry(self, frame_hw):
+        """The letterbox geometry of a frame of size ``frame_hw``."""
+        return letterbox_geometry(*frame_hw, self.imgsz, rect=self.rect)
+
+    def _run(self, name: str, frames: torch.Tensor, geom) -> torch.Tensor:
+        """``detect_batch_core`` of a stack, or ``detect_frame_core`` of a
+        frame, graphed on the card."""
+        core = detect_frame_core if frames.dim() == 3 else detect_batch_core
+        args = ((self.imgsz,) if frames.dim() == 3 else ())
+
+        def program(f):
+            return core(self.model, f, geom, self.spec, *args, self.classes, self.conf,
+                        self.iou, self.max_det, self.dtype, plain=self.plain)
+
+        if not self.graphed:
+            return program(frames)
+        return self.graphs.run((name, tuple(frames.shape), self.dtype), program, frames)
 
     def detect_async(self, img, frame_hw=None) -> torch.Tensor:
         """Queue detection of one frame without waiting: the packed
         (max_det, 7) rows on the device, for :meth:`unpack` after a fetch."""
         H, W = frame_hw if frame_hw is not None else img.shape[:2]
-        geom = letterbox_geometry(H, W, self.imgsz, rect=self.rect)
-        return detect_frame_core(self.model, to_device(img, self.device), geom, self.spec,
-                                 self.imgsz, self.classes, self.conf, self.iou,
-                                 self.max_det, self.dtype, plain=self.plain)
+        return self._run("detect_frame", to_device(img, self.device), self.geometry((H, W)))
+
+    def detect_batch_async(self, frames) -> torch.Tensor:
+        """Queue detection of an (S, H, W, 3) stack of frames of one size
+        without waiting: the packed (S, max_det, 7) rows on the device, for
+        :meth:`unpack_batch` after a fetch."""
+        frames = to_device(frames, self.device)
+        return self._run("detect_batch", frames, self.geometry(tuple(frames.shape[1:3])))
+
+    @staticmethod
+    def unpack_batch(packed: np.ndarray, frame_hw) -> list:
+        """(S, max_det, 7) packed (fetched) -> list of S (N_s, 6) rows,
+        frame-clipped."""
+        return [YoloDetector.unpack(p, frame_hw) for p in packed]
+
+    def detect_batch(self, frames) -> list:
+        """frames: (S, H, W, 3) uint8 stack (numpy or tensor) -> list of S
+        (N_s, 6) [x1, y1, x2, y2, conf, cls] numpy arrays; one fetch."""
+        H, W = frames.shape[1:3]
+        return self.unpack_batch(self.detect_batch_async(frames).cpu().numpy(), (H, W))
 
     @staticmethod
     def unpack(packed: np.ndarray, frame_hw) -> np.ndarray:

@@ -65,9 +65,9 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "evt_gemm_q8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     },
     "sampler": {
-        # frame, boxes, geo (out), crops (out), M, H, W, OH, OW, mean[3], std[3],
-        # out_bf16, stream
-        "evt_crop_sample": [_P, _P, _P, _P, _I, _I, _I, _I, _I,
+        # frames, frame_idx (or null), S, boxes, geo (out), crops (out), M, H, W,
+        # OH, OW, mean[3], std[3], out_bf16, stream
+        "evt_crop_sample": [_P, _P, _I, _P, _P, _P, _I, _I, _I, _I, _I,
                             _F, _F, _F, _F, _F, _F, _I, _P],
     },
     "modulate": {
@@ -113,14 +113,14 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "evt_grad_norm": [_P, _I, _I, _L, _P, _P, _F, _P],
     },
     "letterbox": {
-        # frame, out, H, W, cw, ch, new_w, new_h, left, top, scale_x, scale_y,
-        # out_bf16, stream
-        "evt_letterbox": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+        # frames, out, S, H, W, cw, ch, new_w, new_h, left, top, scale_x,
+        # scale_y, out_bf16, stream
+        "evt_letterbox": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     },
     "nms": {
-        # boxes, scores, cls, out, k, max_det, iou_t, class_aware, left, top, r,
-        # stream
-        "evt_nms": [_P, _P, _P, _P, _I, _I, _F, _I, _F, _F, _F, _P],
+        # boxes, scores, cls, out, S, k, max_det, iou_t, class_aware, left, top,
+        # r, stream
+        "evt_nms": [_P, _P, _P, _P, _I, _I, _I, _F, _I, _F, _F, _F, _P],
     },
 }
 SOURCES = tuple(SIGNATURES)
@@ -133,6 +133,13 @@ _counts: Dict[str, int] = {}
 # ---------------------------------------------------------------- counters
 def count_launch(kernel: str) -> None:
     _counts[kernel] = _counts.get(kernel, 0) + 1
+
+
+def add_launch_counts(counts: Dict[str, int]) -> None:
+    """Add ``counts`` to the counters (a CUDA graph's replay adds the
+    launches its capture recorded; ``pipeline/graphs.py``)."""
+    for kernel, n in counts.items():
+        _counts[kernel] = _counts.get(kernel, 0) + n
 
 
 def launch_counts() -> Dict[str, int]:

@@ -9,12 +9,14 @@ map clamped at the padded crop's edges.
 The sampler here is the direct 4-tap gather, the contract of the crop
 kernel (``ops/sampler.py``): each output pixel reads the two x taps and two
 y taps of the padded crop, taps outside the crop are zero, and frame indices
-are clamped to the frame.  The TPU's matmul formulations are not ported.
+are clamped to the frame.  Given a stack of frames and a frame index per
+box, each crop reads its own frame (JAX's ``sample_crops(frame_idx=)``).
+The TPU's matmul formulations are not ported.
 """
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -82,9 +84,17 @@ def _taps(size_p: torch.Tensor, lo: torch.Tensor, size: torch.Tensor,
     return g0, in0, g1, in1, f
 
 
+def clamp_frame_idx(frame_idx: torch.Tensor, S: int) -> torch.Tensor:
+    """Frame indices as JAX's gather takes them: a negative index counts
+    from the end, then every index is clamped to [0, S - 1]."""
+    fi = frame_idx.long()
+    return torch.clamp(torch.where(fi < 0, fi + S, fi), 0, S - 1)
+
+
 def sample_crops(frame: torch.Tensor, geo: Geometry,
                  out_wh: Tuple[int, int] = IMAGE_SIZE,
-                 sample_dtype=torch.float32) -> torch.Tensor:
+                 sample_dtype=torch.float32,
+                 frame_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Bilinear crop + zero pad + resize of every box.
 
     The lerps run in ``sample_dtype``, as JAX's ``sample_crops`` runs them:
@@ -92,14 +102,20 @@ def sample_crops(frame: torch.Tensor, geo: Geometry,
     and each sum (x pass, then y pass); float32 rounds nowhere.
 
     Args:
-      frame: (H, W, 3) uint8 RGB frame.
-      geo: :func:`crop_geometry` of M boxes.
+      frame: (H, W, 3) uint8 RGB frame, or a stack (S, H, W, 3) when
+        ``frame_idx`` is given.
+      geo: :func:`crop_geometry` of M boxes (frame-local).
+      frame_idx: (M,) integer frame of each box in the stack
+        (:func:`clamp_frame_idx` applies).
     Returns:
       (M, OH, OW, 3) ``sample_dtype`` crops in [0, 255].
     """
-    H, W = frame.shape[:2]
+    H, W = frame.shape[-3:-1]
     OW, OH = out_wh
-    f = frame.to(sample_dtype)
+    stack = frame if frame_idx is not None else frame[None]
+    M = geo["wp"].shape[0]
+    fi = (clamp_frame_idx(frame_idx, stack.shape[0]) if frame_idx is not None
+          else torch.zeros(M, dtype=torch.long, device=frame.device))[:, None, None]
     gx0, inx0, gx1, inx1, fx = _taps(geo["wp"], geo["left"], geo["wc"], geo["x1"], OW, W)
     gy0, iny0, gy1, iny1, fy = _taps(geo["hp"], geo["top"], geo["hc"], geo["y1"], OH, H)
     wx1, wy1 = fx.to(sample_dtype), fy.to(sample_dtype)
@@ -107,8 +123,8 @@ def sample_crops(frame: torch.Tensor, geo: Geometry,
 
     def x_lerp(gy):       # (M, OH) frame rows -> (M, OH, OW, 3)
         rows = gy[:, :, None]
-        c0 = f[rows, gx0[:, None, :]] * inx0[:, None, :, None]
-        c1 = f[rows, gx1[:, None, :]] * inx1[:, None, :, None]
+        c0 = stack[fi, rows, gx0[:, None, :]].to(sample_dtype) * inx0[:, None, :, None]
+        c1 = stack[fi, rows, gx1[:, None, :]].to(sample_dtype) * inx1[:, None, :, None]
         return c0 * wx0[:, None, :, None] + c1 * wx1[:, None, :, None]
 
     r0 = x_lerp(gy0) * iny0[:, :, None, None]

@@ -12,16 +12,22 @@ x, score)}``, ``draw()``, ``reset()`` and the classmethod ``postprocess``.
   ``convert.from_jax.state_dict_from_jax``) or a reference ``.pth``; the
   serving copy is ``models.vitpose.serving_copy`` at ``dtype`` fp32, bf16 or
   int8.  The detector runs in bf16 when the pose dtype is bf16 or int8.
-* A detection frame in image mode (and with ``single_pose``) is one queue
-  of launches (``pipeline/fused_detect.py::detect_pose``): the frame goes up
-  through pinned memory, the detector and the pose step are queued, and the
-  host waits once, for the one fetch of (packed detections, keypoints).
-  The tracker then runs on the host.  Video mode with a tracker detects,
-  fetches, tracks and then poses the tracker's boxes, as in JAX.
-* ``plain=True`` runs every kernel's plain version on the card (for checks).
+* A detection frame in image mode (and with ``single_pose``) is one
+  program (``pipeline/fused_detect.py::detect_pose``), replayed on the card
+  as one CUDA graph (``pipeline/graphs.py``, JAX's ``detect_pose_jit``): the
+  frame goes up through pinned memory, the graph is replayed, and the host
+  waits once, for the one fetch of (packed detections, keypoints).  The
+  tracker then runs on the host.  Video mode with a tracker detects (a
+  graph of ``detect_frame_core``), fetches, tracks and then poses the
+  tracker's boxes (the pose step, eager), as in JAX.
+* ``inference_pipelined`` / ``flush``: video frames one frame late, the
+  detector of frame t queued before frame t-1's pose is fetched.
+  ``inference_batched`` / ``select_frame_state``: a window of F frames as
+  one batched detector program and one multi-frame pose step.
+* ``plain=True`` runs every kernel's plain version on the card, eagerly
+  (for checks).
 
-Left for later (ROADMAP A11-A13): ``inference_pipelined``, ``flush``,
-``inference_batched`` and ``select_frame_state``; ViTPose+ ``task=``.
+Left for later (ROADMAP A12, A13): ViTPose+ ``task=``.
 """
 from __future__ import annotations
 
@@ -38,13 +44,34 @@ from ..kernels import resolve_device
 from ..models.vitpose import ViTPose, serving_copy
 from ..skeletons import joints_dict
 from ..track.sort import Sort, track_and_cap
-from .pose_step import bucket_slots, pose_step
+from .pose_step import bucket_slots, pose_multi_frame, pose_step
 
 __all__ = ["VitInference"]
 
 YOLO_CONF_THRESHOLD = 0.35   # reference easy_ViTPose/inference.py:241
 SERVING = {"fp32": "fp32", "float32": "fp32", "bf16": "bf16", "bfloat16": "bf16",
            "int8": "int8", "w8a8": "int8"}
+
+
+def load_pose_model(path: str, cfg, dtype: str, device: torch.device) -> ViTPose:
+    """The serving copy (``dtype`` fp32, bf16 or int8) on ``device`` of a
+    JAX-format ``.npz`` or a reference ``.pth`` checkpoint."""
+    if path.endswith(".pth"):
+        from ..convert.vitpose_torch import load_torch_checkpoint
+        sd = load_torch_checkpoint(path, cfg)
+    elif path.endswith(".npz"):
+        from ..convert.from_jax import state_dict_from_jax
+        from ..utils.checkpoint import load_params
+        params = load_params(path)
+        if "heads" in params and "head" not in params:
+            raise NotImplementedError("multi-task ViTPose+ checkpoints are not ported yet "
+                                      "(ROADMAP A12)")
+        sd = state_dict_from_jax(params, cfg)
+    else:
+        raise ValueError(f"unsupported checkpoint format: {path}")
+    net = ViTPose(cfg)
+    net.load_state_dict(sd)
+    return serving_copy(net.eval(), SERVING[dtype]).to(device)
 
 
 class VitInference:
@@ -131,26 +158,11 @@ class VitInference:
             self._flip_pairs = None
 
         # --- weights ---
-        if model.endswith(".pth"):
-            from ..convert.vitpose_torch import load_torch_checkpoint
-            sd = load_torch_checkpoint(model, self.cfg)
-        elif model.endswith(".npz"):
-            from ..convert.from_jax import state_dict_from_jax
-            from ..utils.checkpoint import load_params
-            params = load_params(model)
-            if "heads" in params and "head" not in params:
-                raise NotImplementedError("multi-task ViTPose+ checkpoints are not ported yet "
-                                          "(ROADMAP A12)")
-            sd = state_dict_from_jax(params, self.cfg)
-        else:
-            raise ValueError(f"unsupported checkpoint format: {model}")
-        net = ViTPose(self.cfg)
-        net.load_state_dict(sd)
         self.serving_dtype = SERVING[dtype]
         self.quant = self.serving_dtype == "int8"
         self.compute_dtype = (torch.float32 if self.serving_dtype == "fp32"
                               else torch.bfloat16)
-        self._model = serving_copy(net.eval(), self.serving_dtype).to(self.device)
+        self._model = load_pose_model(model, self.cfg, self.serving_dtype, self.device)
 
         # --- detector ---
         self._detector = None
@@ -213,7 +225,10 @@ class VitInference:
             self.tracker = Sort(max_age=self.yolo_step, min_hits=min_hits, iou_threshold=0.3)
         self._smoothers = {}
         self.frame_counter = 0
+        # new video, new high-water marks
         self._slots_highwater = 0
+        self._batched_slots = 0
+        self._pipe_pending = None  # (img, frame on the device, detection handle)
 
     @classmethod
     def postprocess(cls, heatmaps: np.ndarray, org_w: int, org_h: int) -> np.ndarray:
@@ -280,12 +295,12 @@ class VitInference:
     def _inference_fused(self, img: np.ndarray) -> Dict[Any, np.ndarray]:
         """A detection frame as one queue of launches and one fetch; the
         keypoints are keyed to tracks after the fetch."""
-        from ..detect.yolo import YoloDetector, letterbox_geometry
+        from ..detect.yolo import YoloDetector
         from .fused_detect import detect_pose
         det = self._detector
         frame_dev = self._upload(img)
         H, W = img.shape[:2]
-        geom = letterbox_geometry(H, W, det.imgsz, rect=det.rect)
+        geom = det.geometry((H, W))
         # the slot count is chosen before this frame's detections are known:
         # the grow-only high-water bucket of past frames; rows beyond it
         # take the fallback pose step below
@@ -293,10 +308,18 @@ class VitInference:
             slots = self.fixed_slots
         else:
             slots = max(self._slots_highwater, bucket_slots(1, max_slots=self.max_people))
-        packed_dev, kpts_dev = detect_pose(
-            det.model, self._model, frame_dev, geom, det.spec, det.imgsz, det.classes,
-            det.conf, det.iou, det.max_det, det.dtype, slots, self._gate(),
-            flip_pairs=self._flip_pairs, plain=self.plain)
+        gate = self._gate()
+
+        def program(frame):
+            return detect_pose(det.model, self._model, frame, geom, det.spec, det.imgsz,
+                               det.classes, det.conf, det.iou, det.max_det, det.dtype, slots,
+                               gate, flip_pairs=self._flip_pairs, plain=self.plain)
+
+        if det.graphed:
+            packed_dev, kpts_dev = det.graphs.run(
+                ("detect_pose", tuple(frame_dev.shape), slots, gate), program, frame_dev)
+        else:
+            packed_dev, kpts_dev = program(frame_dev)
         # the one fetch of the frame: both outputs in one copy
         both = torch.cat([packed_dev.reshape(-1), kpts_dev.reshape(-1)]).cpu().numpy()
         packed = both[:packed_dev.numel()].reshape(packed_dev.shape)
@@ -345,6 +368,153 @@ class VitInference:
             self._keypoints = frame_keypoints
             self._scores_bbox = scores_bbox
         return frame_keypoints
+
+    def inference_pipelined(self, img: np.ndarray) -> Optional[Dict[Any, np.ndarray]]:
+        """Pipelined video inference: returns the keypoints of the PREVIOUS
+        frame (None on the first call; :meth:`flush` drains the last one).
+
+        The order hides the detector of frame t under frame t-1's pose:
+        fetch detect(t-1) -> track on the host -> queue pose(t-1) -> queue
+        detect(t) -> fetch pose(t-1).  Results, ``draw()`` and state are
+        those of :meth:`inference`, one frame late."""
+        frame_dev = self._upload(img)
+        out_prev = None
+        if self._pipe_pending is not None:
+            prev_img, prev_dev, det_h = self._pipe_pending
+            res_pd, results = self._fetched_dets(det_h, prev_img.shape[:2])
+            det_t = self._dispatch_detect_async(frame_dev, img.shape[:2])
+            out_prev = self._track_and_pose(prev_img, prev_dev, res_pd, results)
+        else:
+            det_t = self._dispatch_detect_async(frame_dev, img.shape[:2])
+        self._pipe_pending = (img, frame_dev, det_t)
+        return out_prev
+
+    def flush(self) -> Optional[Dict[Any, np.ndarray]]:
+        """Drain the pipelined stream: process and return the last frame."""
+        if self._pipe_pending is None:
+            return None
+        prev_img, prev_dev, det_h = self._pipe_pending
+        self._pipe_pending = None
+        res_pd, results = self._fetched_dets(det_h, prev_img.shape[:2])
+        return self._track_and_pose(prev_img, prev_dev, res_pd, results)
+
+    def _fetched_dets(self, det_h, hw):
+        """Fetch a queued detection (None: no detection this frame) ->
+        (tracker candidates, detector rows or None)."""
+        res_pd = np.empty((0, 5), np.float32)
+        results = None
+        if det_h is not None:
+            results = self._detector.unpack(det_h.cpu().numpy(), hw)
+            if len(results):
+                res_pd = self._filter_dets(results)
+        return res_pd, results
+
+    def _dispatch_detect_async(self, frame_dev, hw):
+        due = self._detector is not None and self._detect_due()
+        self.frame_counter += 1
+        return self._detector.detect_async(frame_dev, frame_hw=hw) if due else None
+
+    def inference_batched(self, frames, bboxes_per_frame=None) -> list:
+        """Offline batched video inference: F consecutive same-size frames ->
+        F result dicts from two programs (one batched detector program, one
+        multi-frame pose step) instead of 2F.
+
+        Semantics are those of calling :meth:`inference` frame by frame: the
+        same detection cadence, confidence gate, tracker evolution, score cap
+        and flip test, so track IDs line up with the sequential path.  The
+        detector runs at batch F and the pose step over the stack, so values
+        may differ from the per-frame path by float noise.
+
+        Args:
+          frames: sequence of (H, W, 3) uint8 RGB frames (same size).
+          bboxes_per_frame: optional list of (N_i, 5) [x1, y1, x2, y2, conf]
+            arrays instead of detection.
+        Returns:
+          a list of {person_id: (K, 3) float32 (y, x, score)}, one per frame;
+          ``draw()`` state is left at the last frame of the window
+          (:meth:`select_frame_state` points it at another).
+        """
+        frames = list(frames)
+        F = len(frames)
+        if F == 0:
+            return []
+        stack = np.stack(frames)
+        frames_dev = self._upload(stack)
+        H, W = stack.shape[1:3]
+
+        # detection cadence per frame, from the running counter
+        due = []
+        for _ in range(F):
+            due.append(bboxes_per_frame is None
+                       and self._detector is not None and self._detect_due())
+            self.frame_counter += 1
+        dets = None
+        if any(due):
+            h = self._detector.detect_batch_async(frames_dev)
+            dets = self._detector.unpack_batch(h.cpu().numpy(), (H, W))
+
+        # host tracking, in frame order (the sequential path's evolution)
+        per_frame = []
+        all_boxes, all_fidx = [], []
+        for i in range(F):
+            results = None
+            res_pd = np.empty((0, 5), np.float32)
+            if bboxes_per_frame is not None:
+                res_pd = np.asarray(bboxes_per_frame[i], np.float32).reshape(-1, 5)
+            elif due[i]:
+                results = dets[i]
+                if len(results):
+                    res_pd = self._filter_dets(results)
+            res_pd, ids, scores, _ = self._track_boxes(res_pd)
+            per_frame.append((res_pd, ids, scores, results))
+            for row in res_pd:
+                all_boxes.append(row[:4])
+                all_fidx.append(i)
+
+        outputs = [dict() for _ in range(F)]
+        nb = len(all_boxes)
+        if nb:
+            # grow-only slot high-water mark over the window
+            self._batched_slots = max(self._batched_slots,
+                                      bucket_slots(nb, max_slots=F * self.max_people))
+            M = self._batched_slots
+            boxes = np.zeros((M, 4), np.float32)
+            fidx = np.zeros((M,), np.int32)
+            mask = np.zeros((M,), bool)
+            boxes[:nb] = np.stack(all_boxes)
+            boxes[:nb, 0::2] = np.clip(boxes[:nb, 0::2], 0, W)
+            boxes[:nb, 1::2] = np.clip(boxes[:nb, 1::2], 0, H)
+            fidx[:nb] = all_fidx
+            mask[:nb] = True
+            out = pose_multi_frame(self._model, frames_dev, to_device(boxes, self.device),
+                                   to_device(fidx, self.device), to_device(mask, self.device),
+                                   flip_pairs=self._flip_pairs, plain=self.plain).cpu().numpy()
+            k = 0
+            for i in range(F):
+                _, ids, _, _ = per_frame[i]
+                for pid in ids:
+                    outputs[i][pid] = out[k]
+                    k += 1
+        if self.smooth:
+            # in frame order: the sequential path's filter evolution
+            outputs = [self._apply_smoothing(o) for o in outputs]
+
+        if self.save_state:
+            self._window_states = []
+            for i in range(F):
+                res_pd, ids, scores, results = per_frame[i]
+                self._window_states.append(
+                    (frames[i], results,
+                     (self._saved_bboxes(res_pd, frames[i].shape[:2]), ids, scores),
+                     outputs[i], dict(zip(ids, scores))))
+            self.select_frame_state(F - 1)
+        return outputs
+
+    def select_frame_state(self, i: int):
+        """Point ``draw()`` at frame ``i`` of the last
+        :meth:`inference_batched` window."""
+        (self._img, self._yolo_res, self._tracker_res, self._keypoints,
+         self._scores_bbox) = self._window_states[i]
 
     @staticmethod
     def _saved_bboxes(rows, hw):

@@ -157,7 +157,7 @@ _NORMALIZE = "v[3 * e + c] = __fdiv_rn(__fsub_rn(val[c], mv[c]), sv[c]);"
 SAMPLER = {
     "shipped": [],
     "float_lerps": [("if constexpr (std::is_same_v<TO, bf16>) {", "if constexpr (false) {")],
-    "byte_loads": [("if (reinterpret_cast<uintptr_t>(frame) % 4 == 0)", "if (false)")],
+    "byte_loads": [("    if (words)\n", "    if (false)\n")],
     "no_frame_loads": [("return __funnelshift_r(w[0], sh > 1 ? w[1] : 0u, sh * 8);",
                         "return static_cast<unsigned>(off * 2654435761u) + sh + (w == nullptr);")],
     "normalize_by_multiply": [(_NORMALIZE,
@@ -551,7 +551,7 @@ def crop_decode_variants(card: str) -> dict:
                 y = torch.empty((M, 256, 192, 3), dtype=torch.bfloat16, device=dev)
                 g = torch.empty((M, 8), dtype=torch.int32, device=dev)
                 fn = lambda: lib.evt_crop_sample(  # noqa: E731
-                    frame.data_ptr(), boxes.data_ptr(), g.data_ptr(), y.data_ptr(), M, H, W,
+                    frame.data_ptr(), None, 1, boxes.data_ptr(), g.data_ptr(), y.data_ptr(), M, H, W,
                     256, 192, *mean_std, 1, stream())
             else:
                 y = torch.empty((M, 17, 3), dtype=torch.float32, device=dev)
@@ -603,7 +603,7 @@ def nms_variants(card: str) -> dict:
     for name, lib in libs.items():
         y = torch.empty((300, 7), dtype=torch.float32, device=dev)
         fn = lambda: lib.evt_nms(boxes.data_ptr(), scores.data_ptr(), cls.data_ptr(),  # noqa: E731
-                                 y.data_ptr(), k, 300, 0.7, 1, float(left), float(top), r,
+                                 y.data_ptr(), 1, k, 300, 0.7, 1, float(left), float(top), r,
                                  stream())
         if fn():
             raise RuntimeError(f"nms variant {name} refused the launch")

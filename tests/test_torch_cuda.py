@@ -1048,3 +1048,113 @@ def test_vitinference_frame_queues_without_host_wait(dev, tmp_path):
     plain = VitInference(pose, yolo=det, model_name="b", model_cfg=cfg, dtype="int8", plain=True)
     assert plain.inference(img).keys() == vi.inference(img).keys()
     np.testing.assert_array_equal(plain._yolo_res, vi._yolo_res)
+
+
+# ------------------------------------------- stacked frames and graph replay
+
+@pytest.mark.parametrize("hw", [(1080, 1920), (1079, 1917), (37, 53)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sampler_stacked_bits(dev, hw, dtype):
+    """K3 with a frame index per box: the plain version's bits, and each
+    crop its own frame's single-frame crop; (1079, 1917) and (37, 53) make
+    H * W * 3 not a multiple of 4, so frames after the first start off a
+    word; indices out of range clamp as JAX's gather clamps them."""
+    H, W = hw
+    S = 4
+    g = np.random.default_rng(H)
+    frames = torch.from_numpy(g.integers(0, 256, (S, H, W, 3), dtype=np.uint8)).to(dev)
+    xy = g.uniform(-30, max(W, H), (20, 2))
+    wh = g.uniform(2, max(W, H) / 2, (20, 2))
+    boxes = torch.from_numpy(np.concatenate([xy, xy + wh], 1).astype(np.float32)).to(dev)
+    fidx = torch.from_numpy(np.r_[g.integers(0, S, 16), [-1, 7, -9, 3]].astype(np.int32)).to(dev)
+    kernels.reset_launch_counts()
+    got, geo = sampler.crop_normalize(frames, boxes, dtype=dtype, frame_idx=fidx)
+    assert kernels.launch_counts() == {"sampler": 1}
+    ref, rgeo = sampler.crop_normalize_plain(frames, boxes, dtype=dtype, frame_idx=fidx)
+    assert torch.equal(got, ref) and torch.equal(geo, rgeo)
+    own = preprocess.clamp_frame_idx(fidx, S).tolist()
+    for i in (0, 5, 16, 17, 18):
+        one, g1 = sampler.crop_normalize(frames[own[i]], boxes[i:i + 1], dtype=dtype)
+        assert torch.equal(got[i:i + 1], one) and torch.equal(geo[i:i + 1], g1)
+
+
+@pytest.mark.parametrize("hw,imgsz,rect", [((1080, 1920), 320, False), ((1080, 1920), 640, True),
+                                           ((37, 61), 96, False)])
+def test_letterbox_stacked_bits(dev, hw, imgsz, rect):
+    from easy_vitpose_tpu_torch.detect import yolo
+    S = 3
+    g = np.random.default_rng(sum(hw))
+    frames = torch.from_numpy(g.integers(0, 256, (S, *hw, 3), dtype=np.uint8)).to(dev)
+    geom = yolo.letterbox_geometry(*hw, imgsz, rect=rect)
+    for dt in (torch.float32, torch.bfloat16):
+        kernels.reset_launch_counts()
+        got = yolo.letterbox_input(frames, geom, dt)
+        assert kernels.launch_counts() == {"letterbox": 1}
+        assert got.shape == (S, 3, geom[6], geom[5])
+        assert torch.equal(got, yolo.letterbox_input_plain(frames, geom, dt))
+        for s in range(S):
+            assert torch.equal(got[s:s + 1], yolo.letterbox_input(frames[s], geom, dt))
+
+
+def test_nms_stacked_bits(dev):
+    """D2 over (S, k) candidates, one block per frame: the plain version's
+    rows and each frame's single-frame launch, frames of few and of many
+    valid candidates side by side."""
+    from easy_vitpose_tpu_torch.detect import yolo
+    sets = [nms_candidates_on(dev, s, n, 300, conf_t=c, ties=bool(s % 2))
+            for s, (n, c) in enumerate([(2100, 0.25), (400, 0.9), (2100, 0.5), (300, -1.0)])]
+    cand = [torch.stack([s[i] for s in sets]) for i in range(3)]
+    kernels.reset_launch_counts()
+    got = yolo.nms_packed(*cand, 300, 0.5, 7, 70, 0.3)
+    assert kernels.launch_counts() == {"nms": 1} and got.shape == (4, 300, 7)
+    assert torch.equal(got, yolo.nms_packed_plain(*cand, 300, 0.5, 7, 70, 0.3))
+    for s in range(4):
+        assert torch.equal(got[s], yolo.nms_packed(*sets[s], 300, 0.5, 7, 70, 0.3))
+
+
+def test_graph_replay_equals_eager(dev, tmp_path):
+    """VitInference's detection frame and the detector's programs as CUDA
+    graph replays: the eager program's bits, the captured launches counted
+    at each replay, no host sync in capture or replay."""
+    from easy_vitpose_tpu_torch.pipeline.fused_detect import detect_pose, detect_pose_multi
+    from easy_vitpose_tpu_torch.pipeline.inference import VitInference
+
+    img = np.random.default_rng(1).integers(0, 256, (480, 640, 3), dtype=np.uint8)
+    pose, det, cfg = small_files(dev, tmp_path, img)
+    vi = VitInference(pose, yolo=det, model_name="b", model_cfg=cfg, dtype="int8")
+    for _ in range(3):
+        vi.inference(img)                     # warm-up, capture, replay
+    d = vi._detector
+    geom, slots, gate = d.geometry((480, 640)), vi._slots_highwater, vi._gate()
+    frame = vi._upload(img)
+    key = ("detect_pose", tuple(frame.shape), slots, gate)
+    assert d.graphs.launches(key) == {"letterbox": 1, "nms": 1, "sampler": 1, "block_q8": 2,
+                                      "decode": 1}
+    kernels.reset_launch_counts()
+    out = vi.inference(img)
+    assert kernels.launch_counts() == d.graphs.launches(key)
+    eager = detect_pose(d.model, vi._model, frame, geom, d.spec, d.imgsz, d.classes, d.conf,
+                        d.iou, d.max_det, d.dtype, slots, gate)
+    replay = d.graphs.run(key, None, frame)
+    for a, b in zip(replay, eager):
+        assert torch.equal(a, b)
+    assert out.keys() == vi.inference(img).keys()
+    frames = torch.from_numpy(np.stack([img, np.roll(img, 8, 1)])).to(dev)
+    for _ in range(3):
+        packed = d.detect_batch_async(frames)
+    assert torch.equal(packed, yolo_batch(d, frames))
+
+    def multi(f):
+        return detect_pose_multi(d.model, vi._model, f, geom, d.spec, d.classes, d.conf, d.iou,
+                                 d.max_det, d.dtype, 4, gate)
+
+    for _ in range(3):
+        got = d.graphs.run(("multi", tuple(frames.shape)), multi, frames)
+    for a, b in zip(got, multi(frames)):
+        assert torch.equal(a, b)
+
+
+def yolo_batch(d, frames):
+    from easy_vitpose_tpu_torch.detect import yolo
+    return yolo.detect_batch_core(d.model, frames, d.geometry(tuple(frames.shape[1:3])), d.spec,
+                                  d.classes, d.conf, d.iou, d.max_det, d.dtype)

@@ -32,6 +32,9 @@ MODULES = [
     "easy_vitpose_tpu_torch.pipeline.pose_step",
     "easy_vitpose_tpu_torch.pipeline.fused_detect",
     "easy_vitpose_tpu_torch.pipeline.inference",
+    "easy_vitpose_tpu_torch.pipeline.stream",
+    "easy_vitpose_tpu_torch.pipeline.autotune",
+    "easy_vitpose_tpu_torch.pipeline.graphs",
     "easy_vitpose_tpu_torch.detect.yolo",
     "easy_vitpose_tpu_torch.track.kalman",
     "easy_vitpose_tpu_torch.track.sort",
@@ -44,6 +47,8 @@ MODULES = [
     "easy_vitpose_tpu_torch.utils.io",
     "easy_vitpose_tpu_torch.utils.visualization",
     "easy_vitpose_tpu_torch.cli.infer",
+    "easy_vitpose_tpu_torch.cli.serve",
+    "easy_vitpose_tpu_torch.cli.serve_http",
     "easy_vitpose_tpu_torch.train",
     "easy_vitpose_tpu_torch.train.losses",
     "easy_vitpose_tpu_torch.train.fused_opt",

@@ -318,8 +318,9 @@ def test_cli_image_save_json(files, vits, tmp_path):
         np.testing.assert_allclose(np.asarray(got[str(k)], np.float32), v, atol=1e-4)
     assert cv2.imread(str(out / "people_out.png")).shape == img.shape
     assert os.path.getsize(tmp_path / "trace" / "trace.json") > 0
-    for flag in (["--pipelined"], ["--batch", "4"], ["--target-fps", "30"]):
-        with pytest.raises(SystemExit, match="A11"):
+    # the video modes' flag rules (the modes themselves: tests/test_torch_serving.py)
+    for flag in (["--pipelined", "--batch", "4"], ["--batch", "4", "--target-fps", "30"]):
+        with pytest.raises(SystemExit, match="--batch"):
             infer.main(["--input", path, "--model", vits, "--model-name", "s",
                         "--device", "cpu"] + flag)
 
