@@ -125,7 +125,25 @@ toolkit:
 11. drives one ViT-B step with ``grad_accum=2`` and ``ema_decay=0.999``
    through the kernels (K5, K6a, K7 24 times, the norm kernel and K8 once) against
    the plain step with the same settings and drop-path masks;
-12. prints the optimizer's times (``optimizer``), the norm kernel's row
+12. drives the training loop (``train/loop.py::train_model``, the
+   ``train_loop:`` line) on a dataset of its own made from ``--seed`` (the
+   card's host has no cv2): ViT-B at full width and depth with the finetune
+   preset through the kernels (K5, K6a, K7, the norm kernel and K8 each
+   step; K1 in validation), AMP, device input, 3 epochs of 4 steps and one
+   val batch with PCK and the in-loop AP, a save and a full-state save each
+   epoch: launches per step and per val batch, host syncs per step, the
+   loop's losses against the same steps driven by hand (within
+   ``STEP_LOSS_TOL``; bit-equality reported), ``last.npz`` through
+   ``VitInference`` against the state's serving model (``HEATMAP_TOL``), a
+   run resumed after epoch 2 against the uninterrupted one (weights within
+   half an lr; bit-equality reported; that run under ``torch.profiler`` for
+   the busy share), ms per loop step against the bare step of 6, the
+   loader's share and each checkpoint write's seconds; ViT-L at full width
+   with int8 moments (K5, K6b, K6c, K7, the norm kernel and K9), 2 epochs
+   of 2 steps and a resume; the from-scratch preset at ViT-B (AdamW with
+   layer decay in plain torch) for 2 epochs of 2 steps, its history's
+   rates equal to ``make_step_lr_schedule``'s;
+13. prints the optimizer's times (``optimizer``), the norm kernel's row
    (``grad_norm``: it replaces no Pallas kernel), one JSON line per kernel
    set (``kernels``, 20 rows: D1 and D2 after K4's; K3's, D1's and D2's
    launches count the image frame's and a multi-stream tick's), the
@@ -2296,6 +2314,486 @@ def run_serve_http(torch, pose, det_path, frame_np) -> dict:
     return row
 
 
+# ----------------------------------------------------------- the training loop
+LOOP_TRAIN, LOOP_VAL, LOOP_BATCH = 256, 64, 64   # ViT-B: 4 steps and 1 val batch an epoch
+LOOP_L_TRAIN = 128                               # ViT-L: 2 steps an epoch, no validation
+
+
+class SmokeDataset:
+    """A dataset of ``CocoPoseDataset``'s items, made in bulk from a seed
+    (the card's host has no cv2 to read and warp images): train items are
+    device-input (uint8 256x192 crops, joints inside them, 85% visible);
+    val items are host-rendered (normalized crops, the numpy targets) with
+    metas whose center and scale map each crop back onto a 640x480 image of
+    ``ann_file``'s annotations (written by the caller, one person an
+    image), for the in-loop AP."""
+
+    def __init__(self, n: int, seed: int, val: bool = False):
+        from easy_vitpose_tpu_torch.ops.affine import affine_transform_batch, get_affine_transform
+        from easy_vitpose_tpu_torch.ops.heatmap import generate_gaussian_targets_np
+        from easy_vitpose_tpu_torch.train.dataset import PIXEL_STD
+        rng = np.random.default_rng(seed)
+        self.image_size, self.heatmap_size, self.heatmap_sigma = (192, 256), (48, 64), 3.0
+        self.joints_weight = np.ones((17, 1), np.float32)
+        self.use_different_joints_weight = False
+        self.device_input = not val
+        self.crops = rng.integers(0, 256, (n, 256, 192, 3), dtype=np.uint8)
+        self.metas, self.annotations = [], []
+        for i in range(n):
+            x, y = rng.uniform(20, 300), rng.uniform(20, 200)
+            w, h = rng.uniform(90, 300), rng.uniform(150, 260)
+            c = np.array([x + w / 2, y + h / 2], np.float32)
+            w, h = max(w, 0.75 * h), max(h, w / 0.75)
+            s = np.array([w / PIXEL_STD, h / PIXEL_STD], np.float32) * 1.25
+            trans = get_affine_transform(c, s, PIXEL_STD, 0.0, self.image_size)
+            joints_img = np.stack([rng.uniform(x, x + w * 0.8, 17), rng.uniform(y, y + h * 0.8, 17)],
+                                  -1).astype(np.float32)
+            vis = np.repeat((rng.uniform(size=(17, 1)) > 0.15).astype(np.float32), 2, 1)
+            joints = affine_transform_batch(joints_img, trans).astype(np.float32)
+            self.metas.append({"imgId": i, "annId": i, "center": c, "scale": s, "rotation": 0.0,
+                               "joints": joints, "joints_visibility": vis})
+            kp = np.concatenate([joints_img, 2 * vis[:, :1]], -1)
+            self.annotations.append({"id": i, "image_id": i, "category_id": 1, "iscrowd": 0,
+                                     "keypoints": kp.ravel().tolist(),
+                                     "num_keypoints": int(vis[:, 0].sum()),
+                                     "bbox": [float(x), float(y), float(w), float(h)],
+                                     "area": float(w * h)})
+        if val:
+            mean, std = np.float32([0.485, 0.456, 0.406]), np.float32([0.229, 0.224, 0.225])
+            self.images = (self.crops.astype(np.float32) / 255.0 - mean) / std
+            self.targets = [generate_gaussian_targets_np(m["joints"], m["joints_visibility"])
+                            for m in self.metas]
+
+    def write_ann_file(self, path: str) -> None:
+        with open(path, "w") as f:
+            json.dump({"images": [{"id": i, "file_name": f"{i}.jpg", "width": 640, "height": 480}
+                                  for i in range(len(self))],
+                       "annotations": self.annotations}, f)
+        self.ann_file = path
+
+    def __len__(self):
+        return len(self.metas)
+
+    def __getitem__(self, i):
+        if self.device_input:
+            return self.crops[i], None, None, self.metas[i]
+        return self.images[i], self.targets[i][0], self.targets[i][1], self.metas[i]
+
+
+class LoopSpy:
+    """Instruments one ``train_model`` call from outside it: each train
+    step's launches, host syncs (PyTorch's sync check set to warn around
+    the step), batch and loss; each val batch's launches; the loader's
+    wait in the train iterator; each epoch's train phase (from its
+    iterator to the read of its losses); each checkpoint write's and host
+    snapshot's seconds.  The patches come off on exit."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.steps, self.val, self.batches, self.losses = [], [], [], []
+        self.syncs, self.epochs, self.writes = [], [], []
+        self.loader_s = 0.0
+
+    def __enter__(self):
+        import warnings
+        from easy_vitpose_tpu_torch import kernels
+        from easy_vitpose_tpu_torch.train import loop, state_ckpt, step as tstep
+        torch, spy = self.torch, self
+        self._saved = [(tstep, "make_train_step", tstep.make_train_step),
+                       (tstep, "make_eval_step", tstep.make_eval_step),
+                       (loop, "batch_iterator", loop.batch_iterator),
+                       (loop, "fetch_mean", loop.fetch_mean),
+                       (loop, "save_params", loop.save_params),
+                       (state_ckpt, "save_train_state", state_ckpt.save_train_state),
+                       (state_ckpt, "host_state", state_ckpt.host_state)]
+        real = {name: fn for _, name, fn in self._saved}
+
+        def launches(fn):
+            before = kernels.launch_counts()
+            out = fn()
+            after = kernels.launch_counts()
+            return out, {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+        def make_train_step(*a, **k):
+            step = real["make_train_step"](*a, **k)
+
+            def spied(state, batch, generator=None, **kw):
+                with warnings.catch_warnings(record=True) as caught:
+                    warnings.simplefilter("always")
+                    torch.cuda.set_sync_debug_mode("warn")
+                    try:
+                        out, n = launches(lambda: step(state, batch, generator, **kw))
+                    finally:
+                        torch.cuda.set_sync_debug_mode("default")
+                spy.syncs.append(sum("called a synchronizing" in str(w.message) for w in caught))
+                spy.steps.append(n)
+                spy.batches.append(batch)
+                spy.losses.append(out[1]["loss"])
+                return out
+            return spied
+
+        def make_eval_step(*a, **k):
+            step = real["make_eval_step"](*a, **k)
+
+            def spied(state, batch):
+                out, n = launches(lambda: step(state, batch))
+                spy.val.append(n)
+                return out
+            return spied
+
+        def batch_iterator(ds, batch_size, **kw):
+            train = kw.get("shuffle", True)
+            if train:
+                spy.epochs.append({"t0": time.perf_counter()})
+            it = real["batch_iterator"](ds, batch_size, **kw)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    item = next(it)
+                except StopIteration:
+                    return
+                if train:
+                    spy.loader_s += time.perf_counter() - t0
+                yield item
+
+        def fetch_mean(values):
+            out = real["fetch_mean"](values)
+            ep = spy.epochs[-1]
+            ep.setdefault("train_s", time.perf_counter() - ep["t0"])
+            return out
+
+        def timed(name):
+            def fn(*a, **k):
+                t0 = time.perf_counter()
+                out = real[name](*a, **k)
+                spy.writes.append((name, os.path.basename(str(a[0])) if a and isinstance(a[0], str)
+                                   else "", time.perf_counter() - t0))
+                return out
+            return fn
+
+        for mod, name, _ in self._saved:
+            setattr(mod, name, {"make_train_step": make_train_step, "make_eval_step": make_eval_step,
+                                "batch_iterator": batch_iterator,
+                                "fetch_mean": fetch_mean}.get(name) or timed(name))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, fn in self._saved:
+            setattr(mod, name, fn)
+
+
+def loop_settings(presets, work, seed, **kw):
+    """The finetune preset through the kernels: K5-K7 blocks, the fused
+    Adam, AMP, device input, a save and a full-state save every epoch."""
+    return presets.finetune("b", **{**dict(
+        block_impl="pallas_train", optimizer="fused_adam", use_amp=True, device_input=True,
+        batch_size=LOOP_BATCH, save_interval=1, save_full_state=True, ckpt_topk_epoch=0,
+        tensorboard=False, seed=seed, work_dir=work), **kw})
+
+
+def flat_state(torch, path: str) -> dict:
+    """A saved full train state's tensors by '/'-joined path, on the CPU."""
+    from easy_vitpose_tpu_torch.train.state_ckpt import restore_train_state
+    st = restore_train_state(path)
+    out = {}
+
+    def visit(tree, pre):
+        if hasattr(tree, "_asdict"):
+            tree = tree._asdict()
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                visit(v, f"{pre}/{k}")
+        else:
+            out[pre] = tree
+    visit(st, "")
+    return out
+
+
+def state_gap(torch, a: dict, b: dict) -> tuple:
+    """(every tensor bit for bit, the largest |a - b| of a weight, int8
+    moment codes that differ)."""
+    check(set(a) == set(b), "the two train states hold other tensors")
+    equal = all(torch.equal(a[k], b[k]) for k in a)
+    gap = max(float((a[k] - b[k]).abs().max()) for k in a if k.startswith("/params/"))
+    codes = sum(int((a[k] != b[k]).sum()) for k in a if not a[k].is_floating_point())
+    return equal, gap, codes
+
+
+def copy_state_after(spy_dir: str, n: int):
+    """A ``save_train_state`` wrapper that also keeps the n-th saved state
+    in ``spy_dir`` (the state after epoch n), for a resume."""
+    import shutil
+    from easy_vitpose_tpu_torch.train import state_ckpt
+    real, calls = state_ckpt.save_train_state, [0]
+
+    def save(path, state):
+        real(path, state)
+        calls[0] += 1
+        if calls[0] == n:
+            shutil.copytree(path, spy_dir)
+    return save
+
+
+def run_loop_b(torch, seed, dev, tmp, bare_ms: float) -> dict:
+    """The finetune preset at ViT-B on the card, 3 epochs; the same steps by
+    hand; a resume after epoch 2; last.npz through ``VitInference``."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    from easy_vitpose_tpu_torch.models.vitpose import init_params, vitpose_forward
+    from easy_vitpose_tpu_torch.pipeline.inference import VitInference
+    from easy_vitpose_tpu_torch.train import loop, presets, state_ckpt, step as tstep
+    from easy_vitpose_tpu_torch.train.fused_opt import make_fused_adam
+
+    cfg = get_model_config("coco", "b")
+    params = init_params(cfg, seed).state_dict()
+    train_ds, val_ds = SmokeDataset(LOOP_TRAIN, seed + 10), SmokeDataset(LOOP_VAL, seed + 11, True)
+    val_ds.write_ann_file(os.path.join(tmp, "val.json"))
+    work = os.path.join(tmp, "b")
+    settings = loop_settings(presets, work, seed, total_epochs=3, eval_ap_interval=1)
+    logs = []
+    real_save = state_ckpt.save_train_state
+    with LoopSpy(torch) as spy:
+        state_ckpt.save_train_state = copy_state_after(os.path.join(tmp, "b_ep2"), 2)
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = loop.train_model(params, cfg, train_ds, val_ds, settings, log=logs.append,
+                                   device=dev)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        finally:
+            state_ckpt.save_train_state = real_save
+    depth, steps = cfg.backbone.depth, len(spy.steps)
+    want_step = {fbt.FWD: depth, fbt.BWD_MLP: depth, fbt.BWD_ATTN: depth, "grad_norm": 1, "adam": 1}
+    print(f"train_loop ViT-B: {steps} steps, launches a step {spy.steps[0]}, a val batch "
+          f"{spy.val[0]}, syncs a step {spy.syncs}")
+    check(steps == 3 * LOOP_TRAIN // LOOP_BATCH, f"train_loop ViT-B ran {steps} steps")
+    # the first step of a process copies its constants to the card once
+    # (the ImageNet mean and std, the heatmap stride, the keep probabilities)
+    check(max(spy.syncs[1:]) == 0, f"loop steps made the host wait: {spy.syncs}")
+    check(all(n == want_step for n in spy.steps), f"a loop step launched {spy.steps}, "
+          f"expected {want_step}")
+    check(len(spy.val) == 3 and all(n == {"block": depth} for n in spy.val),
+          f"a val batch launched {spy.val}, expected {{'block': {depth}}}")
+    hist = out["history"]
+    check(len(hist) == 3 and all(math.isfinite(h["train_loss"]) and math.isfinite(h["val_loss"])
+                                 and h["val_acc"] is not None and h["val_ap"] is not None
+                                 for h in hist), f"train_loop ViT-B history {hist}")
+    check(hist[-1]["train_loss"] < hist[0]["train_loss"],
+          f"train_loop ViT-B: the loss did not fall: {hist}")
+    for f in ("epoch000.npz", "epoch001.npz", "epoch002.npz", "last.npz", "loop_state.json"):
+        check(os.path.exists(os.path.join(work, f)), f"train_loop ViT-B wrote no {f}")
+
+    # the same steps by hand, on the recorded batches and the epochs' generator seeds
+    tx = make_fused_adam(settings.lr)
+    state = tstep.init_train_state(params, tx, device=dev)
+    step = tstep.make_train_step(cfg, tx, use_amp=True, block_impl="pallas_train",
+                                 render_kwargs=dict(heatmap_size=(48, 64), image_size=(192, 256),
+                                                    sigma=3.0, joints_weight=train_ds.joints_weight,
+                                                    use_different_joints_weight=False))
+    gen, per = torch.Generator(device=dev), LOOP_TRAIN // LOOP_BATCH
+    hand = []
+    for i, batch in enumerate(spy.batches):
+        if i % per == 0:
+            gen.manual_seed(loop.epoch_generator_seed(seed, i // per))
+        state, m = step(state, batch, gen)
+        hand.append(m["loss"])
+    lk, lh = torch.stack(spy.losses).cpu(), torch.stack(hand).cpu()
+    hand_equal = bool(torch.equal(lk, lh))
+    hand_err = float(((lk - lh).abs() / lh.abs()).max())
+    print(f"train_loop ViT-B: loop losses {lk.tolist()}; by hand bit for bit {hand_equal}, "
+          f"rel {hand_err:.3e}")
+    check(hand_err <= STEP_LOSS_TOL, f"train_loop losses differ from the hand-driven steps: "
+          f"{hand_err}")
+    del state, hand
+
+    # last.npz through VitInference against the state's serving model
+    final = state_ckpt.restore_train_state(os.path.join(work, "train_state"))
+    vi = VitInference(os.path.join(work, "last.npz"), model_name="b", dataset="coco",
+                      dtype="bf16", device=dev)
+    x = torch.from_numpy(val_ds.images[:16]).to(dev, torch.bfloat16)
+    with torch.no_grad():
+        got = vitpose_forward(vi._model, x).float()
+        ref = vitpose_forward(tstep.serving_model(
+            cfg, {k: v.to(dev) for k, v in final["params"].items()},
+            {k: v.to(dev) for k, v in final["bn_state"].items()}, torch.bfloat16), x).float()
+    span = float(ref.max() - ref.min())
+    vi_err = float((got - ref).abs().max()) / span
+    print(f"train_loop ViT-B: last.npz through VitInference, heatmaps {vi_err:.3e} of their range")
+    check(vi_err <= HEATMAP_TOL["bf16"], f"last.npz serves other heatmaps: {vi_err}")
+    del vi, final
+
+    # resume from the state after epoch 2 into a fresh work dir, profiled
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    resumed = loop_settings(presets, os.path.join(tmp, "b_resume"), seed, total_epochs=3,
+                            eval_ap_interval=1,
+                            resume_state_dir=os.path.join(tmp, "b_ep2"))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out_r = loop.train_model(params, cfg, train_ds, val_ds, resumed, log=logs.append,
+                                 device=dev)
+        torch.cuda.synchronize()
+        resume_wall_s = time.perf_counter() - t0
+    busy_s = sum(e.self_device_time_total for e in prof.key_averages()
+                 if e.device_type == DeviceType.CUDA) / 1e6
+    check([h["epoch"] for h in out_r["history"]] == [2], f"the resume ran {out_r['history']}")
+    equal, gap, codes = state_gap(torch, flat_state(torch, os.path.join(work, "train_state")),
+                                  flat_state(torch, os.path.join(tmp, "b_resume", "train_state")))
+    print(f"train_loop ViT-B: resumed after epoch 2, epoch-3 state bit for bit {equal}, "
+          f"largest gap {gap:.3e}")
+    check(gap <= 0.5 * settings.lr, f"the resumed run ends {gap} from the uninterrupted one")
+    check(abs(out_r["history"][0]["train_loss"] - hist[2]["train_loss"])
+          <= STEP_LOSS_TOL * hist[2]["train_loss"], "the resumed epoch's loss differs")
+
+    train_s = [e["train_s"] for e in spy.epochs]
+    ms_step = [s * 1e3 / per for s in train_s]
+    writes = {}
+    for name, f, s in spy.writes:
+        writes.setdefault(f"{name} {f}".strip(), []).append(round(s, 3))
+    return {"launches": counts, "launches_per_step": spy.steps[0],
+            "launches_per_val_batch": spy.val[0], "steps": steps,
+            "syncs_first_step": spy.syncs[0], "syncs_per_step_after": max(spy.syncs[1:]),
+            "ms_per_loop_step": ms_step, "bare_ms_per_step": bare_ms,
+            "epoch_seconds": [h["seconds"] for h in hist], "wall_s": wall_s,
+            "loader_share": spy.loader_s / sum(train_s), "checkpoint_seconds": writes,
+            "losses_by_hand_bit_equal": hand_equal, "losses_by_hand_rel_err": hand_err,
+            "vitinference_heatmap_err": vi_err, "resume_bit_equal": equal, "resume_gap": gap,
+            "resume_wall_s": resume_wall_s, "resume_busy_share": busy_s / resume_wall_s,
+            "history": hist}
+
+
+def run_loop_l(torch, seed, dev, tmp, depth: int) -> dict:
+    """ViT-L at full width (D=1024, 16 heads, ``depth`` blocks) with int8
+    moments: 2 epochs of 2 steps with full-state saves, and a resume of
+    epoch 2 from the state after epoch 1."""
+    import dataclasses
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.train import loop, presets, state_ckpt
+
+    cfg = get_model_config("coco", "l")
+    cfg = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone, depth=depth))
+    params = init_params(cfg, seed).state_dict()
+    train_ds = SmokeDataset(LOOP_L_TRAIN, seed + 12)
+    work = os.path.join(tmp, "l")
+    settings = loop_settings(presets, work, seed, total_epochs=2, opt_moments="int8",
+                             ckpt_topk_epoch=10)
+    real_save = state_ckpt.save_train_state
+    with LoopSpy(torch) as spy:
+        state_ckpt.save_train_state = copy_state_after(os.path.join(tmp, "l_ep1"), 1)
+        try:
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            out = loop.train_model(params, cfg, train_ds, None, settings, log=lambda m: None,
+                                   device=dev)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+        finally:
+            state_ckpt.save_train_state = real_save
+    want_step = {fbt.FWD: depth, fbt.BWD_MLP_DX_SAVE: depth, fbt.BWD_MLP_DW_SAVED: depth,
+                 fbt.BWD_ATTN: depth, "adam_q8": 1, "grad_norm": 1}
+    print(f"train_loop ViT-L depth {depth}: launches a step {spy.steps[0]}, syncs {spy.syncs}")
+    check(len(spy.steps) == 4 and all(n == want_step for n in spy.steps),
+          f"a ViT-L loop step launched {spy.steps}, expected {want_step}")
+    check(all(math.isfinite(h["train_loss"]) for h in out["history"]), "ViT-L loss not finite")
+    for f in ("epoch000.npz", "epoch001.npz", "last.npz"):     # 1.2 GB each: free the disk
+        check(os.path.exists(os.path.join(work, f)), f"train_loop ViT-L wrote no {f}")
+        os.remove(os.path.join(work, f))
+    resumed = dataclasses.replace(settings, work_dir=os.path.join(tmp, "l_resume"),
+                                  resume_state_dir=os.path.join(tmp, "l_ep1"))
+    t0 = time.perf_counter()
+    out_r = loop.train_model(params, cfg, train_ds, None, resumed, log=lambda m: None, device=dev)
+    resume_wall_s = time.perf_counter() - t0
+    check([h["epoch"] for h in out_r["history"]] == [1], f"the ViT-L resume ran {out_r['history']}")
+    equal, gap, codes = state_gap(torch, flat_state(torch, os.path.join(work, "train_state")),
+                                  flat_state(torch, os.path.join(tmp, "l_resume", "train_state")))
+    print(f"train_loop ViT-L: resumed after epoch 1, epoch-2 state bit for bit {equal}, "
+          f"largest gap {gap:.3e}, int8 codes differing {codes}")
+    check(gap <= 0.5 * settings.lr, f"the resumed ViT-L run ends {gap} from the uninterrupted one")
+    writes = {}
+    for name, f, s in spy.writes:
+        writes.setdefault(f"{name} {f}".strip(), []).append(round(s, 3))
+    return {"depth": depth, "launches": counts, "launches_per_step": spy.steps[0],
+            "syncs_per_step": statistics.mean(spy.syncs),
+            "ms_per_loop_step": [e["train_s"] * 1e3 / 2 for e in spy.epochs],
+            "epoch_seconds": [h["seconds"] for h in out["history"]], "wall_s": wall_s,
+            "resume_wall_s": resume_wall_s, "checkpoint_seconds": writes,
+            "resume_bit_equal": equal, "resume_gap": gap, "resume_codes_differing": codes}
+
+
+def run_loop_from_scratch(torch, seed, dev, tmp) -> dict:
+    """The from-scratch preset at ViT-B (AdamW with layer decay under the
+    warmup schedule, plain torch ops) for 2 epochs of 2 steps: the
+    history's rates are the schedule's at the count before each epoch's
+    last update."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.train import loop, presets, step as tstep
+
+    cfg = get_model_config("coco", "b")
+    settings = presets.from_scratch("b", total_epochs=2, batch_size=LOOP_BATCH,
+                                    block_impl="pallas_train", device_input=True,
+                                    tensorboard=False, seed=seed,
+                                    work_dir=os.path.join(tmp, "scratch"))
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    out = loop.train_model(init_params(cfg, seed).state_dict(), cfg,
+                           SmokeDataset(2 * LOOP_BATCH, seed + 13), None, settings,
+                           log=lambda m: None, device=dev)
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    counts = kernels.launch_counts()
+    sched = tstep.make_step_lr_schedule(settings.lr, 2, milestones=settings.lr_milestones,
+                                        gamma=settings.lr_gamma, warmup_iters=settings.warmup_iters,
+                                        warmup_ratio=settings.warmup_ratio)
+    want = [float(sched(torch.tensor(c, dtype=torch.int32, device=dev))) for c in (1, 3)]
+    got = [h["lr"] for h in out["history"]]
+    print(f"train_loop from-scratch: lr {got} against the schedule's {want}, launches {counts}")
+    check(got == want, f"the from-scratch history's lr {got} is not the schedule's {want}")
+    check("adam" not in counts and counts.get("train_fwd") == 4 * cfg.backbone.depth,
+          f"the from-scratch run launched {counts}")
+    return {"lr": got, "schedule_lr": want, "launches": counts, "wall_s": wall_s,
+            "train_loss": [h["train_loss"] for h in out["history"]]}
+
+
+def run_train_loop(torch, seed, dev, bare_ms: float) -> dict:
+    """The training loop phase: ViT-B, ViT-L int8 and the from-scratch
+    preset, in a temporary work dir removed after; cuDNN deterministic
+    while it runs (the head's convolutions), restored after."""
+    import shutil
+    import tempfile
+    tmp = tempfile.mkdtemp(prefix="evt_train_loop_")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        res = {"vit_b": run_loop_b(torch, seed, dev, tmp, bare_ms),
+               "tmp_free_gb": shutil.disk_usage(tmp).free / 1e9}
+        for d in os.listdir(tmp):
+            shutil.rmtree(os.path.join(tmp, d), ignore_errors=True)
+        t1 = time.perf_counter()
+        res["vit_l_int8"] = run_loop_l(torch, seed, dev, tmp, LOOP_L_DEPTH)
+        t2 = time.perf_counter()
+        res["from_scratch"] = run_loop_from_scratch(torch, seed, dev, tmp)
+        res["phase_seconds"] = {"vit_b": t1 - t0, "vit_l_int8": t2 - t1,
+                                "from_scratch": time.perf_counter() - t2}
+        return res
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+LOOP_L_DEPTH = 24      # ViT-L's full depth
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -2365,6 +2863,13 @@ def main() -> int:
         torch, model_l, rng2, args.seed, dev,
         (fbt.FWD, fbt.BWD_MLP_DX_SAVE_MS, fbt.BWD_MLP_DW_SAVED, fbt.BWD_ATTN), moments="int8",
         flavor={"EVT_TRAIN_MLP": "saved"})
+    del model_l
+    torch.cuda.empty_cache()
+    loop = run_train_loop(torch, args.seed, dev, train["ms_per_step"])
+    loop_counts = {}           # the loop phase's launches, added to the rows it runs
+    for run in ("vit_b", "vit_l_int8", "from_scratch"):
+        for k, n in loop[run]["launches"].items():
+            loop_counts[k] = loop_counts.get(k, 0) + n
 
     rows = []
     spec = (("K1 fused_block bf16", "bf16", "block.cu", "models/fused_block.py:51", "bf16", "block"),
@@ -2387,6 +2892,7 @@ def main() -> int:
     # K3, D1 and D2 also launch once per multi-stream tick, stacked
     tick = ms["two_program_sync"]["launches_per_tick"]
     rows[3]["launches"] += int(tick.get("sampler", 0))
+    rows[0]["launches"] += loop_counts.get("block", 0)       # the loop's bf16 validation
     d = det["configs"]["n320_bf16_square"]              # the detector of the main path
     for name, src, replaces, counter, pre in (
             ("D1 letterbox", "letterbox.cu", "detect/yolo.py:293 (XLA, no Pallas)", "letterbox", "d1"),
@@ -2423,7 +2929,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"easy_vitpose_tpu_torch/csrc/{src}",
                      "replaces": f"easy_vitpose_tpu/{replaces}",
-                     "launches": run["launches"].get(counter, 0),
+                     "launches": run["launches"].get(counter, 0) + loop_counts.get(counter, 0),
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                      "library_ms": m["library_ms"]})
@@ -2451,10 +2957,14 @@ def main() -> int:
         "name": "grad_norm global norm and clip scale", "route": "cuda",
         "source": "easy_vitpose_tpu_torch/csrc/grad_norm.cu",
         "replaces": "easy_vitpose_tpu/train/fused_opt.py:399 (XLA inside fused_apply, no Pallas)",
-        "launches": train["launches"].get("grad_norm", 0), "max_abs_err": opt["norm_abs_err"],
+        "launches": train["launches"].get("grad_norm", 0) + loop_counts.get("grad_norm", 0),
+        "max_abs_err": opt["norm_abs_err"],
         "ms": opt["norm_ms"], "plain_ms": opt["norm_plain_ms"],
         "bound_ms": opt["norm_bound"][0], "bound_by": opt["norm_bound"][1],
         "library_ms": opt["norm_library_ms"]}))
+    print("train_loop:", json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "history"}
+                                          if isinstance(v, dict) else v)
+                                      for k, v in loop.items()}))
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -1,4 +1,4 @@
-"""JAX params pytree -> the port's state dict.
+"""JAX params pytree <-> the port's state dict.
 
 The JAX package keeps ViTPose params as a pytree in its own layouts: linear
 weights (in, out), the patch conv flattened to (P*P*C, D) in unfold order,
@@ -6,7 +6,9 @@ per-block params stacked on a leading depth axis, the deconvs pre-flipped in
 HWIO and the final conv in HWIO.  This turns such a pytree, given as numpy
 arrays (``np.asarray`` of each leaf), into a state dict with the
 reference's names and torch layouts, which ``ViTPose.load_state_dict``
-takes as it is.  Numpy only: the port does not import JAX.
+takes as it is; :func:`state_dict_to_jax` is its inverse.  Both go through
+one name map, :func:`jax_leaves`.  Numpy only: the port does not import
+JAX.
 
 The map is linear and elementwise, so it carries any tree of the params'
 layout across: with ``bn_state=False`` it maps a tree without the head's
@@ -19,7 +21,9 @@ EMA weights too).
 """
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Mapping
+import functools
+import operator
+from typing import Any, Callable, Dict, Mapping, NamedTuple, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -46,42 +50,104 @@ def conv_weight_to_torch(w) -> np.ndarray:
     return _f32(_f32(w).transpose(3, 2, 0, 1))
 
 
+class JaxLeaf(NamedTuple):
+    """Where a state-dict tensor lives in the JAX params tree."""
+    path: Tuple[Union[str, int], ...]   # keys (and list indices) from the root
+    layer: Optional[int]                # its index on the stacked depth axis
+    kind: str                           # its layout: a key of _TO_TORCH
+
+
+# each layout's map from the JAX array to the torch one (``cfg`` for the patch)
+_TO_TORCH = {
+    "copy": lambda x, cfg: _f32(x),
+    "linear": lambda x, cfg: _f32(_f32(x).T),
+    "patch": lambda x, cfg: patch_weight_to_torch(x, cfg.backbone.patch_size,
+                                                  cfg.backbone.in_chans, cfg.backbone.embed_dim),
+    "deconv": lambda x, cfg: deconv_weight_to_torch(x),
+    "conv": lambda x, cfg: conv_weight_to_torch(x),
+}
+# ... and back: exact inverses (transposes, flips and reshapes only)
+_TO_JAX = {
+    "copy": lambda x, cfg: x,
+    "linear": lambda x, cfg: x.T,
+    "patch": lambda x, cfg: x.transpose(2, 3, 1, 0).reshape(-1, cfg.backbone.embed_dim),
+    "deconv": lambda x, cfg: x[:, :, ::-1, ::-1].transpose(2, 3, 0, 1),
+    "conv": lambda x, cfg: x.transpose(2, 3, 1, 0),
+}
+
+
+def jax_leaves(cfg: ModelConfig, *, bn_state: bool = True) -> Dict[str, JaxLeaf]:
+    """The name map between the port's state dict and the JAX params tree,
+    in the state dict's order: each reference name -> its :class:`JaxLeaf`.
+    ``bn_state=False`` leaves out the head's BN running statistics (the
+    trainable tree: params, grads, Adam moments)."""
+    bb = cfg.backbone
+    out = {"backbone.patch_embed.proj.weight": JaxLeaf(("backbone", "patch_w"), None, "patch"),
+           "backbone.patch_embed.proj.bias": JaxLeaf(("backbone", "patch_b"), None, "copy"),
+           "backbone.pos_embed": JaxLeaf(("backbone", "pos_embed"), None, "copy"),
+           "backbone.last_norm.weight": JaxLeaf(("backbone", "ln_s"), None, "copy"),
+           "backbone.last_norm.bias": JaxLeaf(("backbone", "ln_b"), None, "copy")}
+    blocks = ("backbone", "blocks")
+    for i in range(bb.depth):
+        p = f"backbone.blocks.{i}"
+        for name, src in (("norm1", "ln1"), ("norm2", "ln2")):
+            out[f"{p}.{name}.weight"] = JaxLeaf(blocks + (f"{src}_s",), i, "copy")
+            out[f"{p}.{name}.bias"] = JaxLeaf(blocks + (f"{src}_b",), i, "copy")
+        for name, tree, src in (("attn.qkv", blocks, "qkv"), ("attn.proj", blocks, "proj"),
+                                ("mlp.fc1", blocks + ("mlp",), "fc1"),
+                                ("mlp.fc2", blocks + ("mlp",), "fc2")):
+            out[f"{p}.{name}.weight"] = JaxLeaf(tree + (f"{src}_w",), i, "linear")
+            out[f"{p}.{name}.bias"] = JaxLeaf(tree + (f"{src}_b",), i, "copy")
+    for i in range(len(cfg.head.deconv_filters)):
+        bn, dc = f"keypoint_head.deconv_layers.{3 * i + 1}", ("head", "deconv", i)
+        out[f"keypoint_head.deconv_layers.{3 * i}.weight"] = JaxLeaf(dc + ("w",), None, "deconv")
+        out[f"{bn}.weight"] = JaxLeaf(dc + ("bn", "scale"), None, "copy")
+        out[f"{bn}.bias"] = JaxLeaf(dc + ("bn", "bias"), None, "copy")
+        if bn_state:
+            out[f"{bn}.running_mean"] = JaxLeaf(("head", "bn_state", i, "mean"), None, "copy")
+            out[f"{bn}.running_var"] = JaxLeaf(("head", "bn_state", i, "var"), None, "copy")
+    out["keypoint_head.final_layer.weight"] = JaxLeaf(("head", "final_w"), None, "conv")
+    out["keypoint_head.final_layer.bias"] = JaxLeaf(("head", "final_b"), None, "copy")
+    return out
+
+
 def state_dict_from_jax(params: Mapping[str, Any], cfg: ModelConfig, *,
                         bn_state: bool = True) -> Dict[str, torch.Tensor]:
     """JAX ``{"backbone": ..., "head": ...}`` params -> reference-named
     float32 tensors for ``ViTPose.load_state_dict``; ``bn_state=False`` for
     a tree without the BN running statistics (grads, moments)."""
-    bb = cfg.backbone
-    bbp, head = params["backbone"], params["head"]
-    sd: Dict[str, np.ndarray] = {
-        "backbone.patch_embed.proj.weight": patch_weight_to_torch(
-            bbp["patch_w"], bb.patch_size, bb.in_chans, bb.embed_dim),
-        "backbone.patch_embed.proj.bias": _f32(bbp["patch_b"]),
-        "backbone.pos_embed": _f32(bbp["pos_embed"]),
-        "backbone.last_norm.weight": _f32(bbp["ln_s"]),
-        "backbone.last_norm.bias": _f32(bbp["ln_b"]),
-    }
-    blocks, mlp = bbp["blocks"], bbp["blocks"]["mlp"]
-    for i in range(bb.depth):
-        p = f"backbone.blocks.{i}"
-        for name, src in (("norm1", "ln1"), ("norm2", "ln2")):
-            sd[f"{p}.{name}.weight"] = _f32(blocks[f"{src}_s"][i])
-            sd[f"{p}.{name}.bias"] = _f32(blocks[f"{src}_b"][i])
-        for name, tree, src in (("attn.qkv", blocks, "qkv"), ("attn.proj", blocks, "proj"),
-                                ("mlp.fc1", mlp, "fc1"), ("mlp.fc2", mlp, "fc2")):
-            sd[f"{p}.{name}.weight"] = _f32(_f32(tree[f"{src}_w"][i]).T)
-            sd[f"{p}.{name}.bias"] = _f32(tree[f"{src}_b"][i])
-    for i, dc in enumerate(head["deconv"]):
-        bn = f"keypoint_head.deconv_layers.{3 * i + 1}"
-        sd[f"keypoint_head.deconv_layers.{3 * i}.weight"] = deconv_weight_to_torch(dc["w"])
-        sd[f"{bn}.weight"] = _f32(dc["bn"]["scale"])
-        sd[f"{bn}.bias"] = _f32(dc["bn"]["bias"])
-        if bn_state:
-            sd[f"{bn}.running_mean"] = _f32(head["bn_state"][i]["mean"])
-            sd[f"{bn}.running_var"] = _f32(head["bn_state"][i]["var"])
-    sd["keypoint_head.final_layer.weight"] = conv_weight_to_torch(head["final_w"])
-    sd["keypoint_head.final_layer.bias"] = _f32(head["final_b"])
-    return {k: torch.from_numpy(v) for k, v in sd.items()}
+    sd = {}
+    for name, leaf in jax_leaves(cfg, bn_state=bn_state).items():
+        x = functools.reduce(operator.getitem, leaf.path, params)
+        if leaf.layer is not None:
+            x = x[leaf.layer]
+        sd[name] = torch.from_numpy(_TO_TORCH[leaf.kind](x, cfg))
+    return sd
+
+
+def state_dict_to_jax(sd: Mapping[str, Any], cfg: ModelConfig, *, bn_state: bool = True,
+                      dtype=np.float32) -> Dict[str, Any]:
+    """The inverse of :func:`state_dict_from_jax`: reference-named tensors
+    (or numpy arrays) -> the JAX params tree at ``dtype`` (the BN running
+    statistics stay float32), the layout of the JAX package's ``.npz``
+    files; bit for bit, since the map only moves elements."""
+    head: Dict[str, Any] = {"deconv": [{"bn": {}} for _ in cfg.head.deconv_filters]}
+    if bn_state:
+        head["bn_state"] = [{} for _ in cfg.head.deconv_filters]
+    tree = {"backbone": {"blocks": {"mlp": {}}}, "head": head}
+    stacks: Dict[Tuple, list] = {}
+    for name, leaf in jax_leaves(cfg, bn_state=bn_state).items():
+        x = sd[name]
+        x = x.detach().to("cpu", torch.float32).numpy() if isinstance(x, torch.Tensor) else x
+        x = np.ascontiguousarray(_TO_JAX[leaf.kind](np.asarray(x), cfg).astype(
+            np.float32 if "bn_state" in leaf.path else dtype))
+        if leaf.layer is None:
+            functools.reduce(operator.getitem, leaf.path[:-1], tree)[leaf.path[-1]] = x
+        else:
+            stacks.setdefault(leaf.path, []).append(x)
+    for path, xs in stacks.items():
+        functools.reduce(operator.getitem, path[:-1], tree)[path[-1]] = np.stack(xs)
+    return tree
 
 
 def _tree_map(fn: Callable, tree, *rest):

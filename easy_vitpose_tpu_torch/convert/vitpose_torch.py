@@ -100,58 +100,7 @@ def convert_vitpose_state_dict(sd: Mapping[str, Any], cfg: ModelConfig,
     """A reference-format state dict -> the JAX package's params tree
     (linear weights (in, out), the patch conv flattened in unfold order,
     blocks stacked on a depth axis, deconvs pre-flipped HWIO), audited."""
+    from .from_jax import state_dict_to_jax
     sd = normalize_state_dict(sd)
     audit_state_dict_keys(sd, cfg)
-    D = cfg.backbone.embed_dim
-
-    def lin(name):
-        return sd[name + ".weight"].T.astype(dtype), sd[name + ".bias"].astype(dtype)
-
-    blocks = []
-    for i in range(cfg.backbone.depth):
-        p = f"backbone.blocks.{i}"
-        qkv_w, qkv_b = lin(p + ".attn.qkv")
-        proj_w, proj_b = lin(p + ".attn.proj")
-        fc1_w, fc1_b = lin(p + ".mlp.fc1")
-        fc2_w, fc2_b = lin(p + ".mlp.fc2")
-        blocks.append({
-            "ln1_s": sd[p + ".norm1.weight"].astype(dtype),
-            "ln1_b": sd[p + ".norm1.bias"].astype(dtype),
-            "qkv_w": qkv_w, "qkv_b": qkv_b, "proj_w": proj_w, "proj_b": proj_b,
-            "ln2_s": sd[p + ".norm2.weight"].astype(dtype),
-            "ln2_b": sd[p + ".norm2.bias"].astype(dtype),
-            "mlp": {"fc1_w": fc1_w, "fc1_b": fc1_b, "fc2_w": fc2_w, "fc2_b": fc2_b},
-        })
-    pw = sd["backbone.patch_embed.proj.weight"]          # (D, C, kh, kw)
-    backbone = {
-        "patch_w": pw.transpose(2, 3, 1, 0).reshape(-1, D).astype(dtype),
-        "patch_b": sd["backbone.patch_embed.proj.bias"].astype(dtype),
-        "pos_embed": sd["backbone.pos_embed"].astype(dtype),
-        "blocks": _stack(blocks),
-        "ln_s": sd["backbone.last_norm.weight"].astype(dtype),
-        "ln_b": sd["backbone.last_norm.bias"].astype(dtype),
-    }
-    deconv, bn_state = [], []
-    for i in range(len(cfg.head.deconv_kernels)):
-        w = sd[f"keypoint_head.deconv_layers.{3 * i}.weight"]   # (Cin, Cout, kh, kw)
-        bn = f"keypoint_head.deconv_layers.{3 * i + 1}"
-        deconv.append({
-            "w": np.ascontiguousarray(w[:, :, ::-1, ::-1].transpose(2, 3, 0, 1).astype(dtype)),
-            "bn": {"scale": sd[bn + ".weight"].astype(dtype),
-                   "bias": sd[bn + ".bias"].astype(dtype)},
-        })
-        bn_state.append({"mean": sd[bn + ".running_mean"].astype(np.float32),
-                         "var": sd[bn + ".running_var"].astype(np.float32)})
-    fw = sd["keypoint_head.final_layer.weight"]          # (K, Cin, kh, kw)
-    head = {"deconv": deconv, "bn_state": bn_state,
-            "final_w": fw.transpose(2, 3, 1, 0).astype(dtype),
-            "final_b": sd["keypoint_head.final_layer.bias"].astype(dtype)}
-    return {"backbone": backbone, "head": head}
-
-
-def _stack(blocks):
-    """A list of equal trees -> one tree with each leaf stacked on axis 0."""
-    first = blocks[0]
-    if isinstance(first, dict):
-        return {k: _stack([b[k] for b in blocks]) for k in first}
-    return np.stack(blocks)
+    return state_dict_to_jax(sd, cfg, dtype=dtype)

@@ -27,6 +27,7 @@ float32 master weights that gradients flow through:
 """
 from __future__ import annotations
 
+import functools
 from typing import Mapping, NamedTuple, Optional
 
 import numpy as np
@@ -230,6 +231,15 @@ def vit_forward(vit: ViT, x: torch.Tensor, *, plain: bool = False) -> torch.Tens
 
 
 # ----------------------------------------------------------------- training
+@functools.lru_cache(maxsize=None)
+def _keep_probs(depth: int, rate: float, device: torch.device) -> torch.Tensor:
+    """(depth, 1, 1, 1) float32 ``1 - linspace(0, rate, depth)``, made once
+    per device (a CUDA tensor built from host data makes the host wait for
+    the card).  Callers must not write to it."""
+    dpr = np.linspace(0.0, rate, depth).astype(np.float32)
+    return (1.0 - torch.from_numpy(dpr)).reshape(-1, 1, 1, 1).to(device)
+
+
 def draw_drop_path_masks(cfg: BackboneConfig, batch: int, generator: torch.Generator,
                          device=None) -> torch.Tensor:
     """Per-layer stochastic-depth keep masks pre-scaled by 1/keep_prob,
@@ -237,8 +247,7 @@ def draw_drop_path_masks(cfg: BackboneConfig, batch: int, generator: torch.Gener
     ``kp = 1 - linspace(0, drop_path_rate, depth)`` and U uniform from
     ``generator``.  The draws are not JAX's (another generator); the tests
     hand JAX's masks to :func:`vit_forward_train` instead."""
-    dpr = np.linspace(0.0, cfg.drop_path_rate, cfg.depth).astype(np.float32)
-    kp = (1.0 - torch.from_numpy(dpr)).to(device).reshape(-1, 1, 1, 1)
+    kp = _keep_probs(cfg.depth, cfg.drop_path_rate, torch.device(device or "cpu"))
     u = torch.rand((cfg.depth, batch, 1, 1), generator=generator,
                    device=generator.device).to(device)
     return torch.floor(kp + u) / kp

@@ -1,1 +1,3 @@
-"""Training: losses, the fused clip + Adam optimizer (K8) and the step."""
+"""Training: the dataset, losses, the optimizers (the fused clip + Adam, K8
+and K9, and the optax chains), the step, full-state checkpoints, presets
+and the epoch loop."""

@@ -62,7 +62,7 @@ from __future__ import annotations
 
 import functools
 import operator
-from typing import Callable, Dict, List, Mapping, NamedTuple, Sequence, Tuple
+from typing import Callable, Dict, List, Mapping, NamedTuple, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -542,11 +542,14 @@ def clip_scale(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
     return _launch_norm(tab, max_norm)
 
 
-def make_fused_adam(learning_rate: float, max_grad_norm: float = 1.0,
+def make_fused_adam(learning_rate: Union[float, Callable], max_grad_norm: float = 1.0,
                     moment_dtype: str = "f32") -> FusedAdam:
-    """The fused clip + Adam optimizer at a learning rate that
-    :func:`..train.step.set_learning_rate` may change between steps, with
-    moments stored at ``moment_dtype`` ("f32", "bf16" or "int8")."""
+    """The fused clip + Adam optimizer with moments stored at
+    ``moment_dtype`` ("f32", "bf16" or "int8").  ``learning_rate`` is a
+    float, which :func:`..train.step.set_learning_rate` may change between
+    steps, or a schedule: a function of the int32 step count tensor to a
+    float32 tensor on its device, evaluated at the state's count before the
+    update (as ``optax.inject_hyperparams``), without a host wait."""
     if moment_dtype not in MOMENT_DTYPES:
         raise ValueError(f"moment_dtype must be one of {MOMENT_DTYPES}, got {moment_dtype!r}")
 
@@ -558,6 +561,8 @@ def make_fused_adam(learning_rate: float, max_grad_norm: float = 1.0,
 
     def init(params: Tensors) -> FusedAdamState:
         dev = next(iter(params.values())).device
+        count = torch.zeros((), dtype=torch.int32, device=dev)
+        lr0 = learning_rate(count) if callable(learning_rate) else learning_rate
         if moment_dtype == "int8":
             mu, nu = zeros_q8(params, torch.int8), zeros_q8(params, torch.uint8)
         else:
@@ -565,8 +570,8 @@ def make_fused_adam(learning_rate: float, max_grad_norm: float = 1.0,
             mu, nu = ({k: torch.zeros_like(v, dtype=dt) for k, v in params.items()}
                       for _ in range(2))
         return FusedAdamState(
-            count=torch.zeros((), dtype=torch.int32, device=dev), mu=mu, nu=nu,
-            hyperparams={"learning_rate": torch.tensor(learning_rate, dtype=torch.float32, device=dev)})
+            count=count, mu=mu, nu=nu,
+            hyperparams={"learning_rate": torch.as_tensor(lr0, dtype=torch.float32).to(dev)})
 
     def fused_apply(grads: Tensors, state: FusedAdamState, params: Tensors):
         """-> (new params, new state, global norm).  On the card: the norm
@@ -577,7 +582,8 @@ def make_fused_adam(learning_rate: float, max_grad_norm: float = 1.0,
         cf = count.float()
         c1 = 1.0 - torch.pow(torch.full_like(cf, B1), cf)
         c2 = 1.0 - torch.pow(torch.full_like(cf, B2), cf)
-        lr = state.hyperparams["learning_rate"]
+        lr = (learning_rate(state.count).float() if callable(learning_rate)
+              else state.hyperparams["learning_rate"])
         new_state = lambda mu, nu: FusedAdamState(count, mu, nu, {"learning_rate": lr})  # noqa: E731
         if ps and ps[0].device.type == "cuda" and moment_dtype != "bf16":
             q8 = moment_dtype == "int8"

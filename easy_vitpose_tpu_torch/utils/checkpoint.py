@@ -28,7 +28,10 @@ def flatten_params(params, prefix: str = "") -> Dict[str, np.ndarray]:
 
 
 def save_params(path: str, params) -> None:
-    np.savez_compressed(path, **flatten_params(params))
+    """Write ``params`` as a flat ``.npz``.  Uncompressed: weights hardly
+    compress, and zlib takes seconds for each ViT-B checkpoint; ``np.load``
+    (and so JAX's ``load_params``) reads either."""
+    np.savez(path, **flatten_params(params))
 
 
 def load_params(path: str) -> Any:

@@ -53,6 +53,16 @@ MODULES = [
     "easy_vitpose_tpu_torch.train.losses",
     "easy_vitpose_tpu_torch.train.fused_opt",
     "easy_vitpose_tpu_torch.train.step",
+    "easy_vitpose_tpu_torch.train.dataset",
+    "easy_vitpose_tpu_torch.train.loop",
+    "easy_vitpose_tpu_torch.train.presets",
+    "easy_vitpose_tpu_torch.train.resilient",
+    "easy_vitpose_tpu_torch.train.state_ckpt",
+    "easy_vitpose_tpu_torch.eval",
+    "easy_vitpose_tpu_torch.eval.metrics",
+    "easy_vitpose_tpu_torch.eval.cocoeval",
+    "easy_vitpose_tpu_torch.ops.oks",
+    "easy_vitpose_tpu_torch.cli.train",
 ]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|easy_vitpose_tpu)\b(?!_torch)", re.M)
 
