@@ -76,6 +76,26 @@ toolkit:
    single answer equal to a direct ``VitInference`` call, each micro-batched
    crop's heatmaps within ``HEATMAP_TOL`` of the single path's; ms per
    request;
+4g. ``convert:`` drives ``cli/convert.py`` at ViT-B: a reference .pth
+   through ``vitpose`` and back through ``to-torch`` key for key and bit for
+   bit; ``average``; a synthetic ViTPose+ ViT-B through ``plus`` and
+   ``split``, each of its six tasks (K = 17, 14, 16, 17, 17, 133) through
+   ``VitInference(plus.npz, task=t, dtype="int8")`` bit for bit against the
+   split checkpoint's, within ``HEATMAP_TOL`` of the plain path and with
+   {K2: 12, K3: 1, decode: 1} launches a frame; a stand-in ultralytics
+   YOLOv8n .pt against its converted .npz, detections bit for bit;
+4h. ``export:`` drives ``cli/export.py``: ``.pt2`` files at fp32, bf16 and
+   int8 for 64 crops, each loaded with ``torch.export.load`` and run on the
+   card against the kernel forward within ``HEATMAP_TOL`` (both timed; the
+   artifact holds plain ops), and ONNX through the numpy interpreter on 2
+   crops against the card's fp32 forward within ``ONNX_TOL``;
+4i. ``eval_coco:`` drives ``cli/eval_coco.py``'s ``main`` at ViT-B int8 on a
+   synthetic val set (32 images, 128 people) in four lanes
+   (``--gt-crops-batched 64``, ``--use-gt-bbox``, YOLOv8n/320, and the
+   gt-crops lane with ``--flip-test --oks-nms soft --per-keypoint``), each
+   against the same call with ``--plain``; launches per batch and per image,
+   crops/s and images/s, the scorer's AP of 1.0 on the ground truth; cv2's
+   image read and warp are stood in for (the card's host has no cv2);
 5. holds the training kernels (K5 forward, K6a MLP backward, K7 attention
    backward at bf16 and fp32) against their plain versions at the main
    shapes and a ragged batch, and times each beside its plain version and
@@ -147,10 +167,11 @@ toolkit:
    (``grad_norm``: it replaces no Pallas kernel), one JSON line per kernel
    set (``kernels``, 20 rows: D1 and D2 after K4's; K3's, D1's and D2's
    launches count the image frame's and a multi-stream tick's), the
-   detector's, ``VitInference``'s, the stacked kernels', the multi-stream
-   and the HTTP measurements (``detector``, ``detector_stacked``,
-   ``sampler_stacked``, ``vitinference``, ``multistream``, ``serve_http``),
-   the card line, and last ``{"ok": true, "device": {...}}``.
+   detector's, ``VitInference``'s, the stacked kernels', the multi-stream,
+   the HTTP and the tools' measurements (``detector``, ``detector_stacked``,
+   ``sampler_stacked``, ``vitinference``, ``multistream``, ``serve_http``,
+   ``convert``, ``export``, ``eval_coco``: these three with the card; the
+   kernel rows count their launches too), the card line, and last ``{"ok": true, "device": {...}}``.
 
 The A/B of each flavor against the default, interleaved in one process,
 is ``scripts/bench_torch_breakdown.py --flavors``.
@@ -1677,6 +1698,28 @@ def eager_graphs(det):
         del det.graphs.run
 
 
+def hold_step(torch, step, step_plain, dtype: str, what: str) -> tuple:
+    """One pose step's decode inputs (heatmaps, geometry, mask) through the
+    kernels against the plain path's: the same crop geometry and mask, the
+    heatmaps within HEATMAP_TOL[dtype] of their range, and the keypoints
+    the plain decode of their own heatmaps (scores bit for bit, coordinates
+    within DECODE_TOL heatmap px).  Returns (heatmap error over the range,
+    decode gap in px)."""
+    from easy_vitpose_tpu_torch.ops import decode
+
+    (hk, gk, mk), (hp, gp, mp) = step, step_plain
+    check(torch.equal(gk, gp) and torch.equal(mk, mp), f"{what}: crop geometry differs")
+    span = float(hp.float().max() - hp.float().min())
+    err = float((hk.float() - hp.float()).abs().max())
+    check(err <= HEATMAP_TOL[dtype] * span, f"{what}: heatmaps differ: {err} of {span}")
+    kk = decode.decode_keypoints(hk, gk, mk)
+    kp = decode.decode_keypoints_plain(hk, gk, mk)
+    gap = decode_gap(torch, kk, kp, gk, *hk.shape[-2:])
+    check(torch.equal(kk[..., 2], kp[..., 2]) and gap <= DECODE_TOL,
+          f"{what}: keypoints are not the plain decode of their heatmaps")
+    return err / span, gap
+
+
 def hold_to_plain(torch, vi, vi_plain, frames, dtype: str) -> dict:
     """The same frames through the kernel path and the plain path on the
     card: detections bit for bit, the same IDs, the pose step's heatmaps
@@ -1684,7 +1727,6 @@ def hold_to_plain(torch, vi, vi_plain, frames, dtype: str) -> dict:
     keypoints the plain decode of their own heatmaps (scores bit for bit,
     coordinates within DECODE_TOL heatmap px).  The kernel path's programs
     run eagerly here, so the spy sees its pose steps."""
-    from easy_vitpose_tpu_torch.ops import decode
     from easy_vitpose_tpu_torch.pipeline import pose_step as ps
 
     worst = {"heatmap_rel_err": 0.0, "decode_gap_px": 0.0, "people": 0}
@@ -1698,17 +1740,9 @@ def hold_to_plain(torch, vi, vi_plain, frames, dtype: str) -> dict:
         check(np.array_equal(vi._yolo_res, vi_plain._yolo_res),
               f"{dtype}: detections differ from the plain path")
         check(len(got) == len(ref), f"{dtype}: pose steps differ from the plain path")
-        for (hk, gk, mk), (hp, gp, mp) in zip(got, ref):
-            check(torch.equal(gk, gp) and torch.equal(mk, mp), f"{dtype}: crop geometry differs")
-            span = float(hp.float().max() - hp.float().min())
-            err = float((hk.float() - hp.float()).abs().max())
-            check(err <= HEATMAP_TOL[dtype] * span, f"{dtype}: heatmaps differ: {err} of {span}")
-            kk = decode.decode_keypoints(hk, gk, mk)
-            kp = decode.decode_keypoints_plain(hk, gk, mk)
-            gap = decode_gap(torch, kk, kp, gk, *hk.shape[-2:])
-            check(torch.equal(kk[..., 2], kp[..., 2]) and gap <= DECODE_TOL,
-                  f"{dtype}: keypoints are not the plain decode of their heatmaps")
-            worst["heatmap_rel_err"] = max(worst["heatmap_rel_err"], err / span)
+        for step, step_plain in zip(got, ref):
+            err, gap = hold_step(torch, step, step_plain, dtype, dtype)
+            worst["heatmap_rel_err"] = max(worst["heatmap_rel_err"], err)
             worst["decode_gap_px"] = max(worst["decode_gap_px"], gap)
         for k in out:
             check(np.isfinite(out[k]).all() and out[k].shape == (17, 3), f"{dtype}: keypoints")
@@ -2314,6 +2348,582 @@ def run_serve_http(torch, pose, det_path, frame_np) -> dict:
     return row
 
 
+# ------------------------------------------------ eval, export and conversion
+PLUS_SHARED = 576          # ViT-B fc2 rows every ViTPose+ task shares; 192 rows are each task's
+PLUS_TASKS = ("coco", "aic", "mpii", "ap10k", "apt36k", "wholebody")
+PLUS_BOXES = 16            # people on the frame for each ViTPose+ task
+EXPORT_BATCH = 64
+# the ONNX graph run by the numpy interpreter on the host against the card's
+# float32 kernel forward, relative to the largest |heatmap|: numpy's exact
+# erf, float32 BLAS and einsum convolutions against K1's A&S erf and FMA
+# GEMMs and cuDNN (measured 1.84e-6 at ViT-B; the JAX package holds its
+# ViT-S export to 1e-5 of its forward, tests/test_onnx_export.py)
+ONNX_TOL = 1e-5
+EVAL_IMAGES, EVAL_PEOPLE, EVAL_HW = 32, 4, (480, 640)
+
+
+def add_counts(total: dict, counts: dict) -> None:
+    for k, n in counts.items():
+        total[k] = total.get(k, 0) + n
+
+
+def plus_state_dict(model, seed: int) -> dict:
+    """A reference-layout ViTPose+ state dict at ViT-B: ``model``'s backbone
+    with each fc2 split into PLUS_SHARED shared rows and six expert slices
+    of the rest (expert 0 the model's own rows, the others moved by seeded
+    noise), ``model``'s head for coco and five associate heads of 133 rows
+    drawn from ``seed`` as ``init_params`` draws a head."""
+    rng = np.random.default_rng(seed)
+    sd = {}
+    for k, v in model.state_dict().items():
+        v = v.detach().cpu().numpy()
+        if ".mlp.fc2." not in k:
+            sd[k] = v
+            continue
+        sd[k] = v[:PLUS_SHARED]
+        for e in range(len(PLUS_TASKS)):
+            part = v[PLUS_SHARED:]
+            sd[k.replace("fc2.", f"experts.{e}.")] = (
+                part if e == 0 else part + np.float32(0.02) * rng.standard_normal(
+                    part.shape, dtype=np.float32))
+    head = {k: v for k, v in sd.items() if k.startswith("keypoint_head.")}
+    for j in range(len(PLUS_TASKS) - 1):
+        for k, v in head.items():
+            shape = ((133,) + v.shape[1:]) if "final_layer" in k else v.shape
+            if k.endswith("num_batches_tracked"):
+                x = np.zeros((), np.int64)
+            elif k.endswith("running_var"):
+                x = rng.uniform(0.5, 1.5, shape)
+            elif "deconv_layers" in k and len(shape) == 4:
+                x = rng.standard_normal(shape) / np.sqrt(shape[0] * 4)
+            elif k.endswith("final_layer.weight"):
+                x = rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))
+            elif k.endswith("weight"):
+                x = 1.0 + 0.1 * rng.standard_normal(shape)
+            else:
+                x = 0.02 * rng.standard_normal(shape)
+            sd[k.replace("keypoint_head", f"associate_keypoint_heads.{j}")] = (
+                x if x.dtype == np.int64 else x.astype(np.float32))
+    return sd
+
+
+def ultralytics_state_dict(tree) -> dict:
+    """The ultralytics YOLOv8 state dict whose BN-folded conversion is
+    ``tree`` (the JAX layout's params) within a rounding: each conv's
+    weight as it is, BN with mean 0, bias the conv's, and scale
+    gamma / sqrt(var + eps) = 1 up to float32 (gamma = sqrt(var + eps))."""
+    import re
+    sd = {}
+
+    def walk(node, path):
+        if isinstance(node, dict) and set(node) == {"w", "b"}:
+            w, b = np.asarray(node["w"]), np.asarray(node["b"])
+            if re.fullmatch(r"model\.22\.cv[23]\.\d\.2", path):
+                sd[path + ".weight"], sd[path + ".bias"] = w.transpose(3, 2, 0, 1), b
+                return
+            var = np.full(b.shape, 1.0, np.float32)
+            sd[path + ".conv.weight"] = w.transpose(3, 2, 0, 1)
+            sd[path + ".bn.weight"] = np.sqrt(var.astype(np.float64) + 1e-3).astype(np.float32)
+            sd[path + ".bn.bias"] = b
+            sd[path + ".bn.running_mean"] = np.zeros_like(b)
+            sd[path + ".bn.running_var"] = var
+            sd[path + ".bn.num_batches_tracked"] = np.zeros((), np.int64)
+            return
+        items = node.items() if isinstance(node, dict) else enumerate(node)
+        for k, v in items:
+            walk(v, f"{path}.{k}" if path else str(k))
+
+    walk(tree, "")
+    sd["model.22.dfl.conv.weight"] = np.arange(16, dtype=np.float32).reshape(1, 16, 1, 1)
+    return sd
+
+
+def stand_in_ultralytics(torch):
+    """A module class standing in for ultralytics' pickled DetectionModel
+    (the card's host has no ultralytics): ``torch.load`` of a .pt unpickles
+    it from this script, and the loader reads only ``state_dict()``."""
+    if "StandInUltralytics" not in globals():
+        class StandInUltralytics(torch.nn.Module):
+            def __init__(self, sd):
+                super().__init__()
+                self._sd = sd
+
+            def state_dict(self, *a, **k):
+                return self._sd
+
+        StandInUltralytics.__module__ = __name__
+        StandInUltralytics.__qualname__ = "StandInUltralytics"
+        globals()["StandInUltralytics"] = StandInUltralytics
+    return globals()["StandInUltralytics"]
+
+
+def hold_given_boxes(torch, vi, frame, bboxes, K: int) -> dict:
+    """``vi`` (no detector) on ``frame`` with ``bboxes``, through the kernels
+    and then through the plain path of the same model (``vi.plain`` set for
+    one call), held by ``hold_step``; the launches of the kernel call."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
+
+    got, ref = [], []
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    with decode_spy(ps, got):
+        out = vi.inference(frame, bboxes=bboxes)
+    counts = kernels.launch_counts()
+    vi.plain = True
+    try:
+        with decode_spy(ps, ref):
+            out_p = vi.inference(frame, bboxes=bboxes)
+    finally:
+        vi.plain = False
+    check(list(out) == list(out_p) and len(got) == len(ref) == 1, "plain path differs in people")
+    err, gap = hold_step(torch, got[0], ref[0], "int8", f"K={K}")
+    check(all(v.shape == (K, 3) and np.isfinite(v).all() for v in out.values()), "keypoints")
+    return {"out": out, "launches": counts, "heatmap_rel_err": err,
+            "decode_gap_px": gap, "heatmaps": tuple(got[0][0].shape)}
+
+
+def run_convert(torch, model, frame_np, det, seed: int, dev) -> dict:
+    """The conversion CLI at ViT-B (``python -m easy_vitpose_tpu_torch.cli.convert``,
+    its ``main``): a reference .pth through ``vitpose`` and back through
+    ``to-torch`` key for key and bit for bit; ``average`` of two
+    checkpoints; a ViTPose+ state dict through ``plus`` and ``split``, and
+    for each of its six tasks ``VitInference(plus.npz, task=t, dtype="int8")``
+    against the split checkpoint's (keypoints bit for bit) and against the
+    plain path (``hold_given_boxes``) on the 1080p frame with given boxes,
+    its launches per frame; a stand-in ultralytics YOLOv8n .pt and its
+    converted .npz giving the same detections on the card."""
+    import tempfile
+    from easy_vitpose_tpu_torch.cli import convert as convert_cli
+    from easy_vitpose_tpu_torch.convert.vitpose_torch import (convert_vitpose_state_dict,
+                                                             save_torch_checkpoint)
+    from easy_vitpose_tpu_torch.detect.yolo import YoloDetector
+    from easy_vitpose_tpu_torch.pipeline.inference import VitInference
+    from easy_vitpose_tpu_torch.utils.checkpoint import flatten_params, load_params
+
+    t_phase = time.perf_counter()
+    res = {"tasks": {}, "launches": {}}
+    H, W = FRAME_HW
+    boxes = make_boxes(np.random.default_rng(seed + 13), PLUS_BOXES, H, W)
+    bboxes = np.concatenate([boxes, np.full((PLUS_BOXES, 1), 0.9, np.float32)], 1)
+    with tempfile.TemporaryDirectory() as d:
+        p = lambda name: os.path.join(d, name)  # noqa: E731
+        cfg = model.cfg
+        save_torch_checkpoint(convert_vitpose_state_dict(model.state_dict(), cfg), cfg,
+                              p("vitpose-b-coco.pth"))
+        t0 = time.perf_counter()
+        convert_cli.main(["vitpose", "--ckpt", p("vitpose-b-coco.pth"), "--model-name", "b",
+                          "--out", p("vitpose-b-coco.npz")])
+        convert_cli.main(["to-torch", "--ckpt", p("vitpose-b-coco.npz"), "--model-name", "b",
+                          "--out", p("back-b-coco.pth")])
+        res["vitpose_and_back_s"] = time.perf_counter() - t0
+        a = torch.load(p("vitpose-b-coco.pth"), weights_only=True)["state_dict"]
+        b = torch.load(p("back-b-coco.pth"), weights_only=True)["state_dict"]
+        check(list(a) == list(b) and all(a[k].dtype == b[k].dtype and torch.equal(a[k], b[k])
+                                         for k in a),
+              "convert vitpose then to-torch does not give the .pth back bit for bit")
+        res["pth_keys"] = len(a)
+        del a, b
+        t0 = time.perf_counter()
+        # average: a checkpoint and its half, leaf by leaf the float64 mean cast back
+        tree = load_params(p("vitpose-b-coco.npz"))
+        flat = flatten_params(tree)
+        np.savez(p("half.npz"), **{k: v * np.float32(0.5) for k, v in flat.items()})
+        convert_cli.main(["average", "--ckpts", p("vitpose-b-coco.npz"), p("half.npz"),
+                          "--out", p("soup.npz")])
+        soup = flatten_params(load_params(p("soup.npz")))
+        check(soup.keys() == flat.keys() and all(
+            np.array_equal(soup[k], ((flat[k].astype(np.float64)
+                                      + (flat[k] * np.float32(0.5)).astype(np.float64)) / 2
+                                     ).astype(flat[k].dtype)) for k in flat),
+              "convert average is not the float64 mean of its checkpoints")
+        del tree, flat, soup
+        res["average_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        # ViTPose+: plus, split, and every task served from each
+        torch.save({k: torch.from_numpy(v) for k, v in plus_state_dict(model, seed + 14).items()},
+                   p("vitpose+-b.pth"))
+        res["plus_pth_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        convert_cli.main(["plus", "--ckpt", p("vitpose+-b.pth"), "--model-name", "b",
+                          "--out", p("vitpose-b-plus.npz")])
+        convert_cli.main(["split", "--source", p("vitpose+-b.pth"), "--target", p("split"),
+                          "--model-name", "b"])
+        res["plus_and_split_s"] = time.perf_counter() - t0
+        os.remove(p("vitpose+-b.pth"))
+        t_tasks = time.perf_counter()
+        for task in PLUS_TASKS:
+            t0 = time.perf_counter()
+            vp = VitInference(p("vitpose-b-plus.npz"), model_name="b", task=task, dtype="int8")
+            load_s = time.perf_counter() - t0
+            vs = VitInference(os.path.join(p("split"), f"vitpose-b-{task}.npz"), model_name="b",
+                              dtype="int8")
+            check(vp.dataset == vs.dataset == task, f"{task}: dataset {vp.dataset}, {vs.dataset}")
+            K = vp.cfg.head.num_keypoints
+            held = hold_given_boxes(torch, vp, frame_np, bboxes, K)
+            want = {"block_q8": 12, "sampler": 1, "decode": 1}
+            check(held["launches"] == want,
+                  f"{task}: launched {held['launches']} a frame, expected {want}")
+            split_out = vs.inference(frame_np, bboxes=bboxes)
+            check(list(split_out) == list(held["out"]) and all(
+                np.array_equal(split_out[k], held["out"][k]) for k in split_out),
+                f"{task}: plus and split keypoints differ")
+            row = {k: v for k, v in held.items() if k != "out"}
+            row.update(K=K, people=len(held["out"]), load_s=load_s)
+            add_counts(res["launches"], held["launches"])
+            print(f"convert {task}: {json.dumps(row)}")
+            res["tasks"][task] = row
+            del vp, vs
+        torch.cuda.empty_cache()
+        res["tasks_s"] = time.perf_counter() - t_tasks
+        # a stand-in ultralytics .pt and its .npz
+        cls = stand_in_ultralytics(torch)
+        sd = {k: torch.from_numpy(np.ascontiguousarray(v))
+              for k, v in ultralytics_state_dict(det["params_n"]).items()}
+        torch.save({"model": cls(sd), "train_args": {}}, p("yolov8n.pt"))
+        convert_cli.main(["yolo", "--ckpt", p("yolov8n.pt"), "--out", p("yolov8n.npz")])
+        kw = dict(imgsz=320, classes=(0,), dtype=torch.bfloat16)
+        det_pt, det_npz = YoloDetector(p("yolov8n.pt"), **kw), YoloDetector(p("yolov8n.npz"), **kw)
+        a, b = det_pt(frame_np), det_npz(frame_np)
+        check(len(a) > 0 and np.array_equal(a, b), ".pt and .npz detections differ")
+        res["yolo_pt_detections"] = len(a)
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+def run_export(torch, model, frame_np, seed: int, dev) -> dict:
+    """The export CLI at ViT-B (``cli/export.py`` ``main``): a ``.pt2`` at
+    fp32, bf16 and int8 for a batch of 64, each loaded with
+    ``torch.export.load`` alone and run on the card against the port's
+    kernel forward on the same crops (within HEATMAP_TOL), both timed;
+    the ONNX export run by the numpy interpreter on 2 crops against the
+    card's fp32 kernel forward (within ONNX_TOL)."""
+    import tempfile
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.cli import export as export_cli
+    from easy_vitpose_tpu_torch.export.onnx_ref import run_model
+    from easy_vitpose_tpu_torch.models.vitpose import serving_copy, vitpose_forward
+    from easy_vitpose_tpu_torch.ops import sampler
+
+    t_phase = time.perf_counter()
+    H, W = FRAME_HW
+    frame = torch.from_numpy(frame_np).to(dev)
+    boxes = torch.from_numpy(make_boxes(np.random.default_rng(seed + 15), EXPORT_BATCH, H, W))
+    crops, _ = sampler.crop_normalize(frame, boxes.to(dev), dtype=torch.float32)
+    res = {"launches": {}}
+    with tempfile.TemporaryDirectory() as d:
+        npz = os.path.join(d, "vitpose-b-coco.npz")
+        save_pose_npz(npz, model)
+        for dtype in ("fp32", "bf16", "int8"):
+            out = os.path.join(d, f"vitpose-b-coco-{dtype}.pt2")
+            t0 = time.perf_counter()
+            export_cli.main(["--model", npz, "--model-name", "b", "--dtype", dtype,
+                             "--batch", str(EXPORT_BATCH), "--out", out])
+            export_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            prog = torch.export.load(out).module()
+            load_s = time.perf_counter() - t0
+            sm = serving_copy(model, dtype)
+            x = crops.to(torch.float32 if dtype == "fp32" else torch.bfloat16)
+            with torch.no_grad():
+                got = prog(x)
+                kernels.reset_launch_counts()
+                ref = vitpose_forward(sm, x)
+                launches = kernels.launch_counts()
+                span = float(ref.float().max() - ref.float().min())
+                err = float((got.float() - ref.float()).abs().max())
+                check(got.shape == ref.shape and got.dtype == ref.dtype and got.is_cuda,
+                      f"{dtype} .pt2: {tuple(got.shape)} {got.dtype} on {got.device}")
+                check(err <= HEATMAP_TOL[dtype] * span,
+                      f"{dtype} .pt2 differs from the kernel forward: {err} of {span}")
+                row = {"file_bytes": os.path.getsize(out), "export_s": export_s, "load_s": load_s,
+                       "heatmap_rel_err": err / span, "kernel_launches": launches,
+                       "pt2_ms": time_ms(torch, lambda: prog(x)),
+                       "kernel_ms": time_ms(torch, lambda: vitpose_forward(sm, x))}
+            print(f"export {dtype}: {json.dumps(row)}")
+            res[dtype] = row
+            res["launches"][dtype] = launches
+            del prog, sm
+            os.remove(out)
+        onnx = os.path.join(d, "vitpose-b-coco.onnx")
+        t0 = time.perf_counter()
+        export_cli.main(["--model", npz, "--model-name", "b", "--format", "onnx", "--out", onnx])
+        export_s = time.perf_counter() - t0
+        x2 = crops[:2]
+        t0 = time.perf_counter()
+        (host,) = run_model(open(onnx, "rb").read(), {"input": x2.cpu().numpy().transpose(0, 3, 1, 2)})
+        run_s = time.perf_counter() - t0
+        with torch.no_grad():
+            ref = vitpose_forward(serving_copy(model, "fp32"), x2).cpu().numpy()
+        err = float(np.abs(host - ref).max()) / float(np.abs(ref).max())
+        check(host.shape == ref.shape and err <= ONNX_TOL,
+              f"ONNX on the host differs from the card's fp32 forward: rel {err}")
+        res["onnx"] = {"file_bytes": os.path.getsize(onnx), "export_s": export_s,
+                       "interpreter_s": run_s, "rel_err": err}
+        print(f"export onnx: {json.dumps(res['onnx'])}")
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+class StandInCv2:
+    """What the eval CLI's lanes read with cv2 (the card's host has none):
+    ``imread`` of the smoke's in-memory images by path (BGR, as cv2 gives
+    them), ``cvtColor`` BGR->RGB, and ``warpAffine`` as a bilinear numpy
+    warp with a constant zero border (cv2 rounds its bilinear weights to
+    1/32 and its result to uint8 the same way; the crops are the stand-in's,
+    both runs of a lane read the same)."""
+    IMREAD_COLOR, COLOR_BGR2RGB, INTER_LINEAR = 1, 4, 1
+
+    def __init__(self, images: dict):
+        self.images = images
+
+    def imread(self, path, flags=None):
+        img = self.images.get(path)
+        return None if img is None else np.ascontiguousarray(img[..., ::-1])
+
+    @staticmethod
+    def cvtColor(img, code):
+        return np.ascontiguousarray(img[..., ::-1])
+
+    @staticmethod
+    def warpAffine(img, M, dsize, flags=None):
+        w, h = dsize
+        inv = np.linalg.inv(np.vstack([np.asarray(M, np.float64), [0.0, 0.0, 1.0]]))[:2]
+        ys, xs = np.mgrid[0:h, 0:w].astype(np.float64)
+        sx = inv[0, 0] * xs + inv[0, 1] * ys + inv[0, 2]
+        sy = inv[1, 0] * xs + inv[1, 1] * ys + inv[1, 2]
+        x0, y0 = np.floor(sx).astype(np.int64), np.floor(sy).astype(np.int64)
+        fx, fy = (sx - x0)[..., None], (sy - y0)[..., None]
+        H, W = img.shape[:2]
+
+        def at(yy, xx):
+            ok = ((yy >= 0) & (yy < H) & (xx >= 0) & (xx < W))[..., None]
+            return np.where(ok, img[np.clip(yy, 0, H - 1), np.clip(xx, 0, W - 1)], 0).astype(
+                np.float64)
+
+        out = ((at(y0, x0) * (1 - fx) + at(y0, x0 + 1) * fx) * (1 - fy)
+               + (at(y0 + 1, x0) * (1 - fx) + at(y0 + 1, x0 + 1) * fx) * fy)
+        return np.clip(np.rint(out), 0, 255).astype(np.uint8)
+
+
+def eval_val_set(seed: int, d: str):
+    """A synthetic COCO val set: EVAL_IMAGES noise images of EVAL_HW with
+    EVAL_PEOPLE annotated people each, written as SmokeDataset writes its
+    annotations (boxes, 17 keypoints inside them, 85% visible)."""
+    rng = np.random.default_rng(seed)
+    H, W = EVAL_HW
+    imgdir = os.path.join(d, "val2017")
+    images, anns, files = [], [], {}
+    for i in range(EVAL_IMAGES):
+        name = f"{i:012d}.jpg"
+        files[os.path.join(imgdir, name)] = rng.integers(0, 256, (H, W, 3), dtype=np.uint8)
+        images.append({"id": i, "file_name": name, "width": W, "height": H})
+        for _ in range(EVAL_PEOPLE):
+            w, h = rng.uniform(60, 200), rng.uniform(120, 300)
+            x, y = rng.uniform(0, W - w), rng.uniform(0, H - h)
+            kp = np.stack([rng.uniform(x, x + w, 17), rng.uniform(y, y + h, 17),
+                           2.0 * (rng.uniform(size=17) > 0.15)], -1)
+            anns.append({"id": len(anns) + 1, "image_id": i, "category_id": 1, "iscrowd": 0,
+                         "keypoints": kp.ravel().tolist(), "num_keypoints": int((kp[:, 2] > 0).sum()),
+                         "bbox": [float(x), float(y), float(w), float(h)], "area": float(w * h)})
+    ann = os.path.join(d, "person_keypoints_val2017.json")
+    with open(ann, "w") as f:
+        json.dump({"images": images, "annotations": anns}, f)
+    return ann, imgdir, files, anns
+
+
+@contextlib.contextmanager
+def eval_spies(torch, seen: dict):
+    """Record what the eval CLI computes: each batch's heatmaps of its
+    gt-crops lane (``forward_heatmaps``), each image lane's VitInference
+    (its detector's programs run eagerly, so the decode spy sees the pose
+    steps) and every pose step's decode inputs."""
+    from easy_vitpose_tpu_torch.cli import eval_coco
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
+
+    real_fwd, real_vi = eval_coco.forward_heatmaps, eval_coco.VitInference
+
+    def fwd(*a, **k):
+        out = real_fwd(*a, **k)
+        seen["heat"].append(out)
+        return out
+
+    class Recording(real_vi):
+        def __init__(self, *a, **k):
+            super().__init__(*a, **k)
+            if self._detector is not None:
+                self._detector.graphs.run = lambda key, fn, *inputs: fn(*inputs)
+
+    seen.update(heat=[], decode=[])
+    eval_coco.forward_heatmaps, eval_coco.VitInference = fwd, Recording
+    try:
+        with decode_spy(ps, seen["decode"]):
+            yield
+    finally:
+        eval_coco.forward_heatmaps, eval_coco.VitInference = real_fwd, real_vi
+
+
+def run_eval_lane(torch, argv, spied: bool) -> dict:
+    """One eval CLI run (``main(argv)``): its AP summary, results, launches
+    and seconds, and with ``spied`` what ``eval_spies`` records."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.cli import eval_coco
+
+    seen = {}
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    with (eval_spies(torch, seen) if spied else contextlib.nullcontext()):
+        stats = eval_coco.main(argv)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    out = argv[argv.index("--out") + 1]
+    with open(out) as f:
+        results = json.load(f)
+    return {"stats": stats, "results": results, "launches": kernels.launch_counts(),
+            "s": secs, "seen": seen}
+
+
+def run_eval_coco(torch, model, det, seed: int, dev) -> dict:
+    """The eval CLI at ViT-B int8 (``cli/eval_coco.py`` ``main``) on a
+    synthetic val set, each lane against the same call with ``--plain``:
+    ``--gt-crops-batched 64`` (each batch's heatmaps within
+    HEATMAP_TOL["int8"], the same results' images and annotations),
+    ``--use-gt-bbox`` and the YOLOv8n/320 detector lane (the same
+    detections and scores bit for bit, heatmaps within HEATMAP_TOL["int8"],
+    keypoints the plain decode of their own heatmaps), and the gt-crops lane
+    with ``--flip-test --oks-nms soft --per-keypoint``; launches per batch
+    and per image; crops/s and images/s; the scorer's AP on the ground
+    truth fed back as results.  cv2's image read and warp are stood in for
+    (``StandInCv2``)."""
+    import tempfile
+    from easy_vitpose_tpu_torch.cli import eval_coco
+    from easy_vitpose_tpu_torch.detect import yolo
+    from easy_vitpose_tpu_torch.eval.cocoeval import CocoKeypointEval
+    from easy_vitpose_tpu_torch.train import dataset
+
+    t_phase = time.perf_counter()
+    res = {"stood_in": "cv2.imread, cv2.cvtColor and cv2.warpAffine (StandInCv2: in-memory "
+                       "images, a numpy bilinear warp)", "launches": {}}
+    with tempfile.TemporaryDirectory() as d:
+        ann, imgdir, files, anns = eval_val_set(seed + 16, d)
+        npz, det_path = os.path.join(d, "vitpose-b-coco.npz"), os.path.join(d, "yolov8n.npz")
+        save_pose_npz(npz, model)
+        yolo.save_yolo_npz(det_path, det["params_n"], "n")
+        gt = json.load(open(ann))
+        fed_back = [{"image_id": a["image_id"], "category_id": 1, "keypoints": a["keypoints"],
+                     "score": 1.0} for a in anns]
+        res["gt_fed_back_AP"] = CocoKeypointEval(gt, fed_back).summarize()["AP"]
+        check(abs(res["gt_fed_back_AP"] - 1.0) < 1e-9, f"the scorer gives the ground truth AP "
+                                                       f"{res['gt_fed_back_AP']}")
+        base = ["--ann", ann, "--imgdir", imgdir, "--model", npz, "--model-name", "b",
+                "--dtype", "int8"]
+        lanes = {"gt_crops": ["--gt-crops-batched", str(SLOTS)],
+                 "gt_bbox": ["--use-gt-bbox"],
+                 "detector": ["--yolo", det_path, "--yolo-size", "320"],
+                 "gt_crops_flip_soft": ["--gt-crops-batched", str(SLOTS), "--flip-test",
+                                        "--oks-nms", "soft", "--per-keypoint"]}
+        stand_in = StandInCv2(files)
+        real_cv2 = eval_coco.cv2, dataset.cv2
+        eval_coco.cv2 = dataset.cv2 = stand_in
+        try:
+            for lane, extra in lanes.items():
+                argv = base + extra + ["--out", os.path.join(d, f"{lane}.json")]
+                k = run_eval_lane(torch, argv, spied=True)
+                p = run_eval_lane(torch, argv[:-2] + ["--plain", "--out",
+                                                      os.path.join(d, f"{lane}_plain.json")],
+                                  spied=True)
+                kr, pr = k["results"], p["results"]
+                check(len(kr) == len(pr) > 0, f"{lane}: {len(kr)} results, plain {len(pr)}")
+                key = lambda r: (r["image_id"], r.get("ann_id", 0), r["score"])  # noqa: E731
+                if lane == "detector":     # the detector's scores are the plain path's bits
+                    check(sorted(map(key, kr)) == sorted(map(key, pr)),
+                          f"{lane}: detections differ from the plain path")
+                else:
+                    check(sorted(r["image_id"] for r in kr) == sorted(r["image_id"] for r in pr),
+                          f"{lane}: results' images differ from the plain path")
+                row = {"results": len(kr), "AP": k["stats"]["AP"], "plain_AP": p["stats"]["AP"],
+                       "s": k["s"], "plain_s": p["s"]}
+                worst, gap = 0.0, 0.0
+                if lane.startswith("gt_crops"):
+                    batches = len(k["seen"]["heat"])
+                    check(batches == len(p["seen"]["heat"]) == -(-len(anns) // SLOTS),
+                          f"{lane}: {batches} batches")
+                    for hk, hp in zip(k["seen"]["heat"], p["seen"]["heat"]):
+                        span = float(hp.max() - hp.min())
+                        worst = max(worst, float((hk - hp).abs().max()) / span)
+                    per = {n: c / batches for n, c in k["launches"].items()}
+                    want = {"block_q8": 24 if "--flip-test" in extra else 12}
+                    row.update(batches=batches, launches_per_batch=per,
+                               crops_per_s=len(anns) / k["s"])
+                else:
+                    # one pose step an image; with the detector a frame
+                    # with more people than the high-water mark of past
+                    # frames' slots (the first frame: 1) poses the rest in a
+                    # second step
+                    steps = len(k["seen"]["decode"])
+                    check(steps == len(p["seen"]["decode"]) and EVAL_IMAGES <= steps
+                          <= EVAL_IMAGES * (1 + (lane == "detector")),
+                          f"{lane}: {steps} pose steps for {EVAL_IMAGES} images")
+                    for step, step_plain in zip(k["seen"]["decode"], p["seen"]["decode"]):
+                        err, g = hold_step(torch, step, step_plain, "int8", lane)
+                        worst, gap = max(worst, err), max(gap, g)
+                    per = {n: c / EVAL_IMAGES for n, c in k["launches"].items()}
+                    want = {"block_q8": 12 * steps / EVAL_IMAGES, "sampler": steps / EVAL_IMAGES,
+                            "decode": steps / EVAL_IMAGES}
+                    if lane == "detector":
+                        want.update(letterbox=1, nms=1)
+                    row.update(launches_per_image=per, images_per_s=EVAL_IMAGES / k["s"],
+                               pose_steps=steps)
+                check(per == want, f"{lane}: launched {per}, expected {want}")
+                check(worst <= HEATMAP_TOL["int8"] and gap <= DECODE_TOL,
+                      f"{lane}: heatmaps {worst} of their range, decode gap {gap}")
+                row.update(heatmap_rel_err=worst, decode_gap_px=gap, launches=k["launches"])
+                add_counts(res["launches"], k["launches"])
+                if lane == "detector":     # the CLI's own path: the detection frames as graphs
+                    g = run_eval_lane(torch, argv, spied=False)
+                    check(sorted(map(key, g["results"])) == sorted(map(key, kr)),
+                          "detector lane: graphed results differ from the eager ones")
+                    check({n: c / EVAL_IMAGES for n, c in g["launches"].items()} == want,
+                          f"detector lane (graphs): launched {g['launches']}")
+                    row.update(graphed_s=g["s"], graphed_images_per_s=EVAL_IMAGES / g["s"])
+                    add_counts(res["launches"], g["launches"])
+                print(f"eval_coco {lane}: {json.dumps(row)}")
+                res[lane] = row
+        finally:
+            eval_coco.cv2, dataset.cv2 = real_cv2
+    res["phase_s"] = time.perf_counter() - t_phase
+    return res
+
+
+
+def run_tool_phases(torch, seed: int = 0) -> dict:
+    """The convert, export and eval_coco phases alone, on the main path's
+    ViT-B, frame and YOLOv8n/320 weights (``python3 -c "import torch,
+    chip_smoke as c; c.run_tool_phases(torch)"`` on a machine with a card)."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.detect import yolo
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means float32 here
+    torch.backends.cudnn.allow_tf32 = False
+    card = host_record(torch)
+    kernels.build()
+    dev = torch.device("cuda")
+    model = init_params(get_model_config("coco", "b"), seed).to(dev)
+    frame_np = np.random.default_rng(seed + 3).integers(0, 256, (*FRAME_HW, 3), dtype=np.uint8)
+    det = {"params_n": yolo.init_yolo_params(seed, yolo.YoloSpec("n"), frame_np, 320)}
+    with torch.no_grad():
+        out = {"convert": run_convert(torch, model, frame_np, det, seed, dev),
+               "export": run_export(torch, model, frame_np, seed, dev),
+               "eval_coco": run_eval_coco(torch, model, det, seed, dev)}
+    for k, v in out.items():
+        print(f"{k}:", json.dumps(v), "|", card)
+    return out
+
+
 # ----------------------------------------------------------- the training loop
 LOOP_TRAIN, LOOP_VAL, LOOP_BATCH = 256, 64, 64   # ViT-B: 4 steps and 1 val batch an epoch
 LOOP_L_TRAIN = 128                               # ViT-L: 2 steps an epoch, no validation
@@ -2833,10 +3443,20 @@ def main() -> int:
         det = check_detector(torch, frame_np, args.seed, dev)
         vi, http = run_vitinference(torch, model, frame_np, det, dev)
         ms = run_multistream(torch, frame_np, det["params_x"], args.seed, dev)
+        torch.cuda.empty_cache()
+        conv = run_convert(torch, model, frame_np, det, args.seed, dev)
+        exported = run_export(torch, model, frame_np, args.seed, dev)
+        ev = run_eval_coco(torch, model, det, args.seed, dev)
     torch.cuda.empty_cache()
     print("vitinference:", json.dumps(vi))
     print("multistream:", json.dumps(ms))
     print("serve_http:", json.dumps(http))
+    print("convert:", json.dumps(conv), "|", card)
+    print("export:", json.dumps(exported), "|", card)
+    print("eval_coco:", json.dumps(ev), "|", card)
+    new_paths = {}             # the int8 launches of the convert, export and eval_coco phases
+    for counts in (conv["launches"], exported["launches"]["int8"], ev["launches"]):
+        add_counts(new_paths, counts)
     meas.update(check_train_kernels(torch, model, rng, dev))
     gemms = {"vit_b": check_train_gemms(torch, model, rng, dev)}
     train = run_train_step(torch, model, rng, args.seed, dev,
@@ -2893,6 +3513,11 @@ def main() -> int:
     tick = ms["two_program_sync"]["launches_per_tick"]
     rows[3]["launches"] += int(tick.get("sampler", 0))
     rows[0]["launches"] += loop_counts.get("block", 0)       # the loop's bf16 validation
+    # the .pt2 comparisons' kernel forwards, the ViTPose+ tasks and the eval lanes
+    rows[0]["launches"] += exported["launches"]["bf16"].get("block", 0)
+    rows[1]["launches"] += exported["launches"]["fp32"].get("block", 0)
+    for i, counter in ((2, "block_q8"), (3, "sampler"), (5, "decode")):
+        rows[i]["launches"] += new_paths.get(counter, 0)
     d = det["configs"]["n320_bf16_square"]              # the detector of the main path
     for name, src, replaces, counter, pre in (
             ("D1 letterbox", "letterbox.cu", "detect/yolo.py:293 (XLA, no Pallas)", "letterbox", "d1"),
@@ -2900,7 +3525,7 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": f"easy_vitpose_tpu_torch/csrc/{src}",
                      "replaces": f"easy_vitpose_tpu/{replaces}",
                      "launches": (vi["int8_image"]["launches_per_frame"].get(counter, 0)
-                                  + int(tick.get(counter, 0))),
+                                  + int(tick.get(counter, 0)) + new_paths.get(counter, 0)),
                      "max_abs_err": d[f"{pre}_err"], "ms": d[f"{pre}_ms"],
                      "plain_ms": d[f"{pre}_plain_ms"], "bound_ms": d[f"{pre}_bound"][0],
                      "bound_by": d[f"{pre}_bound"][1], "library_ms": None})

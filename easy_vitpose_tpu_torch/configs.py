@@ -2,8 +2,8 @@
 
 The port's own copy of the constants and dataclasses of
 ``easy_vitpose_tpu/configs.py``; the port imports nothing of the JAX package.
-Only what the pose step, the training step and ``VitInference`` need is
-here: the hybrid CNN stem and the "simple" head variant are not ported yet.
+The hybrid CNN stem and the "simple" head variant have their fields, for
+the code that must refuse them, and are not ported yet (ROADMAP A12, A15).
 """
 from __future__ import annotations
 
@@ -51,6 +51,9 @@ class BackboneConfig:
     img_size: Tuple[int, int] = (256, 192)  # (H, W)
     in_chans: int = 3
     layer_norm_eps: float = 1e-6
+    # the hybrid CNN-stem embedding (reference HybridEmbed); not ported
+    # (ROADMAP A12): ``ViT`` and the ONNX export refuse it
+    stem_channels: Optional[Tuple[int, ...]] = None
 
     @property
     def head_dim(self) -> int:
@@ -79,6 +82,9 @@ class HeadConfig:
     deconv_filters: Tuple[int, ...] = (256, 256)
     deconv_kernels: Tuple[int, ...] = (4, 4)
     final_conv_kernel: int = 1
+    # the "simple" head's x4 upsample (no deconvs); not ported (ROADMAP
+    # A15): ``Head`` and the ONNX export refuse it
+    upsample: int = 0
 
 
 @dataclasses.dataclass(frozen=True)

@@ -150,12 +150,12 @@ def state_dict_to_jax(sd: Mapping[str, Any], cfg: ModelConfig, *, bn_state: bool
     return tree
 
 
-def _tree_map(fn: Callable, tree, *rest):
+def tree_map(fn: Callable, tree, *rest):
     """``fn`` over the leaves of nested dicts and lists of arrays."""
     if isinstance(tree, Mapping):
-        return {k: _tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
+        return {k: tree_map(fn, v, *(r[k] for r in rest)) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [_tree_map(fn, *xs) for xs in zip(tree, *rest)]
+        return [tree_map(fn, *xs) for xs in zip(tree, *rest)]
     return fn(tree, *rest)
 
 
@@ -176,7 +176,7 @@ def opt_state_from_jax(opt_state, params: Mapping[str, Any], cfg: ModelConfig):
 
     def moments(tree, levels):
         if isinstance(tree, Mapping) and "q_tree" in tree:
-            values = _tree_map(lambda q, sc, p: q8_decode(
+            values = tree_map(lambda q, sc, p: q8_decode(
                 torch.from_numpy(np.array(q)), torch.from_numpy(np.array(sc, np.float32)),
                 levels, np.shape(p)).numpy(), tree["q_tree"], tree["s_tree"], params)
             codes = {"q_tree": {}, "s_tree": {}}
@@ -212,8 +212,8 @@ def train_state_from_jax(state: Mapping[str, Any], cfg: ModelConfig, device=None
     to = lambda t: t.to(dev)  # noqa: E731
     out = {"params": {k: to(v) for k, v in trainable.items()},
            "opt_state": opt._replace(count=to(opt.count),
-                                     mu=_tree_map(to, opt.mu), nu=_tree_map(to, opt.nu),
-                                     hyperparams=_tree_map(to, opt.hyperparams)),
+                                     mu=tree_map(to, opt.mu), nu=tree_map(to, opt.nu),
+                                     hyperparams=tree_map(to, opt.hyperparams)),
            "bn_state": {k: to(v) for k, v in bn_state.items()},
            "step": torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32, device=dev)}
     if "ema_params" in state:

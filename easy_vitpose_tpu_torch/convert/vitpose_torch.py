@@ -1,12 +1,16 @@
 """Reference ViTPose checkpoints (.pth) for the port, with numpy only.
 
-Port of the loading half of ``easy_vitpose_tpu/convert/vitpose_torch.py``.
-The port's ``ViTPose`` is keyed by the reference's state-dict names, so a
-reference state dict loads into it as it is once :func:`normalize_state_dict`
-has unwrapped it and :func:`audit_state_dict_keys` has checked its keys.
+Port of ``easy_vitpose_tpu/convert/vitpose_torch.py``.  The port's
+``ViTPose`` is keyed by the reference's state-dict names, so a reference
+state dict loads into it as it is once :func:`normalize_state_dict` has
+unwrapped it and :func:`audit_state_dict_keys` has checked its keys.
 :func:`convert_vitpose_state_dict` is the JAX package's map from such a
 state dict to its params tree (the layout of its ``.npz`` files), so a
-random model of the port can be written as the JAX package writes one.
+random model of the port can be written as the JAX package writes one;
+:func:`export_vitpose_state_dict` and :func:`save_torch_checkpoint` are its
+inverse, the way back to a reference ``.pth`` (``cli/convert.py to-torch``).
+Both directions go through ``convert/from_jax.py``'s one name map, and
+move elements only, so a round trip is bit for bit.
 """
 from __future__ import annotations
 
@@ -104,3 +108,33 @@ def convert_vitpose_state_dict(sd: Mapping[str, Any], cfg: ModelConfig,
     sd = normalize_state_dict(sd)
     audit_state_dict_keys(sd, cfg)
     return state_dict_to_jax(sd, cfg, dtype=dtype)
+
+
+def export_vitpose_state_dict(params: Mapping[str, Any], cfg: ModelConfig) -> Dict[str, np.ndarray]:
+    """The inverse of :func:`convert_vitpose_state_dict`: a JAX params tree
+    -> a reference-format state dict of float32 numpy arrays (the
+    reference's names and torch layouts, each BN's ``num_batches_tracked``
+    0), which the reference and :func:`load_torch_checkpoint` load."""
+    from ..models.vit import BLOCK_PARAMS
+    from .from_jax import state_dict_from_jax
+    tensors = state_dict_from_jax(params, cfg)
+    # the reference's order: patch embedding, blocks, final LN, head
+    order = ["backbone.patch_embed.proj.weight", "backbone.patch_embed.proj.bias",
+             "backbone.pos_embed"]
+    order += [f"backbone.blocks.{i}.{n}" for i in range(cfg.backbone.depth) for n in BLOCK_PARAMS]
+    order += ["backbone.last_norm.weight", "backbone.last_norm.bias"]
+    order += [k for k in tensors if k.startswith("keypoint_head.")]
+    sd: Dict[str, np.ndarray] = {}
+    for k in order:
+        sd[k] = tensors[k].numpy()
+        if k.endswith(".running_var"):
+            sd[k[:-len("running_var")] + "num_batches_tracked"] = np.asarray(0, np.int64)
+    return sd
+
+
+def save_torch_checkpoint(params: Mapping[str, Any], cfg: ModelConfig, path: str) -> None:
+    """Write a JAX params tree as a reference-loadable ``{'state_dict': ...}``
+    ``.pth``."""
+    sd = export_vitpose_state_dict(params, cfg)
+    torch.save({"state_dict": {k: torch.from_numpy(np.ascontiguousarray(v))
+                               for k, v in sd.items()}}, path)

@@ -678,7 +678,9 @@ class YoloDetector:
     [x1, y1, x2, y2, conf, cls].
 
     Takes the JAX package's ``.npz`` params (``convert/yolo_torch.py``'s
-    ``save_yolo_npz``, with a ``__meta__`` scale and class count).  Runs on
+    ``save_yolo_npz``, with a ``__meta__`` scale and class count), or an
+    ultralytics ``.pt`` (``convert/yolo_torch.py::load_ultralytics_checkpoint``,
+    which needs the ultralytics package for a released file).  Runs on
     ``device``: CUDA unless the caller asks for the CPU.  On the card each
     program is a CUDA graph replay (``graphs``, shared with the pipelines
     that hold this detector); ``plain=True`` takes D1's and D2's plain
@@ -690,17 +692,17 @@ class YoloDetector:
                  max_det: int = 300, dtype=torch.float32,
                  rect: bool = False, device=None, plain: bool = False):
         from ..utils.checkpoint import load_params
-        if path.endswith(".pt"):
-            raise NotImplementedError(
-                "ultralytics .pt checkpoints are not loaded by the port yet (ROADMAP A13); "
-                "convert them to .npz with the JAX package's cli/convert")
-        if not path.endswith(".npz"):
+        if not path.endswith((".npz", ".pt")):
             raise ValueError(f"unsupported YOLO checkpoint: {path}")
         self.device = kernels.resolve_device(device)
-        tree = load_params(path)
-        meta = tree.pop("__meta__", None)
-        scale = str(np.asarray(meta["scale"]).item()) if meta is not None else "n"
-        nc = int(np.asarray(meta["nc"]).item()) if meta is not None else NUM_CLASSES
+        if path.endswith(".pt"):
+            from ..convert.yolo_torch import load_ultralytics_checkpoint
+            tree, scale, nc = load_ultralytics_checkpoint(path)
+        else:
+            tree = load_params(path)
+            meta = tree.pop("__meta__", None)
+            scale = str(np.asarray(meta["scale"]).item()) if meta is not None else "n"
+            nc = int(np.asarray(meta["nc"]).item()) if meta is not None else NUM_CLASSES
         self.spec = YoloSpec(scale=scale, nc=nc)
         self.model = yolo_params_from_jax(tree, self.spec, dtype, self.device)
         self.imgsz = int(imgsz)

@@ -28,6 +28,8 @@ BN_MOMENTUM = 0.1    # torch default running-stat update rate
 class Head(nn.Module):
     def __init__(self, cfg: HeadConfig):
         super().__init__()
+        if cfg.upsample:
+            raise NotImplementedError("the simple (upsample) head is not ported yet (ROADMAP A15)")
         layers, cin = [], cfg.in_channels
         for f, k in zip(cfg.deconv_filters, cfg.deconv_kernels):
             layers += [nn.ConvTranspose2d(cin, f, k, stride=2, padding=k // 2 - 1, bias=False),

@@ -75,6 +75,8 @@ class PatchEmbed(nn.Module):
 class ViT(nn.Module):
     def __init__(self, cfg: BackboneConfig):
         super().__init__()
+        if cfg.stem_channels:
+            raise NotImplementedError("the hybrid CNN stem is not ported yet (ROADMAP A12)")
         self.cfg = cfg
         self.patch_embed = PatchEmbed(cfg)
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_tokens + 1, cfg.embed_dim))

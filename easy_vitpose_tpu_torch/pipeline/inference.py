@@ -26,8 +26,11 @@ x, score)}``, ``draw()``, ``reset()`` and the classmethod ``postprocess``.
   one batched detector program and one multi-frame pose step.
 * ``plain=True`` runs every kernel's plain version on the card, eagerly
   (for checks).
-
-Left for later (ROADMAP A12, A13): ViTPose+ ``task=``.
+* ViTPose+ (``cli/convert.py plus``): ``task=`` picks a task of a
+  multi-task ``.npz``; ``convert/vitpose_plus.py::select_task`` splices
+  its expert slice and head into a single-task tree, which then serves
+  through the same blocks and kernels as any checkpoint.  A task sets the
+  dataset (its skeleton and keypoint count).
 """
 from __future__ import annotations
 
@@ -53,25 +56,56 @@ SERVING = {"fp32": "fp32", "float32": "fp32", "bf16": "bf16", "bfloat16": "bf16"
            "int8": "int8", "w8a8": "int8"}
 
 
-def load_pose_model(path: str, cfg, dtype: str, device: torch.device) -> ViTPose:
+def load_pose_model(path: str, cfg, dtype: str, device: torch.device,
+                    task: Optional[str] = None, dataset: Optional[str] = None) -> ViTPose:
     """The serving copy (``dtype`` fp32, bf16 or int8) on ``device`` of a
-    JAX-format ``.npz`` or a reference ``.pth`` checkpoint."""
+    checkpoint (:func:`load_float_model`); the copy (the int8
+    quantisation, the casts) is made on ``device``."""
+    net = load_float_model(path, cfg, task=task, dataset=dataset).to(device)
+    return serving_copy(net, SERVING[dtype])
+
+
+def load_float_model(path: str, cfg, task: Optional[str] = None,
+                     dataset: Optional[str] = None) -> ViTPose:
+    """The float32 ``ViTPose`` on the CPU of a JAX-format ``.npz`` or a
+    reference ``.pth`` checkpoint (:func:`model_from_params`)."""
     if path.endswith(".pth"):
         from ..convert.vitpose_torch import load_torch_checkpoint
-        sd = load_torch_checkpoint(path, cfg)
-    elif path.endswith(".npz"):
-        from ..convert.from_jax import state_dict_from_jax
+        if task is not None:
+            raise ValueError(TASK_NEEDS_PLUS)
+        return _holding(cfg, load_torch_checkpoint(path, cfg))
+    if path.endswith(".npz"):
         from ..utils.checkpoint import load_params
-        params = load_params(path)
-        if "heads" in params and "head" not in params:
-            raise NotImplementedError("multi-task ViTPose+ checkpoints are not ported yet "
-                                      "(ROADMAP A12)")
-        sd = state_dict_from_jax(params, cfg)
-    else:
-        raise ValueError(f"unsupported checkpoint format: {path}")
-    net = ViTPose(cfg)
-    net.load_state_dict(sd)
-    return serving_copy(net.eval(), SERVING[dtype]).to(device)
+        return model_from_params(load_params(path), cfg, task=task, dataset=dataset)
+    raise ValueError(f"unsupported checkpoint format: {path}")
+
+
+TASK_NEEDS_PLUS = "task= requires a multi-task (ViTPose+) checkpoint from 'cli/convert plus'"
+
+
+def model_from_params(params, cfg, task: Optional[str] = None,
+                      dataset: Optional[str] = None) -> ViTPose:
+    """The float32 ``ViTPose`` on the CPU of a JAX params tree.  A
+    multi-task ViTPose+ tree gives ``task`` (default ``dataset``, else
+    ``cfg.dataset``), spliced by ``convert/vitpose_plus.py::select_task``;
+    ``task`` with a single-task tree raises ``ValueError``."""
+    from ..convert.from_jax import state_dict_from_jax
+    from ..convert.vitpose_plus import is_plus_params, select_task
+    if is_plus_params(params):
+        params = select_task(params, task or dataset or cfg.dataset)
+    elif task is not None:
+        raise ValueError(TASK_NEEDS_PLUS)
+    return _holding(cfg, state_dict_from_jax(params, cfg))
+
+
+def _holding(cfg, sd) -> ViTPose:
+    """A ``ViTPose`` whose tensors are ``sd``'s: built on the meta device, so
+    no random init is spent on weights that the state dict replaces (about
+    a second at ViT-B); each BN's step counter is made by its loader."""
+    with torch.device("meta"):
+        net = ViTPose(cfg)
+    net.load_state_dict(sd, assign=True)
+    return net.eval()
 
 
 class VitInference:
@@ -101,8 +135,6 @@ class VitInference:
             raise FileNotFoundError(f"The model file {model} does not exist")
         if yolo is not None and not os.path.exists(yolo):
             raise FileNotFoundError(f"The YOLO model {yolo} does not exist")
-        if task is not None:
-            raise NotImplementedError("ViTPose+ task= is not ported yet (ROADMAP A12, A13)")
         if dtype not in SERVING:
             raise ValueError(f"dtype must be one of {sorted(SERVING)}, got {dtype!r}")
         if tracker not in ("sort", "bytetrack"):
@@ -135,6 +167,9 @@ class VitInference:
         self.fixed_slots = fixed_slots
         self._slots_highwater = 0
 
+        # a multi-task checkpoint's task is its dataset (skeleton and K)
+        if task is not None and dataset is None:
+            dataset = task
         if dataset is None:
             dataset = infer_dataset_by_path(model)
         if dataset not in NUM_KEYPOINTS:
@@ -162,7 +197,8 @@ class VitInference:
         self.quant = self.serving_dtype == "int8"
         self.compute_dtype = (torch.float32 if self.serving_dtype == "fp32"
                               else torch.bfloat16)
-        self._model = load_pose_model(model, self.cfg, self.serving_dtype, self.device)
+        self._model = load_pose_model(model, self.cfg, self.serving_dtype, self.device,
+                                      task=task, dataset=dataset)
 
         # --- detector ---
         self._detector = None

@@ -167,7 +167,10 @@ def test_sampler_edges(dev):
 
 
 @pytest.mark.parametrize("shape,kernel", [((5, 17, 64, 48), 11), ((3, 4, 21, 15), 5),
-                                          ((2, 5, 64, 48), 17)])
+                                          ((2, 5, 64, 48), 17),
+                                          # the ViTPose+ tasks' keypoint counts
+                                          ((64, 14, 64, 48), 11), ((64, 16, 64, 48), 11),
+                                          ((64, 133, 64, 48), 11)])
 def test_decode(dev, shape, kernel):
     """The fused decode against its plain version: scores and the argmax
     bit for bit, coordinates within 1e-3 heatmap px, the seven modulated
@@ -288,6 +291,51 @@ def test_pose_step_from_numpy(dev, monkeypatch):
         ref = decode.decode_keypoints_plain(seen["heat"], seen["geo"], seen["mask"])
         assert torch.equal(kp[..., 2], ref[..., 2])
         assert float((kp - ref).abs().max()) <= 1e-2
+
+
+@pytest.mark.parametrize("K", [14, 16, 133])
+def test_pose_step_at_task_keypoints(dev, K, monkeypatch):
+    """The ViTPose+ tasks' heads (aic 14, mpii 16, wholebody 133 keypoints):
+    K3's crops and geometry equal the plain version's bits, the int8 pose
+    step launches K3 and the decode once, its heatmaps are within the
+    bound of test_pose_step_from_numpy of the plain path's, and its
+    keypoints are the plain decode of its own heatmaps."""
+    from easy_vitpose_tpu_torch.configs import BackboneConfig, HeadConfig, ModelConfig
+    from easy_vitpose_tpu_torch.models.vitpose import init_params, serving_copy
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
+    from easy_vitpose_tpu_torch.pipeline.pose_step import pose_heatmaps, pose_step
+
+    seen = {}
+
+    def spy(heat, geo, mask, *a, **k):
+        seen.update(heat=heat, geo=geo, mask=mask)
+        return decode.decode_keypoints(heat, geo, mask, *a, **k)
+
+    monkeypatch.setattr(ps, "decode_keypoints", spy)
+    cfg = ModelConfig("small", "aic", BackboneConfig(embed_dim=128, depth=2, num_heads=2),
+                      HeadConfig(in_channels=128, num_keypoints=K, deconv_filters=(64, 64)))
+    rng = np.random.default_rng(K)
+    frame = torch.from_numpy(rng.integers(0, 256, (240, 320, 3), dtype=np.uint8)).to(dev)
+    boxes = torch.tensor([[30, 20, 160, 200], [-10, 150, 60, 260], [150, 100, 151, 101],
+                          [200.5, 10.5, 330.5, 250.5]], dtype=torch.float32, device=dev)
+    mask = torch.tensor([True, False, True, True], device=dev)
+    for dtype in (torch.bfloat16, torch.float32):
+        got, geo = sampler.crop_normalize(frame, boxes, dtype=dtype)
+        ref, ref_geo = sampler.crop_normalize_plain(frame, boxes, dtype=dtype)
+        assert torch.equal(got, ref) and torch.equal(geo, ref_geo)
+    model = serving_copy(init_params(cfg, 0).to(dev), "int8")
+    kernels.reset_launch_counts()
+    kp = pose_step(model, frame, boxes, mask)
+    assert kernels.launch_counts() == {"block_q8": 2, "sampler": 1, "decode": 1}
+    assert kp.shape == (4, K, 3) and torch.isfinite(kp).all() and (kp[1] == 0).all()
+    with torch.no_grad():
+        hk, _ = pose_heatmaps(model, frame, boxes)
+        hp, _ = pose_heatmaps(model, frame, boxes, plain=True)
+    assert hk.shape == (4, K, 64, 48)
+    assert float((hk - hp).abs().max()) <= 0.05 * float(hp.max() - hp.min())
+    ref = decode.decode_keypoints_plain(seen["heat"], seen["geo"], seen["mask"])
+    assert torch.equal(kp[..., 2], ref[..., 2])
+    assert float((kp - ref).abs().max()) <= 1e-2
 
 
 @pytest.mark.parametrize("size", ["s", "b", "l", "h"])

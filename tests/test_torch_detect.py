@@ -319,8 +319,16 @@ def test_detector_loads_npz_and_runs_on_cpu(tmp_path, net):
     got, ref = det(frame), jdet(frame)
     assert got.shape == ref.shape and got.shape[1] == 6
     np.testing.assert_allclose(got, ref, atol=BOX_TOL / 0.64)
-    with pytest.raises(NotImplementedError, match="A13"):
-        P.YoloDetector(str(tmp_path / "yolov8n.pt"), device="cpu")
+    # an ultralytics .pt loads (a stand-in of its pickled model) and equals its .npz
+    from tests.test_torch_convert import ultralytics_pt
+    from easy_vitpose_tpu_torch.convert.yolo_torch import load_ultralytics_checkpoint
+    pt = ultralytics_pt(str(tmp_path / "yolov8n.pt"))
+    tree, scale, nc = load_ultralytics_checkpoint(pt)
+    save_yolo_npz(str(tmp_path / "from_pt.npz"), tree, scale, nc)
+    det_pt = P.YoloDetector(pt, imgsz=128, conf=0.25, device="cpu")
+    det_npz = P.YoloDetector(str(tmp_path / "from_pt.npz"), imgsz=128, conf=0.25, device="cpu")
+    assert det_pt.spec == det_npz.spec == SPEC
+    np.testing.assert_array_equal(det_pt(frame), det_npz(frame))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             P.YoloDetector(path)                   # the card unless asked for the CPU

@@ -63,6 +63,18 @@ MODULES = [
     "easy_vitpose_tpu_torch.eval.cocoeval",
     "easy_vitpose_tpu_torch.ops.oks",
     "easy_vitpose_tpu_torch.cli.train",
+    "easy_vitpose_tpu_torch.convert.model_split",
+    "easy_vitpose_tpu_torch.convert.vitpose_plus",
+    "easy_vitpose_tpu_torch.convert.yolo_torch",
+    "easy_vitpose_tpu_torch.export",
+    "easy_vitpose_tpu_torch.export.onnx_proto",
+    "easy_vitpose_tpu_torch.export.onnx_ref",
+    "easy_vitpose_tpu_torch.export.onnx_vitpose",
+    "easy_vitpose_tpu_torch.export.aot",
+    "easy_vitpose_tpu_torch.cli.convert",
+    "easy_vitpose_tpu_torch.cli.export",
+    "easy_vitpose_tpu_torch.cli.eval_coco",
+    "easy_vitpose_tpu_torch.cli.download",
 ]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|easy_vitpose_tpu)\b(?!_torch)", re.M)
 

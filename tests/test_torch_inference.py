@@ -271,14 +271,38 @@ def test_postprocess_matches_jax():
 
 
 def test_entry_points_run_on_cuda_unless_asked(files, tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        PVI(files["npz"], model_name="s", model_cfg=PCASES["tiny"], device="cpu", task="coco")
+    # task= on a single-task checkpoint raises JAX's ValueError
+    for ckpt in (files["npz"], files["pth"]):
+        with pytest.raises(ValueError, match="multi-task"):
+            PVI(ckpt, model_name="s", model_cfg=PCASES["tiny"], device="cpu", task="coco")
+        with pytest.raises(ValueError, match="multi-task"):
+            JVI(ckpt, model_name="s", model_cfg=JCASES["tiny"], task="coco")
     with pytest.raises(ValueError, match="dtype"):
         PVI(files["npz"], model_name="s", model_cfg=PCASES["tiny"], device="cpu", dtype="fp8")
-    pt = str(tmp_path / "yolov8n.pt")
-    open(pt, "wb").close()
-    with pytest.raises(NotImplementedError, match="A13"):
-        PVI(files["npz"], yolo=pt, model_name="s", model_cfg=PCASES["tiny"], device="cpu")
+    # a multi-task (ViTPose+) .npz loads: its coco task is the tiny model
+    from easy_vitpose_tpu_torch.utils.checkpoint import load_params
+    plus = str(tmp_path / "vitpose-plus-coco.npz")
+    tree = load_params(files["npz"])
+    mlp = tree["backbone"]["blocks"]["mlp"]
+    w, b = mlp["fc2_w"], mlp["fc2_b"]
+    mlp["fc2_w"], mlp["fc2_b"] = w[..., :64], b[..., :64]
+    mlp["fc2_expert_w"], mlp["fc2_expert_b"] = w[:, None, :, 64:], b[:, None, 64:]
+    tree["heads"] = {"coco": tree.pop("head")}
+    save_params(plus, tree)
+    img, boxes = frame_of(1), np.array([[40, 30, 160, 200, 0.9]], np.float32)
+    a = PVI(plus, model_name="s", model_cfg=PCASES["tiny"], device="cpu")
+    b = PVI(files["npz"], model_name="s", model_cfg=PCASES["tiny"], device="cpu")
+    np.testing.assert_array_equal(a.inference(img, bboxes=boxes)[0],
+                                  b.inference(img, bboxes=boxes)[0])
+    # an ultralytics .pt detector loads; a file that is no pickle fails as in JAX
+    from tests.test_torch_convert import ultralytics_pt
+    pt = ultralytics_pt(str(tmp_path / "yolov8n.pt"))
+    vi = PVI(files["npz"], yolo=pt, model_name="s", model_cfg=PCASES["tiny"], device="cpu")
+    assert vi._detector.spec == P.YoloSpec("n", 80)
+    bad = str(tmp_path / "empty.pt")
+    open(bad, "wb").close()
+    with pytest.raises(RuntimeError, match="ultralytics"):
+        PVI(files["npz"], yolo=bad, model_name="s", model_cfg=PCASES["tiny"], device="cpu")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             PVI(files["npz"], model_name="s", model_cfg=PCASES["tiny"])
