@@ -31,6 +31,12 @@ toolkit:
    PyTorch's synchronisation check set to raise, and the heatmaps against
    the plain pose step on the card, and times it (host clock, median of
    five windows of ``--reps`` steps, and the host's time to queue them);
+4a. holds the library's UDP decode with JAX's ``use_pallas``
+   (``ops/decode.py::keypoints_from_heatmaps(use_udp=True,
+   use_pallas=True)``) on the int8 pose step's heatmaps: one full-map K4
+   launch, scores bit for bit and coordinates within ``DECODE_TOL`` of the
+   same call without ``use_pallas`` on the card; prints the gap to the
+   CPU's run (``k4_front_door:``);
 4b. holds the detector's kernels against their plain versions on the 1080p
    frame at YOLOv8n/320 and YOLOv8x/640 (random weights from ``--seed``,
    scaled on that frame), float32 and bf16, square and rect letterbox: D1
@@ -163,6 +169,24 @@ toolkit:
    of 2 steps and a resume; the from-scratch preset at ViT-B (AdamW with
    layer decay in plain torch) for 2 epochs of 2 steps, its history's
    rates equal to ``make_step_lr_schedule``'s;
+12b. drives the live ViTPose+-B (``models/moe.py``, ``train/moe_step.py``;
+   D 768, 12 blocks, fc2 576 shared + 6 x 192 expert rows, heads K = 17,
+   14, 16, 17, 17, 133, random weights from ``--seed``): each task's
+   serving forward of 64 crops at bf16 through K1 (12 launches) against
+   ``plain=True`` (JAX's XLA MoE block; ``HEATMAP_TOL``), a mixed batch's
+   features against each expert's homogeneous forward; three rounds of
+   AMP steps over the six tasks (32 crops each, f32 moments): launches
+   per step (K5, K6a, K7 12 each, the norm kernel and K8 once), the other
+   tasks' weights and moments bit for bit, each task's loss falling, one
+   step per task against the plain step (``STEP_LOSS_TOL``,
+   ``STEP_GRAD_TOL``), ms per step and peak memory; one round with int8
+   moments (K9) (``moe:``);
+12c. drives ViT-B with the hybrid CNN stem (``stem_channels`` (64, 128,
+   256, 512)): the serving forward of 64 crops at bf16 (K1) and int8 (K2)
+   against ``plain=True``, ``train_model`` for 2 epochs of 2 steps (K5,
+   K6a, K7, the norm kernel, K8 a step) against the same steps by hand;
+   and the simple head at ViT-B: one serving forward against
+   ``plain=True`` and one train step against the plain step (``stem:``);
 13. prints the optimizer's times (``optimizer``), the norm kernel's row
    (``grad_norm``: it replaces no Pallas kernel), one JSON line per kernel
    set (``kernels``, 20 rows: D1 and D2 after K4's; K3's, D1's and D2's
@@ -171,7 +195,9 @@ toolkit:
    the HTTP and the tools' measurements (``detector``, ``detector_stacked``,
    ``sampler_stacked``, ``vitinference``, ``multistream``, ``serve_http``,
    ``convert``, ``export``, ``eval_coco``: these three with the card; the
-   kernel rows count their launches too), the card line, and last ``{"ok": true, "device": {...}}``.
+   kernel rows count their launches too), the ``k4_front_door``, ``moe``
+   and ``stem`` lines (their launches counted in the rows too), the card
+   line, and last ``{"ok": true, "device": {...}}``.
 
 The A/B of each flavor against the default, interleaved in one process,
 is ``scripts/bench_torch_breakdown.py --flavors``.
@@ -1207,14 +1233,14 @@ def check_wide_flavor_kernels(torch, model, rng, dev):
     return out
 
 
-def train_batch(torch, rng, B: int, dev) -> dict:
-    """A device-input batch: B uint8 crops of noise and 17 joints each
+def train_batch(torch, rng, B: int, dev, K: int = 17) -> dict:
+    """A device-input batch: B uint8 crops of noise and K joints each
     inside the crop, 85% visible."""
     W, H = 192, 256
-    joints = np.stack([rng.uniform(0, W, (B, 17)), rng.uniform(0, H, (B, 17))], -1)
+    joints = np.stack([rng.uniform(0, W, (B, K)), rng.uniform(0, H, (B, K))], -1)
     return {"images_u8": torch.from_numpy(rng.integers(0, 256, (B, H, W, 3), dtype=np.uint8)).to(dev),
             "joints": torch.from_numpy(joints.astype(np.float32)).to(dev),
-            "joints_vis": torch.from_numpy((rng.uniform(size=(B, 17, 2)) > 0.15)
+            "joints_vis": torch.from_numpy((rng.uniform(size=(B, K, 2)) > 0.15)
                                            .astype(np.float32)).to(dev)}
 
 
@@ -3401,6 +3427,346 @@ def run_train_loop(torch, seed, dev, bare_ms: float) -> dict:
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# -------------------------- the live ViTPose+ model, the hybrid stem, K4's front door
+
+MOE_CROPS, MOE_TRAIN_CROPS, MOE_ROUNDS = 64, 32, 3
+STEM_CHANNELS = (64, 128, 256, 512)      # the /16 grid of PatchEmbed at 256x192
+STEM_TRAIN = 2 * LOOP_BATCH              # 2 steps an epoch
+
+
+def span_err(torch, got, ref) -> float:
+    """max |got - ref| relative to ref's range."""
+    got, ref = got.float(), ref.float()
+    check(bool(torch.isfinite(got).all()), "output is not finite")
+    return float((got - ref).abs().max()) / max(float(ref.max() - ref.min()), 1e-30)
+
+
+def moe_leaves(state, task: str, active: bool) -> dict:
+    """The state's weights and moment tensors of the leaves a step of
+    ``task`` trains (or leaves alone), by (part, name)."""
+    from easy_vitpose_tpu_torch.train import moe_step
+    names = [k for k in state["params"] if moe_step.is_active(k, task) == active]
+    out = {("params", k): state["params"][k] for k in names}
+    opt = state["opt_state"]
+    for part in ("mu", "nu"):
+        tree = getattr(opt, part)
+        if "q_tree" in tree:
+            out.update({(part, s, k): tree[s][k] for s in ("q_tree", "s_tree") for k in names})
+        else:
+            out.update({(part, k): tree[k] for k in names})
+    return out
+
+
+def run_moe(torch, seed, dev) -> dict:
+    """The live ViTPose+-B (``models/moe.py``, ``train/moe_step.py``) at full
+    width: D 768, 12 blocks, fc2 of 576 shared rows and 6 experts of 192,
+    heads of K = 17, 14, 16, 17, 17, 133, random weights from ``seed``."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.convert.model_split import SPLIT_DATASETS, SPLIT_NUM_KPTS
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    from easy_vitpose_tpu_torch.models import moe
+    from easy_vitpose_tpu_torch.train import fused_opt, moe_step
+    from easy_vitpose_tpu_torch.train.step import render_batch_on_device
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config("coco", "b")
+    depth = cfg.backbone.depth
+    params = moe.init_vitpose_plus_params(cfg, seed, SPLIT_DATASETS)
+    check(params["backbone.blocks.0.mlp.fc2.weight"].shape[0] == PLUS_SHARED
+          and params["backbone.blocks.0.mlp.experts.5.weight"].shape[0]
+          == cfg.backbone.embed_dim - PLUS_SHARED
+          and params["associate_keypoint_heads.4.final_layer.weight"].shape[0] == 133,
+          "the ViTPose+-B layout is not 576 + 6 x 192 with a 133-row wholebody head")
+    rng = np.random.default_rng(seed + 20)
+    res, total = {"serve_err": {}, "serve_launches": {}}, {}
+
+    # serving: each task through K1 against moe_block, and the mixed batch
+    sd = moe.plus_params(params, device=dev, dtype=torch.bfloat16)
+    x = torch.from_numpy(rng.normal(size=(MOE_CROPS, 256, 192, 3)).astype(np.float32)).to(
+        dev, torch.bfloat16)
+    with torch.no_grad():
+        for task in SPLIT_DATASETS:
+            kernels.reset_launch_counts()
+            hk = moe.vitpose_plus_forward(sd, x, cfg, task)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            add_counts(total, counts)
+            check(counts == {"block": depth}, f"moe {task} forward launched {counts}")
+            check(tuple(hk.shape) == (MOE_CROPS, SPLIT_NUM_KPTS[task], 64, 48),
+                  f"moe {task} heatmaps {tuple(hk.shape)}")
+            err = span_err(torch, hk, moe.vitpose_plus_forward(sd, x, cfg, task, plain=True))
+            check(err <= HEATMAP_TOL["bf16"], f"moe {task} heatmaps disagree with plain: {err}")
+            res["serve_err"][task], res["serve_launches"][task] = err, counts
+        res["serve_ms"] = time_ms(torch, lambda: moe.vitpose_plus_forward(sd, x, cfg, "coco"))
+        res["serve_plain_ms"] = time_ms(
+            torch, lambda: moe.vitpose_plus_forward(sd, x, cfg, "coco", plain=True))
+        onehot = torch.nn.functional.one_hot(torch.arange(MOE_CROPS, device=dev) % 6, 6).float()
+        mixed = moe.vit_plus_forward(sd, x, cfg, expert_onehot=onehot)
+        res["mixed_err"] = max(span_err(torch, mixed[e::6], moe.vit_plus_forward(
+            sd, x[e::6], cfg, expert_idx=e, plain=True)) for e in range(6))
+    print(f"moe: serving bf16, 64 crops: heatmaps vs plain {res['serve_err']}; "
+          f"{res['serve_ms']:.3f} ms (plain {res['serve_plain_ms']:.3f}); mixed batch vs "
+          f"homogeneous features {res['mixed_err']:.3e}")
+    check(res["mixed_err"] <= HEATMAP_TOL["bf16"], f"moe mixed batch: {res['mixed_err']}")
+    del sd, x, mixed
+
+    # training: AMP, 32 crops a task, f32 moments (K8), three rounds over the tasks
+    want = {fbt.FWD: depth, fbt.BWD_MLP: depth, fbt.BWD_ATTN: depth, "grad_norm": 1, "adam": 1}
+    batches = {t: train_batch(torch, rng, MOE_TRAIN_CROPS, dev, SPLIT_NUM_KPTS[t])
+               for t in SPLIT_DATASETS}
+
+    def rounds(tx, n_rounds, want, vs_plain):
+        state = moe_step.init_moe_train_state(params, tx, device=dev)
+        steps = {t: moe_step.make_moe_train_step(cfg, tx, t) for t in SPLIT_DATASETS}
+        losses, errs = {t: [] for t in SPLIT_DATASETS}, {}
+        for r in range(n_rounds):
+            for t in SPLIT_DATASETS:
+                if vs_plain and r == 0:        # one step's loss and grads against the plain step
+                    b = render_batch_on_device(batches[t], dev)
+                    lk, _, gk = moe_step.loss_and_grads(cfg, state, b, t)
+                    lp, _, gp = moe_step.loss_and_grads(cfg, state, b, t, plain=True)
+                    errs[t] = (abs(float(lk) - float(lp)) / abs(float(lp)),
+                               max(max_rel_err(torch, gk[k], gp[k])[1] for k in gp))
+                    check(errs[t][0] <= STEP_LOSS_TOL and errs[t][1] <= STEP_GRAD_TOL,
+                          f"moe {t} step against the plain step: {errs[t]}")
+                    del gk, gp
+                frozen, moving = moe_leaves(state, t, False), moe_leaves(state, t, True)
+                kernels.reset_launch_counts()
+                state, m = steps[t](state, batches[t])
+                torch.cuda.synchronize()
+                counts = kernels.launch_counts()
+                add_counts(total, counts)
+                check(counts == want, f"moe {t} step launched {counts}, expected {want}")
+                after = moe_leaves(state, t, False)
+                check(all(torch.equal(after[k], v) for k, v in frozen.items()),
+                      f"moe {t} step moved another task's weights or moments")
+                moved = moe_leaves(state, t, True)
+                check(all(not torch.equal(moved[("params", k[1])], moving[("params", k[1])])
+                          for k in moving if k[0] == "params" and "experts" in k[1]),
+                      f"moe {t} step left its expert slices")
+                losses[t].append(float(m["loss"]))
+        return state, losses, errs, steps
+
+    state, losses, errs, steps = rounds(fused_opt.make_fused_adam(TRAIN_LR, TRAIN_CLIP),
+                                        MOE_ROUNDS, want, True)
+    print(f"moe: AMP f32-moment steps vs plain (loss, grads) {errs}; losses by task {losses}")
+    check(all(all(math.isfinite(v) for v in ls) and ls[-1] < ls[0] for ls in losses.values()),
+          f"moe: a task's loss did not fall: {losses}")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def window():
+        nonlocal state
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for t in SPLIT_DATASETS:
+            state, _ = steps[t](state, batches[t])
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3 / len(SPLIT_DATASETS)
+
+    res["ms_per_step"] = statistics.median(window() for _ in range(3))
+    res["max_memory_allocated_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del state, steps
+    want8 = {**{k: v for k, v in want.items() if k != "adam"}, "adam_q8": 1}
+    _, losses8, _, _ = rounds(fused_opt.make_fused_adam(TRAIN_LR, TRAIN_CLIP, "int8"), 1,
+                              want8, False)
+    check(all(math.isfinite(ls[0]) for ls in losses8.values()), f"moe int8 losses {losses8}")
+    res.update({"launches_per_step": want, "launches_per_step_int8": want8,
+                "step_vs_plain": errs, "losses": losses, "losses_int8": losses8,
+                "launches": total, "phase_s": time.perf_counter() - t_phase})
+    print(f"moe: {res['ms_per_step']:.3f} ms a step (32 crops, 6 tasks in turn), peak "
+          f"{res['max_memory_allocated_gib']:.2f} GiB; int8 round {losses8}; "
+          f"phase {res['phase_s']:.1f} s")
+    return res
+
+
+def run_stem(torch, seed, dev) -> dict:
+    """ViT-B with the hybrid CNN stem (``models/stem.py``): the serving
+    forward at bf16 and int8, ``train_model`` for 2 epochs of 2 steps
+    against the same steps by hand; then the simple head at ViT-B, one
+    serving forward and one train step."""
+    import shutil
+    import tempfile
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models import fused_block_train as fbt
+    from easy_vitpose_tpu_torch.models.vit import draw_drop_path_masks
+    from easy_vitpose_tpu_torch.models.vitpose import init_params, serving_copy, vitpose_forward
+    from easy_vitpose_tpu_torch.train import fused_opt, loop, presets, step as tstep
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config("coco", "b", stem_channels=STEM_CHANNELS)
+    depth = cfg.backbone.depth
+    model = init_params(cfg, seed)
+    params = model.state_dict()
+    model = model.to(dev)
+    rng = np.random.default_rng(seed + 21)
+    x = torch.from_numpy(rng.normal(size=(SLOTS, 256, 192, 3)).astype(np.float32)).to(dev)
+    res, total = {"serve_err": {}}, {}
+    with torch.no_grad():
+        for dtype, kernel in (("bf16", "block"), ("int8", "block_q8")):
+            sm = serving_copy(model, dtype)
+            xs = x.to(torch.bfloat16)
+            kernels.reset_launch_counts()
+            hk = vitpose_forward(sm, xs)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+            add_counts(total, counts)
+            check(counts == {kernel: depth}, f"stem {dtype} forward launched {counts}")
+            err = span_err(torch, hk, vitpose_forward(sm, xs, plain=True))
+            check(err <= HEATMAP_TOL[dtype], f"stem {dtype} heatmaps disagree with plain: {err}")
+            res["serve_err"][dtype] = err
+            res[f"serve_{dtype}_ms"] = time_ms(torch, lambda: vitpose_forward(sm, xs))
+            del sm
+    del model
+    print(f"stem: serving 64 crops vs plain {res['serve_err']}, "
+          f"{res['serve_bf16_ms']:.3f} ms bf16, {res['serve_int8_ms']:.3f} ms int8")
+
+    # train_model, then the same steps by hand
+    tmp = tempfile.mkdtemp(prefix="evt_stem_")
+    det = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        train_ds = SmokeDataset(STEM_TRAIN, seed + 14)
+        settings = loop_settings(presets, os.path.join(tmp, "stem"), seed, total_epochs=2,
+                                 save_full_state=False, save_interval=2)
+        with LoopSpy(torch) as spy:
+            kernels.reset_launch_counts()
+            out = loop.train_model(params, cfg, train_ds, None, settings, log=lambda m: None,
+                                   device=dev)
+            torch.cuda.synchronize()
+            counts = kernels.launch_counts()
+        add_counts(total, counts)
+        want = {fbt.FWD: depth, fbt.BWD_MLP: depth, fbt.BWD_ATTN: depth, "grad_norm": 1, "adam": 1}
+        check(len(spy.steps) == 4 and all(n == want for n in spy.steps),
+              f"a stem loop step launched {spy.steps}, expected {want}")
+        check(all(math.isfinite(h["train_loss"]) for h in out["history"]),
+              f"stem loop history {out['history']}")
+        tx = fused_opt.make_fused_adam(settings.lr)
+        state = tstep.init_train_state(params, tx, device=dev)
+        step = tstep.make_train_step(cfg, tx, use_amp=True, block_impl="pallas_train",
+                                     render_kwargs=dict(heatmap_size=(48, 64), image_size=(192, 256),
+                                                        sigma=3.0,
+                                                        joints_weight=train_ds.joints_weight,
+                                                        use_different_joints_weight=False))
+        gen, per, hand = torch.Generator(device=dev), STEM_TRAIN // LOOP_BATCH, []
+        for i, batch in enumerate(spy.batches):
+            if i % per == 0:
+                gen.manual_seed(loop.epoch_generator_seed(seed, i // per))
+            state, m = step(state, batch, gen)
+            hand.append(m["loss"])
+        lk, lh = torch.stack(spy.losses).cpu(), torch.stack(hand).cpu()
+        res["loop_losses"], res["loop_by_hand_rel_err"] = lk.tolist(), float(
+            ((lk - lh).abs() / lh.abs()).max())
+        check(res["loop_by_hand_rel_err"] <= STEP_LOSS_TOL,
+              f"stem loop losses differ from the steps by hand: {res['loop_by_hand_rel_err']}")
+        del state, step
+    finally:
+        torch.backends.cudnn.deterministic = det
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"stem: train_model 2 epochs of 2 steps, launches a step {spy.steps[0]}, losses "
+          f"{res['loop_losses']}, by hand rel {res['loop_by_hand_rel_err']:.3e}")
+
+    # the simple head at ViT-B: one serving forward, one train step against the plain step
+    cfg_s = get_model_config("coco", "b", simple_head=True)
+    model_s = init_params(cfg_s, seed).to(dev)
+    with torch.no_grad():
+        sm = serving_copy(model_s, "bf16")
+        xs = x.to(torch.bfloat16)
+        kernels.reset_launch_counts()
+        hk = vitpose_forward(sm, xs)
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        add_counts(total, counts)
+        check(counts == {"block": depth} and tuple(hk.shape) == (SLOTS, 17, 64, 48),
+              f"simple head forward launched {counts}, heatmaps {tuple(hk.shape)}")
+        res["simple_serve_err"] = span_err(torch, hk, vitpose_forward(sm, xs, plain=True))
+        check(res["simple_serve_err"] <= HEATMAP_TOL["bf16"],
+              f"simple head heatmaps disagree with plain: {res['simple_serve_err']}")
+        del sm, x, xs
+    tx = fused_opt.make_fused_adam(TRAIN_LR, TRAIN_CLIP)
+    state = tstep.init_train_state(model_s, tx, device=dev)
+    del model_s
+    batch = train_batch(torch, rng, SLOTS, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    masks = draw_drop_path_masks(cfg_s.backbone, SLOTS, gen, dev)
+    rendered = tstep.render_batch_on_device(batch, dev)
+    lk, _, gk = tstep.loss_and_grads(cfg_s, state["params"], state["bn_state"], rendered,
+                                     drop_path_masks=masks)
+    lp, _, gp = tstep.loss_and_grads(cfg_s, state["params"], state["bn_state"], rendered,
+                                     drop_path_masks=masks, plain=True)
+    res["simple_step_vs_plain"] = (abs(float(lk) - float(lp)) / abs(float(lp)),
+                                   max(max_rel_err(torch, gk[k], gp[k])[1] for k in gp))
+    check(res["simple_step_vs_plain"][0] <= STEP_LOSS_TOL
+          and res["simple_step_vs_plain"][1] <= STEP_GRAD_TOL,
+          f"simple head step against the plain step: {res['simple_step_vs_plain']}")
+    del gk, gp
+    step = tstep.make_train_step(cfg_s, tx, use_amp=True)
+    kernels.reset_launch_counts()
+    state, m = step(state, batch, drop_path_masks=masks)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    add_counts(total, counts)
+    check(counts == want and math.isfinite(float(m["loss"])),
+          f"simple head step launched {counts}, loss {float(m['loss'])}")
+    res.update({"launches": total, "phase_s": time.perf_counter() - t_phase})
+    print(f"stem: simple head serving vs plain {res['simple_serve_err']:.3e}, step vs plain "
+          f"{res['simple_step_vs_plain']}; phase {res['phase_s']:.1f} s")
+    return res
+
+
+def check_k4_front_door(torch, model, rng, dev) -> dict:
+    """``keypoints_from_heatmaps(use_udp=True, use_pallas=True)`` (the
+    library's UDP decode with JAX's ``use_pallas``) on the int8 pose step's
+    heatmaps: one full-map K4 launch, against the same call with
+    ``use_pallas=False`` on the card (K4's plain version on the same maps):
+    scores bit for bit, coordinates within ``DECODE_TOL`` heatmap px.  The
+    gap to the CPU's run of the call is printed, not held: the CPU's
+    float32 blur differs from the card's in the last bits, and on these
+    near-flat random-weight maps the Newton step magnifies that (the
+    plain route's own CPU-card gap is printed beside it)."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.models.vitpose import serving_copy
+    from easy_vitpose_tpu_torch.ops import decode
+    from easy_vitpose_tpu_torch.pipeline import pose_step as ps
+
+    H, W = FRAME_HW
+    frame = torch.from_numpy(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).to(dev)
+    boxes = torch.from_numpy(make_boxes(rng, SLOTS, H, W)).to(dev)
+    sm = serving_copy(model, "int8")
+    heat, g = ps.pose_heatmaps(sm, frame, boxes)
+    center = torch.stack([g["wp"] // 2, g["hp"] // 2], dim=-1).float()
+    scale = torch.stack([g["wp"], g["hp"]], dim=-1).float()
+    per_px = (scale / torch.tensor([heat.shape[-1] - 1.0, heat.shape[-2] - 1.0], device=dev))[:, None]
+    torch.cuda.synchronize()
+    kernels.reset_launch_counts()
+    pk, vk = decode.keypoints_from_heatmaps(heat, center, scale, use_udp=True, use_pallas=True)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    check(counts == {"modulate": 1}, f"the K4 front door launched {counts}")
+    pp, vp = decode.keypoints_from_heatmaps(heat, center, scale, use_udp=True)
+    pc, _ = decode.keypoints_from_heatmaps(heat.cpu(), center.cpu(), scale.cpu(), use_udp=True,
+                                           use_pallas=True)
+
+    def gap(a, b):
+        return float(((a.to(dev) - b.to(dev)) / per_px).abs().max())
+
+    res = {"launches": counts, "scores_bit_equal": bool(torch.equal(vk, vp)),
+           "coordinate_gap_px": gap(pk, pp), "cpu_route_gap_px": gap(pk, pc),
+           "plain_cpu_card_gap_px": gap(pp, pc), "heatmaps": list(heat.shape),
+           "ms": time_ms(torch, lambda: decode.keypoints_from_heatmaps(
+               heat, center, scale, use_udp=True, use_pallas=True)),
+           "plain_ms": time_ms(torch, lambda: decode.keypoints_from_heatmaps(
+               heat, center, scale, use_udp=True))}
+    print(f"k4_front_door: launches {counts}, against the card's plain route: scores equal "
+          f"{res['scores_bit_equal']}, coordinate gap {res['coordinate_gap_px']:.3e} heatmap px; "
+          f"the CPU's run {res['cpu_route_gap_px']:.3e} px (plain on the CPU against the card "
+          f"{res['plain_cpu_card_gap_px']:.3e}); {res['ms']:.3f} ms (plain {res['plain_ms']:.3f})")
+    check(res["scores_bit_equal"] and res["coordinate_gap_px"] <= DECODE_TOL,
+          f"the K4 front door disagrees with its plain route: {res['coordinate_gap_px']}")
+    return res
+
 LOOP_L_DEPTH = 24      # ViT-L's full depth
 
 
@@ -3436,6 +3802,7 @@ def main() -> int:
         meas = check_kernels(torch, model, rng, dev)
         meas["decode"] = check_decode(torch, np.random.default_rng(args.seed + 2), dev)
         steps = run_pose_steps(torch, model, rng, args.reps, dev)
+        k4_door = check_k4_front_door(torch, model, np.random.default_rng(args.seed + 5), dev)
         meas["sampler_stacked"] = check_stacked_sampler(torch, np.random.default_rng(args.seed + 4),
                                                         dev)
         frame_np = np.random.default_rng(args.seed + 3).integers(0, 256, (*FRAME_HW, 3),
@@ -3490,6 +3857,13 @@ def main() -> int:
     for run in ("vit_b", "vit_l_int8", "from_scratch"):
         for k, n in loop[run]["launches"].items():
             loop_counts[k] = loop_counts.get(k, 0) + n
+    torch.cuda.empty_cache()
+    moe_res = run_moe(torch, args.seed, dev)
+    torch.cuda.empty_cache()
+    stem_res = run_stem(torch, args.seed, dev)
+    phase_counts = {}          # the moe, stem and K4 front-door phases' launches
+    for counts in (moe_res["launches"], stem_res["launches"], k4_door["launches"]):
+        add_counts(phase_counts, counts)
 
     rows = []
     spec = (("K1 fused_block bf16", "bf16", "block.cu", "models/fused_block.py:51", "bf16", "block"),
@@ -3518,6 +3892,8 @@ def main() -> int:
     rows[1]["launches"] += exported["launches"]["fp32"].get("block", 0)
     for i, counter in ((2, "block_q8"), (3, "sampler"), (5, "decode")):
         rows[i]["launches"] += new_paths.get(counter, 0)
+    for i, counter in ((0, "block"), (2, "block_q8"), (4, "modulate")):   # all bf16 K1
+        rows[i]["launches"] += phase_counts.get(counter, 0)
     d = det["configs"]["n320_bf16_square"]              # the detector of the main path
     for name, src, replaces, counter, pre in (
             ("D1 letterbox", "letterbox.cu", "detect/yolo.py:293 (XLA, no Pallas)", "letterbox", "d1"),
@@ -3554,7 +3930,8 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda",
                      "source": f"easy_vitpose_tpu_torch/csrc/{src}",
                      "replaces": f"easy_vitpose_tpu/{replaces}",
-                     "launches": run["launches"].get(counter, 0) + loop_counts.get(counter, 0),
+                     "launches": (run["launches"].get(counter, 0) + loop_counts.get(counter, 0)
+                                  + phase_counts.get(counter, 0)),
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                      "library_ms": m["library_ms"]})
@@ -3582,7 +3959,8 @@ def main() -> int:
         "name": "grad_norm global norm and clip scale", "route": "cuda",
         "source": "easy_vitpose_tpu_torch/csrc/grad_norm.cu",
         "replaces": "easy_vitpose_tpu/train/fused_opt.py:399 (XLA inside fused_apply, no Pallas)",
-        "launches": train["launches"].get("grad_norm", 0) + loop_counts.get("grad_norm", 0),
+        "launches": (train["launches"].get("grad_norm", 0) + loop_counts.get("grad_norm", 0)
+                     + phase_counts.get("grad_norm", 0)),
         "max_abs_err": opt["norm_abs_err"],
         "ms": opt["norm_ms"], "plain_ms": opt["norm_plain_ms"],
         "bound_ms": opt["norm_bound"][0], "bound_by": opt["norm_bound"][1],
@@ -3590,6 +3968,9 @@ def main() -> int:
     print("train_loop:", json.dumps({k: ({kk: vv for kk, vv in v.items() if kk != "history"}
                                           if isinstance(v, dict) else v)
                                       for k, v in loop.items()}))
+    print("k4_front_door:", json.dumps(k4_door), "|", card)
+    print("moe:", json.dumps({k: v for k, v in moe_res.items() if k != "launches"}), "|", card)
+    print("stem:", json.dumps({k: v for k, v in stem_res.items() if k != "launches"}), "|", card)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -18,7 +18,7 @@ import argparse
 import json
 import os
 
-from ..configs import get_model_config
+from ..configs import get_model_config, with_stem
 from ..kernels import resolve_device
 from ..models.vitpose import init_params
 from ..skeletons import flip_pairs, num_keypoints
@@ -128,11 +128,11 @@ def main(argv=None):
         import yaml
         with open(args.config) as f:
             overrides = yaml.safe_load(f) or {}
-    if overrides.get("stem_channels"):
-        raise SystemExit("the hybrid CNN stem (stem_channels) is not ported yet "
-                         "(ROADMAP A12)")
-
     cfg = get_model_config(args.dataset, args.model_name)
+    if overrides.get("stem_channels"):
+        # the hybrid CNN stem (reference HybridEmbed, ``models/stem.py``):
+        # yaml ``stem_channels: [64, 128, 256, 512]`` replaces PatchEmbed
+        cfg = with_stem(cfg, overrides["stem_channels"])
     work_dir = args.work_dir or next_session_dir()
     from ..train import presets
     preset_fn = (presets.from_scratch if args.preset == "from-scratch"

@@ -2,8 +2,6 @@
 
 The port's own copy of the constants and dataclasses of
 ``easy_vitpose_tpu/configs.py``; the port imports nothing of the JAX package.
-The hybrid CNN stem and the "simple" head variant have their fields, for
-the code that must refuse them, and are not ported yet (ROADMAP A12, A15).
 """
 from __future__ import annotations
 
@@ -51,8 +49,9 @@ class BackboneConfig:
     img_size: Tuple[int, int] = (256, 192)  # (H, W)
     in_chans: int = 3
     layer_norm_eps: float = 1e-6
-    # the hybrid CNN-stem embedding (reference HybridEmbed); not ported
-    # (ROADMAP A12): ``ViT`` and the ONNX export refuse it
+    # the hybrid CNN-stem embedding (reference HybridEmbed,
+    # ``models/stem.py``): the output channels of each stride-2 conv stage
+    # that replaces PatchEmbed; None (every shipped config) is PatchEmbed
     stem_channels: Optional[Tuple[int, ...]] = None
 
     @property
@@ -61,7 +60,13 @@ class BackboneConfig:
 
     @property
     def patch_shape(self) -> Tuple[int, int]:
-        """(Hp, Wp) token grid. 256x192/p16/pad2 -> (16, 12) = 192 tokens."""
+        """(Hp, Wp) token grid. 256x192/p16/pad2 -> (16, 12) = 192 tokens.
+
+        With a hybrid stem the grid is the stem's output resolution
+        (SAME-padded stride-2 stages): ceil(H / 2**n_stages)."""
+        if self.stem_channels:
+            s = 2 ** len(self.stem_channels)
+            return (-(-self.img_size[0] // s), -(-self.img_size[1] // s))
         h = (self.img_size[0] + 2 * self.patch_padding - self.patch_size) // self.patch_size + 1
         w = (self.img_size[1] + 2 * self.patch_padding - self.patch_size) // self.patch_size + 1
         return (h, w)
@@ -82,8 +87,8 @@ class HeadConfig:
     deconv_filters: Tuple[int, ...] = (256, 256)
     deconv_kernels: Tuple[int, ...] = (4, 4)
     final_conv_kernel: int = 1
-    # the "simple" head's x4 upsample (no deconvs); not ported (ROADMAP
-    # A15): ``Head`` and the ONNX export refuse it
+    # the "simple" head variant's bilinear upsample factor (no deconvs;
+    # reference train_configs/ViTPose_base_simple_coco_256x192.py:63-67)
     upsample: int = 0
 
 
@@ -107,17 +112,34 @@ _BACKBONES = {
 }
 
 
-def get_model_config(dataset: str, size: str, *,
-                     num_keypoints: Optional[int] = None) -> ModelConfig:
-    """Config for ``(dataset, size)``, e.g. ``get_model_config("coco", "b")``."""
+def with_stem(cfg: ModelConfig, stem_channels) -> ModelConfig:
+    """``cfg`` with the hybrid CNN stem of ``stem_channels`` in place of
+    PatchEmbed."""
+    bb = dataclasses.replace(cfg.backbone, stem_channels=tuple(stem_channels))
+    return dataclasses.replace(cfg, backbone=bb)
+
+
+def get_model_config(dataset: str, size: str, *, num_keypoints: Optional[int] = None,
+                     simple_head: bool = False,
+                     stem_channels: Optional[Tuple[int, ...]] = None) -> ModelConfig:
+    """Config for ``(dataset, size)``, e.g. ``get_model_config("coco", "b")``.
+
+    ``simple_head``: the head without deconvs (a x4 bilinear upsample and a
+    3x3 final conv); ``stem_channels``: the hybrid CNN stem, e.g.
+    (64, 128, 256, 512) for the /16 grid.  No shipped config uses either."""
     if size not in _BACKBONES:
         raise ValueError(f"model size {size!r} not in {list(_BACKBONES)}")
     if dataset not in DATASETS:
         raise ValueError(f"dataset {dataset!r} not in {DATASETS}")
     bb = _BACKBONES[size]
     k = num_keypoints if num_keypoints is not None else NUM_KEYPOINTS[dataset]
-    head = HeadConfig(in_channels=bb.embed_dim, num_keypoints=k)
-    return ModelConfig(name=size, dataset=dataset, backbone=bb, head=head)
+    if simple_head:
+        head = HeadConfig(in_channels=bb.embed_dim, num_keypoints=k, deconv_filters=(),
+                          deconv_kernels=(), final_conv_kernel=3, upsample=4)
+    else:
+        head = HeadConfig(in_channels=bb.embed_dim, num_keypoints=k)
+    cfg = ModelConfig(name=size, dataset=dataset, backbone=bb, head=head)
+    return with_stem(cfg, stem_channels) if stem_channels is not None else cfg
 
 
 def infer_dataset_by_path(model_path: str) -> str:

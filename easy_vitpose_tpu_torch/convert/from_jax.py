@@ -82,11 +82,23 @@ def jax_leaves(cfg: ModelConfig, *, bn_state: bool = True) -> Dict[str, JaxLeaf]
     ``bn_state=False`` leaves out the head's BN running statistics (the
     trainable tree: params, grads, Adam moments)."""
     bb = cfg.backbone
-    out = {"backbone.patch_embed.proj.weight": JaxLeaf(("backbone", "patch_w"), None, "patch"),
-           "backbone.patch_embed.proj.bias": JaxLeaf(("backbone", "patch_b"), None, "copy"),
-           "backbone.pos_embed": JaxLeaf(("backbone", "pos_embed"), None, "copy"),
-           "backbone.last_norm.weight": JaxLeaf(("backbone", "ln_s"), None, "copy"),
-           "backbone.last_norm.bias": JaxLeaf(("backbone", "ln_b"), None, "copy")}
+    out = {}
+    if bb.stem_channels:      # the hybrid stem: HWIO convs, (C, D) projection
+        stem = ("backbone", "stem")
+        for i in range(len(bb.stem_channels)):
+            pe = "backbone.patch_embed"
+            out[f"{pe}.convs.{i}.weight"] = JaxLeaf(stem + ("convs", i, "w"), None, "conv")
+            out[f"{pe}.convs.{i}.bias"] = JaxLeaf(stem + ("convs", i, "b"), None, "copy")
+            out[f"{pe}.norms.{i}.weight"] = JaxLeaf(stem + ("lns", i, "s"), None, "copy")
+            out[f"{pe}.norms.{i}.bias"] = JaxLeaf(stem + ("lns", i, "b"), None, "copy")
+        out["backbone.patch_embed.proj.weight"] = JaxLeaf(stem + ("proj_w",), None, "linear")
+        out["backbone.patch_embed.proj.bias"] = JaxLeaf(stem + ("proj_b",), None, "copy")
+    else:
+        out["backbone.patch_embed.proj.weight"] = JaxLeaf(("backbone", "patch_w"), None, "patch")
+        out["backbone.patch_embed.proj.bias"] = JaxLeaf(("backbone", "patch_b"), None, "copy")
+    out.update({"backbone.pos_embed": JaxLeaf(("backbone", "pos_embed"), None, "copy"),
+                "backbone.last_norm.weight": JaxLeaf(("backbone", "ln_s"), None, "copy"),
+                "backbone.last_norm.bias": JaxLeaf(("backbone", "ln_b"), None, "copy")})
     blocks = ("backbone", "blocks")
     for i in range(bb.depth):
         p = f"backbone.blocks.{i}"
@@ -135,6 +147,10 @@ def state_dict_to_jax(sd: Mapping[str, Any], cfg: ModelConfig, *, bn_state: bool
     if bn_state:
         head["bn_state"] = [{} for _ in cfg.head.deconv_filters]
     tree = {"backbone": {"blocks": {"mlp": {}}}, "head": head}
+    n_stem = len(cfg.backbone.stem_channels or ())
+    if n_stem:
+        tree["backbone"]["stem"] = {"convs": [{} for _ in range(n_stem)],
+                                    "lns": [{} for _ in range(n_stem)]}
     stacks: Dict[Tuple, list] = {}
     for name, leaf in jax_leaves(cfg, bn_state=bn_state).items():
         x = sd[name]
@@ -220,3 +236,141 @@ def train_state_from_jax(state: Mapping[str, Any], cfg: ModelConfig, device=None
         out["ema_params"] = {k: to(v) for k, v in
                              state_dict_from_jax(state["ema_params"], cfg, bn_state=False).items()}
     return out
+
+
+# ------------------------------------------------------------ ViTPose+
+def plus_jax_leaves(cfg: ModelConfig, head_k: Mapping[str, int], experts: int, *,
+                    bn_state: bool = True) -> Dict[str, JaxLeaf]:
+    """The name map of a multi-task ViTPose+ model (``models/moe.py``)
+    against JAX's ``{"backbone", "heads"}`` tree (``convert_vitpose_plus_state_dict``):
+    the backbone's leaves as :func:`jax_leaves` (``mlp.fc2`` the shared
+    slice), ``backbone.blocks.{i}.mlp.experts.{e}.*`` at layer ``(i, e)`` of
+    the stacked ``fc2_expert_w/b``, and each task of ``head_k`` (task -> K)
+    under its head prefix, from ``("heads", task, ...)``."""
+    import dataclasses
+    from ..models.moe import head_prefix
+
+    out = {k: v for k, v in jax_leaves(cfg, bn_state=False).items() if k.startswith("backbone.")}
+    mlp = ("backbone", "blocks", "mlp")
+    for i in range(cfg.backbone.depth):
+        for e in range(experts):
+            out[f"backbone.blocks.{i}.mlp.experts.{e}.weight"] = JaxLeaf(
+                mlp + ("fc2_expert_w",), (i, e), "linear")
+            out[f"backbone.blocks.{i}.mlp.experts.{e}.bias"] = JaxLeaf(
+                mlp + ("fc2_expert_b",), (i, e), "copy")
+    for task, k in head_k.items():
+        cfg_t = dataclasses.replace(cfg, head=dataclasses.replace(cfg.head, num_keypoints=k))
+        for name, leaf in jax_leaves(cfg_t, bn_state=bn_state).items():
+            if name.startswith("keypoint_head."):
+                out[head_prefix(task) + name[len("keypoint_head"):]] = leaf._replace(
+                    path=("heads", task) + leaf.path[1:])
+    return out
+
+
+def _plus_layout(tree) -> Tuple[Dict[str, int], int]:
+    """(task -> K, experts) of a JAX ViTPose+ tree."""
+    heads = {t: int(np.shape(h["final_w"])[-1]) for t, h in tree["heads"].items()}
+    return heads, int(np.shape(tree["backbone"]["blocks"]["mlp"]["fc2_expert_w"])[1])
+
+
+def plus_state_dict_from_jax(params: Mapping[str, Any], cfg: ModelConfig, *,
+                             bn_state: bool = True) -> Dict[str, torch.Tensor]:
+    """JAX's multi-task ``{"backbone", "heads"}`` tree -> float32 tensors by
+    the reference checkpoint's names, the mapping ``models/moe.py`` takes;
+    ``bn_state=False`` for a tree without the heads' BN running statistics
+    (the trainable tree, its gradients, Adam's moments)."""
+    head_k, experts = _plus_layout(params)
+    sd = {}
+    for name, leaf in plus_jax_leaves(cfg, head_k, experts, bn_state=bn_state).items():
+        x = functools.reduce(operator.getitem, leaf.path, params)
+        if leaf.layer is not None:
+            x = np.asarray(x)[leaf.layer]
+        sd[name] = torch.from_numpy(_TO_TORCH[leaf.kind](x, cfg))
+    return sd
+
+
+def plus_state_dict_to_jax(sd: Mapping[str, Any], cfg: ModelConfig, *, bn_state: bool = True,
+                           dtype=np.float32) -> Dict[str, Any]:
+    """The inverse of :func:`plus_state_dict_from_jax`, bit for bit."""
+    from ..models.moe import head_prefix, num_experts, plus_tasks
+
+    head_k = {t: int(sd[f"{head_prefix(t)}.final_layer.weight"].shape[0]) for t in plus_tasks(sd)}
+    tree: Dict[str, Any] = {}
+    stacks: Dict[Tuple, dict] = {}
+    for name, leaf in plus_jax_leaves(cfg, head_k, num_experts(sd), bn_state=bn_state).items():
+        x = sd[name]
+        x = x.detach().to("cpu", torch.float32).numpy() if isinstance(x, torch.Tensor) else x
+        x = np.ascontiguousarray(_TO_JAX[leaf.kind](np.asarray(x), cfg).astype(
+            np.float32 if "bn_state" in leaf.path else dtype))
+        if leaf.layer is None:
+            _put(tree, leaf.path, x)
+        else:
+            stacks.setdefault(leaf.path, {})[leaf.layer] = x
+    for path, xs in stacks.items():
+        if isinstance(next(iter(xs)), tuple):       # (layer, expert) -> (depth, E, ...)
+            depth = 1 + max(i for i, _ in xs)
+            n = 1 + max(e for _, e in xs)
+            _put(tree, path, np.stack([np.stack([xs[(i, e)] for e in range(n)])
+                                       for i in range(depth)]))
+        else:
+            _put(tree, path, np.stack([xs[i] for i in sorted(xs)]))
+    return tree
+
+
+def _put(tree: dict, path: Tuple, x) -> None:
+    """``tree[path] = x``, making the dicts and lists on the way."""
+    node = tree
+    for k, nxt in zip(path[:-1], path[1:]):
+        empty = [] if isinstance(nxt, int) else {}
+        if isinstance(k, int):
+            node.extend(None for _ in range(k + 1 - len(node)))
+            if node[k] is None:
+                node[k] = empty
+        else:
+            node.setdefault(k, empty)
+        node = node[k]
+    node[path[-1]] = x
+
+
+def moe_train_state_from_jax(state: Mapping[str, Any], cfg: ModelConfig, device=None):
+    """A JAX ``init_moe_train_state`` dict after any steps of
+    ``make_moe_train_step`` with an optax ``clip_by_global_norm`` +
+    ``inject_hyperparams(adam)`` chain (``train/step.py::make_optimizer``)
+    -> the port's state for ``make_moe_train_step`` with the port's
+    ``make_optimizer``, on ``device`` (CUDA unless the caller passes
+    ``device="cpu"``): params, Adam's count and moments (float32,
+    elementwise, bit for bit), the learning rate, the heads' BN running
+    statistics and the step."""
+    from ..kernels import resolve_device
+    from ..train.moe_step import split_bn_states_plus
+    from ..train.step import AdamState
+
+    dev = resolve_device(device)
+    to = lambda t: t.to(dev)  # noqa: E731
+    params = plus_state_dict_from_jax(state["params"], cfg, bn_state=False)
+
+    def find(node, attr):
+        if hasattr(node, attr):
+            return node
+        for child in (node if isinstance(node, (tuple, list)) else ()):
+            got = find(child, attr)
+            if got is not None:
+                return got
+        return None
+
+    hyper = find(state["opt_state"], "hyperparams")
+    adam = find(hyper.inner_state, "mu")
+    opt = AdamState(
+        count=to(torch.tensor(int(np.asarray(adam.count)), dtype=torch.int32)),
+        mu={k: to(v) for k, v in plus_state_dict_from_jax(adam.mu, cfg, bn_state=False).items()},
+        nu={k: to(v) for k, v in plus_state_dict_from_jax(adam.nu, cfg, bn_state=False).items()},
+        hyperparams={"learning_rate": to(torch.tensor(
+            np.float32(np.asarray(hyper.hyperparams["learning_rate"]))))})
+    full = plus_state_dict_from_jax(
+        {"backbone": state["params"]["backbone"],
+         "heads": {t: {**h, "bn_state": state["bn_state"][t]}
+                   for t, h in state["params"]["heads"].items()}}, cfg)
+    _, bn = split_bn_states_plus(full)
+    return {"params": {k: to(v) for k, v in params.items()}, "opt_state": opt,
+            "bn_state": {t: {k: to(v) for k, v in s.items()} for t, s in bn.items()},
+            "step": to(torch.tensor(int(np.asarray(state["step"])), dtype=torch.int32))}

@@ -35,7 +35,7 @@ from __future__ import annotations
 import torch
 
 from .. import kernels
-from .vit import Block, block, q_scale
+from .vit import Block, BlockWeights, block_plain, block_weights, q_scale
 
 KERNEL = "block"
 EPI_NONE, EPI_GELU, EPI_RESIDUAL = 0, 1, 2
@@ -125,28 +125,32 @@ def fused_block(x: torch.Tensor, blk: Block) -> torch.Tensor:
 
     Tokens on the CPU take the plain version; CUDA tokens launch the kernels.
     """
+    return fused_block_weights(x, block_weights(dict(blk.named_parameters()), ""),
+                               blk.attn.num_heads, blk.eps)
+
+
+def fused_block_weights(x: torch.Tensor, w: BlockWeights, num_heads: int,
+                        eps: float) -> torch.Tensor:
+    """:func:`fused_block` from the block's weights (a ViTPose+ task's block
+    spliced from its shared and expert fc2 rows, ``models/moe.py``)."""
     if x.device.type == "cpu":
-        return block(x, blk)
-    a, m = blk.attn, blk.mlp
-    weights = [blk.norm1.weight, blk.norm1.bias, a.qkv.weight, a.qkv.bias,
-               a.proj.weight, a.proj.bias, blk.norm2.weight, blk.norm2.bias,
-               m.fc1.weight, m.fc1.bias, m.fc2.weight, m.fc2.bias]
-    kernels.require_cuda(x, *weights)
+        return block_plain(x, w, num_heads, eps)
+    kernels.require_cuda(x, *w)
     dt = x.dtype
     if dt not in (torch.float32, torch.bfloat16):
         raise ValueError(f"tokens must be float32 or bfloat16, got {dt}")
-    bad = [w.dtype for w in weights if w.dtype != dt]
+    bad = [t.dtype for t in w if t.dtype != dt]
     if bad:
         raise ValueError(f"block weights must be {dt} like the tokens, got {bad[0]}")
     B, N, D = x.shape
-    check_attention_shape(N, D, a.num_heads, dt)
+    check_attention_shape(N, D, num_heads, dt)
     x = x.contiguous().reshape(B * N, D)
-    h = layernorm_cuda(x, blk.norm1.weight, blk.norm1.bias, blk.eps, dt)
-    qkv = gemm_cuda(h, a.qkv.weight, a.qkv.bias)
-    o = attention_cuda(qkv, B, N, a.num_heads)
-    x1 = gemm_cuda(o, a.proj.weight, a.proj.bias, EPI_RESIDUAL, x)
-    h = layernorm_cuda(x1, blk.norm2.weight, blk.norm2.bias, blk.eps, dt)
-    hid = gemm_cuda(h, m.fc1.weight, m.fc1.bias, EPI_GELU)
-    out = gemm_cuda(hid, m.fc2.weight, m.fc2.bias, EPI_RESIDUAL, x1)
+    h = layernorm_cuda(x, w.ln1_w, w.ln1_b, eps, dt)
+    qkv = gemm_cuda(h, w.qkv_w, w.qkv_b)
+    o = attention_cuda(qkv, B, N, num_heads)
+    x1 = gemm_cuda(o, w.proj_w, w.proj_b, EPI_RESIDUAL, x)
+    h = layernorm_cuda(x1, w.ln2_w, w.ln2_b, eps, dt)
+    hid = gemm_cuda(h, w.fc1_w, w.fc1_b, EPI_GELU)
+    out = gemm_cuda(hid, w.fc2_w, w.fc2_b, EPI_RESIDUAL, x1)
     kernels.count_launch(KERNEL)
     return out.reshape(B, N, D)

@@ -6,6 +6,15 @@ statistics (eps 1e-5) and a ReLU; a final conv gives K heatmaps.  16x12
 features -> 64x48 maps.  The TPU's phase, packed and dilated lowerings of the
 transposed conv are not ported; in training the conv's backward is torch's.
 
+The "simple" variant (``HeadConfig.upsample``; reference
+train_configs/ViTPose_base_simple_coco_256x192.py:63-67) has no deconv
+stages: a bilinear x4 upsample (:func:`upsample_bilinear`) and a 3x3 final
+conv.  ``jax.image.resize(..., "bilinear")`` samples at half-pixel centres
+as ``F.interpolate(align_corners=False)`` does; at the border JAX drops the
+taps outside the map and renormalises where torch clamps the source
+coordinate, which at an integer factor gives the same taps with the same
+weights (measured: 0 to float rounding, ``tests/test_torch_head_simple.py``).
+
 :func:`head_forward` serves (eval BatchNorm); :func:`head_forward_train`
 trains, over a mapping from state-dict names to tensors, and returns the new
 BatchNorm running statistics.
@@ -28,8 +37,7 @@ BN_MOMENTUM = 0.1    # torch default running-stat update rate
 class Head(nn.Module):
     def __init__(self, cfg: HeadConfig):
         super().__init__()
-        if cfg.upsample:
-            raise NotImplementedError("the simple (upsample) head is not ported yet (ROADMAP A15)")
+        self.cfg = cfg
         layers, cin = [], cfg.in_channels
         for f, k in zip(cfg.deconv_filters, cfg.deconv_kernels):
             layers += [nn.ConvTranspose2d(cin, f, k, stride=2, padding=k // 2 - 1, bias=False),
@@ -42,20 +50,43 @@ class Head(nn.Module):
 
 def batch_norm_eval(x: torch.Tensor, bn: nn.BatchNorm2d) -> torch.Tensor:
     """Inference BatchNorm over NCHW in float32, cast back to x's dtype."""
-    inv = torch.rsqrt(bn.running_var.float() + bn.eps) * bn.weight.float()
-    y = (x.float() - bn.running_mean.float()[:, None, None]) * inv[:, None, None] \
-        + bn.bias.float()[:, None, None]
+    return _batch_norm_eval(x, bn.weight, bn.bias, bn.running_mean, bn.running_var, bn.eps)
+
+
+def _batch_norm_eval(x, weight, bias, mean, var, eps: float = BN_EPS) -> torch.Tensor:
+    inv = torch.rsqrt(var.float() + eps) * weight.float()
+    y = (x.float() - mean.float()[:, None, None]) * inv[:, None, None] \
+        + bias.float()[:, None, None]
     return y.to(x.dtype)
+
+
+def upsample_bilinear(x: torch.Tensor, factor: int) -> torch.Tensor:
+    """(B, C, H, W) -> (B, C, factor*H, factor*W), ``jax.image.resize``'s
+    bilinear at half-pixel centres (see the module docstring)."""
+    return F.interpolate(x, scale_factor=factor, mode="bilinear", align_corners=False)
 
 
 def head_forward(head: Head, x: torch.Tensor) -> torch.Tensor:
     """(B, D, Hp, Wp) features -> (B, K, 4*Hp, 4*Wp) heatmaps, NCHW."""
-    layers = list(head.deconv_layers)
-    for deconv, bn in zip(layers[0::3], layers[1::3]):
-        x = F.conv_transpose2d(x, deconv.weight, stride=2, padding=deconv.padding)
-        x = torch.relu(batch_norm_eval(x, bn))
-    fl = head.final_layer
-    return F.conv2d(x, fl.weight, fl.bias, padding=fl.padding)
+    params = dict(head.named_parameters())
+    params.update(head.named_buffers())
+    return head_forward_params(params, x, head.cfg)
+
+
+def head_forward_params(params, x: torch.Tensor, cfg: HeadConfig, prefix: str = "") -> torch.Tensor:
+    """:func:`head_forward` over a mapping from ``{prefix}.``-state-dict
+    names to tensors (a ViTPose+ model's heads, ``models/moe.py``)."""
+    dot = f"{prefix}." if prefix else ""
+    for i, k in enumerate(cfg.deconv_kernels):
+        dc, bn = f"{dot}deconv_layers.{3 * i}", f"{dot}deconv_layers.{3 * i + 1}"
+        x = F.conv_transpose2d(x, params[f"{dc}.weight"], stride=2, padding=k // 2 - 1)
+        x = torch.relu(_batch_norm_eval(x, params[f"{bn}.weight"], params[f"{bn}.bias"],
+                                        params[f"{bn}.running_mean"], params[f"{bn}.running_var"]))
+    if cfg.upsample > 1:
+        x = upsample_bilinear(x, cfg.upsample)
+    kf = cfg.final_conv_kernel
+    return F.conv2d(x, params[f"{dot}final_layer.weight"], params[f"{dot}final_layer.bias"],
+                    padding=(kf - 1) // 2)
 
 
 def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
@@ -78,21 +109,24 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype), new_mean, new_var
 
 
-def head_forward_train(params, x: torch.Tensor, cfg: HeadConfig):
+def head_forward_train(params, x: torch.Tensor, cfg: HeadConfig, prefix: str = "keypoint_head"):
     """(B, D, Hp, Wp) features -> ((B, K, 4*Hp, 4*Wp) heatmaps, new BN
     running statistics by state-dict name), with train-mode BatchNorm;
     ``params`` maps the ``keypoint_head.*`` state-dict names (running
-    statistics included) to tensors.  The final conv's bias is added after
+    statistics included) to tensors (``{prefix}.*`` for another head, such
+    as a ViTPose+ associate head).  The final conv's bias is added after
     the conv, in the working dtype, as the JAX head adds it."""
     new_bn = {}
     for i, k in enumerate(cfg.deconv_kernels):
-        dc, bn = f"keypoint_head.deconv_layers.{3 * i}", f"keypoint_head.deconv_layers.{3 * i + 1}"
+        dc, bn = f"{prefix}.deconv_layers.{3 * i}", f"{prefix}.deconv_layers.{3 * i + 1}"
         x = F.conv_transpose2d(x, params[f"{dc}.weight"], stride=2, padding=k // 2 - 1)
         y, mean, var = batch_norm_train(x, params[f"{bn}.weight"], params[f"{bn}.bias"],
                                         params[f"{bn}.running_mean"], params[f"{bn}.running_var"])
         new_bn[f"{bn}.running_mean"], new_bn[f"{bn}.running_var"] = mean, var
         x = torch.relu(y)
-    fl = "keypoint_head.final_layer"
+    if cfg.upsample > 1:
+        x = upsample_bilinear(x, cfg.upsample)
+    fl = f"{prefix}.final_layer"
     kf = cfg.final_conv_kernel
     x = F.conv2d(x, params[f"{fl}.weight"], padding=(kf - 1) // 2)
     return x + params[f"{fl}.bias"][:, None, None], new_bn

@@ -16,6 +16,8 @@ attention output, the GELU output and each residual add).
 
 Reference quirks kept: the patch conv's padding=2 with a crop to a multiple
 of the patch, and the position embedding applied as ``pe[:, 1:] + pe[:, :1]``.
+A config with ``stem_channels`` embeds through the hybrid CNN stem
+(``models/stem.py``) in place of the patch conv, on every route below.
 
 Training (port of ``vit.py:110-259``) is functional over a mapping from the
 state-dict names to tensors, so that a step can hand in bf16 casts of the
@@ -75,10 +77,9 @@ class PatchEmbed(nn.Module):
 class ViT(nn.Module):
     def __init__(self, cfg: BackboneConfig):
         super().__init__()
-        if cfg.stem_channels:
-            raise NotImplementedError("the hybrid CNN stem is not ported yet (ROADMAP A12)")
+        from .stem import Stem
         self.cfg = cfg
-        self.patch_embed = PatchEmbed(cfg)
+        self.patch_embed = Stem(cfg) if cfg.stem_channels else PatchEmbed(cfg)
         self.pos_embed = nn.Parameter(torch.zeros(1, cfg.num_tokens + 1, cfg.embed_dim))
         self.blocks = nn.ModuleList(Block(cfg) for _ in range(cfg.depth))
         self.last_norm = nn.LayerNorm(cfg.embed_dim, eps=cfg.layer_norm_eps)
@@ -161,6 +162,25 @@ def patch_embed(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return torch.addmm(bias.to(x.dtype), x, w).reshape(B, Hp * Wp, -1)
 
 
+def embed(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: BackboneConfig,
+          prefix: str = "") -> torch.Tensor:
+    """(B, H, W, 3) NHWC crops -> (B, Hp*Wp, D) tokens with the position
+    embedding added: the patch conv, or the hybrid stem of a config with
+    ``stem_channels``; ``params`` maps ``{prefix}.patch_embed.*`` and
+    ``{prefix}.pos_embed`` to tensors."""
+    from .stem import stem_forward
+
+    dot = f"{prefix}." if prefix else ""
+    if cfg.stem_channels:
+        tokens = stem_forward(params, x, cfg, f"{dot}patch_embed")
+    else:
+        tokens = patch_embed(x, params[f"{dot}patch_embed.proj.weight"],
+                             params[f"{dot}patch_embed.proj.bias"],
+                             cfg.patch_size, cfg.patch_padding)
+    pe = params[f"{dot}pos_embed"]
+    return tokens + (pe[:, 1:] + pe[:, :1]).to(tokens.dtype)
+
+
 def q_scale(head_dim: int, dtype: torch.dtype) -> float:
     """The softmax scale ``head_dim ** -0.5`` as JAX multiplies q by it: a
     Python float meeting a ``dtype`` array is first rounded to ``dtype``
@@ -184,25 +204,21 @@ def attention_core(qkv: torch.Tensor, num_heads: int) -> torch.Tensor:
     return o.transpose(1, 2).reshape(B, N, D)
 
 
-def attention(h: torch.Tensor, attn: Attention) -> torch.Tensor:
-    """Fused-QKV multi-head self-attention with its output projection."""
-    dt = h.dtype
-    qkv = linear_f32(h, attn.qkv.weight, attn.qkv.bias).to(dt)
-    o = attention_core(qkv, attn.num_heads)
-    return linear_f32(o, attn.proj.weight, attn.proj.bias).to(dt)
-
-
-def mlp(h: torch.Tensor, m: Mlp) -> torch.Tensor:
-    dt = h.dtype
-    a = gelu(linear_f32(h, m.fc1.weight, m.fc1.bias)).to(dt)
-    return linear_f32(a, m.fc2.weight, m.fc2.bias).to(dt)
+def block_plain(x: torch.Tensor, w: BlockWeights, num_heads: int, eps: float) -> torch.Tensor:
+    """Pre-LN transformer block on (B, N, D) tokens from its weights; the
+    plain version of the fused block kernel."""
+    dt = x.dtype
+    qkv = linear_f32(layer_norm(x, w.ln1_w, w.ln1_b, eps), w.qkv_w, w.qkv_b).to(dt)
+    o = attention_core(qkv, num_heads)
+    x = x + linear_f32(o, w.proj_w, w.proj_b).to(dt)
+    a = gelu(linear_f32(layer_norm(x, w.ln2_w, w.ln2_b, eps), w.fc1_w, w.fc1_b)).to(dt)
+    return x + linear_f32(a, w.fc2_w, w.fc2_b).to(dt)
 
 
 def block(x: torch.Tensor, blk: Block) -> torch.Tensor:
-    """Pre-LN transformer block on (B, N, D) tokens; the plain version of
-    the fused block kernel."""
-    x = x + attention(layer_norm(x, blk.norm1.weight, blk.norm1.bias, blk.eps), blk.attn)
-    return x + mlp(layer_norm(x, blk.norm2.weight, blk.norm2.bias, blk.eps), blk.mlp)
+    """:func:`block_plain` of a :class:`Block`."""
+    return block_plain(x, block_weights(dict(blk.named_parameters()), ""),
+                       blk.attn.num_heads, blk.eps)
 
 
 def vit_forward(vit: ViT, x: torch.Tensor, *, plain: bool = False) -> torch.Tensor:
@@ -217,10 +233,8 @@ def vit_forward(vit: ViT, x: torch.Tensor, *, plain: bool = False) -> torch.Tens
     from .quant import QBlock, block_q8, fused_block_q8
 
     cfg = vit.cfg
-    tokens = patch_embed(x, vit.patch_embed.proj.weight, vit.patch_embed.proj.bias,
-                         cfg.patch_size, cfg.patch_padding)
-    pe = vit.pos_embed
-    tokens = tokens + (pe[:, 1:] + pe[:, :1]).to(tokens.dtype)
+    tokens = embed({**dict(vit.patch_embed.named_parameters(prefix="patch_embed")),
+                    "pos_embed": vit.pos_embed}, x, cfg)
     for blk in vit.blocks:
         if isinstance(blk, QBlock):
             tokens = (block_q8 if plain else fused_block_q8)(tokens, blk)
@@ -255,13 +269,9 @@ def draw_drop_path_masks(cfg: BackboneConfig, batch: int, generator: torch.Gener
     return torch.floor(kp + u) / kp
 
 
-def block_train(x: torch.Tensor, w: BlockWeights, num_heads: int, eps: float,
-                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """The JAX package's XLA training block (``vit.py::block``) under
-    autograd: bf16 logits, the exact-erf GELU, each branch rounded to the
-    working dtype, times the (B, 1, 1) float32 keep mask, rounded again and
-    added.  The tests' second reference; the step's path is the training
-    block of ``models/fused_block_train.py``."""
+def attention_train(x: torch.Tensor, w: BlockWeights, num_heads: int, eps: float) -> torch.Tensor:
+    """The attention branch of :func:`block_train` (LN1, qkv, bf16 logits,
+    softmax, proj), rounded to the working dtype."""
     dt = x.dtype
     B, N, D = x.shape
     hd = D // num_heads
@@ -272,7 +282,18 @@ def block_train(x: torch.Tensor, w: BlockWeights, num_heads: int, eps: float,
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)).to(dt)
     probs = torch.softmax(logits.float(), dim=-1).to(dt)
     o = torch.matmul(probs.float(), v.float()).to(dt).transpose(1, 2).reshape(B, N, D)
-    a = linear_f32(o, w.proj_w, w.proj_b).to(dt)
+    return linear_f32(o, w.proj_w, w.proj_b).to(dt)
+
+
+def block_train(x: torch.Tensor, w: BlockWeights, num_heads: int, eps: float,
+                keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The JAX package's XLA training block (``vit.py::block``) under
+    autograd: bf16 logits, the exact-erf GELU, each branch rounded to the
+    working dtype, times the (B, 1, 1) float32 keep mask, rounded again and
+    added.  The tests' second reference; the step's path is the training
+    block of ``models/fused_block_train.py``."""
+    dt = x.dtype
+    a = attention_train(x, w, num_heads, eps)
     if keep is not None:
         a = (a.float() * keep).to(dt)
     x = x + a
@@ -303,11 +324,7 @@ def vit_forward_train(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: 
     if block_impl not in ("fused_train", "xla"):
         raise ValueError(f"block_impl must be 'fused_train' or 'xla', got {block_impl!r}")
     B = x.shape[0]
-    tokens = patch_embed(x, params["backbone.patch_embed.proj.weight"],
-                         params["backbone.patch_embed.proj.bias"],
-                         cfg.patch_size, cfg.patch_padding)
-    pe = params["backbone.pos_embed"]
-    tokens = tokens + (pe[:, 1:] + pe[:, :1]).to(tokens.dtype)
+    tokens = embed(params, x, cfg, "backbone")
     masks = drop_path_masks
     if masks is None and cfg.drop_path_rate > 0.0:
         if generator is None:

@@ -111,22 +111,24 @@ def init_params(cfg: ModelConfig, seed: int) -> ViTPose:
     """
     rng = np.random.default_rng(seed)
     model = ViTPose(cfg)
-    sd = {}
-    for name, t in model.state_dict().items():
-        shape = tuple(t.shape)
-        if name.endswith("num_batches_tracked"):
-            sd[name] = np.zeros((), np.int64)
-        elif name.endswith("running_var"):
-            sd[name] = rng.uniform(0.5, 1.5, shape).astype(np.float32)
-        elif "deconv_layers" in name and len(shape) == 4:      # (Cin, Cout, k, k)
-            sd[name] = (rng.standard_normal(shape) / np.sqrt(shape[0] * 4)).astype(np.float32)
-        elif "final_layer.weight" in name:                      # (K, Cin, k, k)
-            sd[name] = (rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
-        elif len(shape) >= 2 or name.endswith("pos_embed"):
-            sd[name] = _trunc_normal(rng, shape, 0.02)
-        elif name.endswith("weight"):                            # LN and BN scales
-            sd[name] = (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
-        else:                                                   # biases, BN means
-            sd[name] = (0.02 * rng.standard_normal(shape)).astype(np.float32)
+    sd = {name: init_tensor(rng, name, tuple(t.shape)) for name, t in model.state_dict().items()}
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
     return model.eval()
+
+
+def init_tensor(rng: np.random.Generator, name: str, shape) -> np.ndarray:
+    """The random value :func:`init_params` gives the state-dict entry
+    ``name`` of ``shape``."""
+    if name.endswith("num_batches_tracked"):
+        return np.zeros((), np.int64)
+    if name.endswith("running_var"):
+        return rng.uniform(0.5, 1.5, shape).astype(np.float32)
+    if "deconv_layers" in name and len(shape) == 4:             # (Cin, Cout, k, k)
+        return (rng.standard_normal(shape) / np.sqrt(shape[0] * 4)).astype(np.float32)
+    if "final_layer.weight" in name:                            # (K, Cin, k, k)
+        return (rng.standard_normal(shape) / np.sqrt(np.prod(shape[1:]))).astype(np.float32)
+    if len(shape) >= 2 or name.endswith("pos_embed"):
+        return _trunc_normal(rng, shape, 0.02)
+    if name.endswith("weight"):                                 # LN and BN scales
+        return (1.0 + 0.1 * rng.standard_normal(shape)).astype(np.float32)
+    return (0.02 * rng.standard_normal(shape)).astype(np.float32)  # biases, BN means

@@ -1,14 +1,22 @@
-"""Heatmap -> keypoint decoding (UDP), in PyTorch.
+"""Heatmap -> keypoint decoding, in PyTorch.
 
-Port of the UDP path of ``easy_vitpose_tpu/ops/decode.py``:
+Port of ``easy_vitpose_tpu/ops/decode.py``:
 
-* :func:`get_max_preds` — argmax decode, -1 where the max is <= 0;
+* :func:`get_max_preds` — argmax decode, -1 where the max is <= 0 (ties to
+  the first maximum, as ``jnp.argmax``; torch's argmax on either device);
 * :func:`gaussian_blur_2d` — cv2.GaussianBlur(sigma=0) with reflect-101
   borders, as two separable passes;
-* :func:`post_dark_udp` — the DARK/UDP Newton step on the log-modulated map,
-  whose blur + clip + log is the modulate kernel's plain version
-  (``ops/modulate.py``), as the reference's default ``use_pallas=False``;
+* :func:`post_dark_udp` — the DARK/UDP Newton step on the log-modulated map:
+  its blur + clip + log is the full-map K4 (``ops/modulate.py::udp_modulate``,
+  ``csrc/modulate.cu``) with ``use_pallas=True`` on CUDA heatmaps, and the
+  kernel's plain version otherwise, as JAX's ``use_pallas`` picks its Pallas
+  kernel (default off);
 * :func:`transform_preds` and :func:`keypoints_from_heatmaps_udp`;
+* the rest of the library (reference top_down_eval.py): :func:`get_max_preds_3d`,
+  :func:`keypoints_from_regression`, :func:`default_shift_decode`,
+  :func:`modulate_gaussian_blur`, :func:`taylor_refine`, the front door
+  :func:`keypoints_from_heatmaps` (default, megvii, unbiased/DARK, None and
+  UDP) and :func:`keypoints_from_heatmaps3d`;
 * :func:`decode_keypoints` — the pose step's whole decode (the above, the
   un-crop to the frame and the slot mask) as one launch of
   ``csrc/decode.cu``; :func:`decode_keypoints_plain` is its plain version.
@@ -19,7 +27,7 @@ the card: the constants it needs on the device are made once per device.
 from __future__ import annotations
 
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -66,17 +74,20 @@ def gaussian_blur_2d(heatmaps: torch.Tensor, kernel: int) -> torch.Tensor:
 
 
 def post_dark_udp(coords: torch.Tensor, heatmaps: torch.Tensor,
-                  kernel: int = 11) -> torch.Tensor:
+                  kernel: int = 11, use_pallas: bool = False) -> torch.Tensor:
     """DARK/UDP sub-pixel refinement of (N, K, 2) integer argmax coords.
 
     The modulated map is edge-padded by one and flattened over the WHOLE
     batch, and the finite differences read it with wrap-around, as the
     reference does: a border or -1 coordinate reads the neighbouring map.
+    ``use_pallas``: modulate with the full-map K4 (one launch on CUDA
+    heatmaps; its plain version on the CPU).
     """
-    from .modulate import udp_modulate_plain
+    from .modulate import udp_modulate, udp_modulate_plain
 
     N, K, H, W = heatmaps.shape
-    hm = udp_modulate_plain(heatmaps, kernel)
+    hm = (udp_modulate(heatmaps.float(), kernel) if use_pallas
+          else udp_modulate_plain(heatmaps, kernel))
     hm = F.pad(hm, (1, 1, 1, 1), mode="replicate")
     flat = hm.reshape(-1)
     ix = coords[..., 0].to(torch.int64) + 1
@@ -127,13 +138,151 @@ def _denominator(output_size: Tuple[int, int], use_udp: bool,
 
 
 def keypoints_from_heatmaps_udp(heatmaps: torch.Tensor, center: torch.Tensor,
-                                scale: torch.Tensor, kernel: int = 11
+                                scale: torch.Tensor, kernel: int = 11,
+                                use_pallas: bool = False
                                 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """UDP decode: (preds (N, K, 2) image-space xy, maxvals (N, K, 1))."""
+    """UDP decode: (preds (N, K, 2) image-space xy, maxvals (N, K, 1));
+    ``use_pallas`` as :func:`post_dark_udp`."""
     N, K, H, W = heatmaps.shape
     preds, maxvals = get_max_preds(heatmaps)
-    preds = post_dark_udp(preds, heatmaps, kernel=kernel)
+    preds = post_dark_udp(preds, heatmaps, kernel=kernel, use_pallas=use_pallas)
     return transform_preds(preds, center, scale, (W, H), use_udp=True), maxvals
+
+
+def get_max_preds_3d(heatmaps: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Argmax decode of (N, K, D, H, W) score maps -> preds (N, K, 3) as
+    (x, y, z), maxvals (N, K, 1); -1 where the maximum is <= 0."""
+    N, K, D, H, W = heatmaps.shape
+    flat = heatmaps.reshape(N, K, D * H * W)
+    idx = torch.argmax(flat, dim=2)
+    maxvals = torch.amax(flat, dim=2)[..., None]
+    preds = torch.stack([(idx % W).float(), ((idx // W) % H).float(),
+                         (idx // (H * W)).float()], dim=-1)
+    return torch.where(maxvals > 0.0, preds, torch.full_like(preds, -1.0)), maxvals
+
+
+def keypoints_from_regression(regression_preds: torch.Tensor, center: torch.Tensor,
+                              scale: torch.Tensor, img_size: Tuple[int, int]
+                              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Normalized (N, K, 2) regression output -> image coords: times
+    ``img_size`` (W, H), then the non-UDP transform; scores are 1."""
+    N, K, _ = regression_preds.shape
+    size = _denominator(tuple(img_size), False, regression_preds.device)
+    preds = transform_preds(regression_preds * size, center, scale, img_size, use_udp=False)
+    return preds, torch.ones((N, K, 1), dtype=torch.float32, device=regression_preds.device)
+
+
+def _at(flat: torch.Tensor, yy: torch.Tensor, xx: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """``flat`` (N, K, H*W) at the clamped (yy, xx) of each map."""
+    idx = torch.clamp(yy, 0, H - 1) * W + torch.clamp(xx, 0, W - 1)
+    return torch.gather(flat, 2, idx[..., None])[..., 0]
+
+
+def _sign(x: torch.Tensor) -> torch.Tensor:
+    """``jnp.sign``: NaN stays NaN (``torch.sign`` gives 0), as on megvii's
+    rescale of an all-zero map."""
+    return torch.where(torch.isnan(x), x, torch.sign(x))
+
+
+def default_shift_decode(heatmaps: torch.Tensor, return_gate: bool = False):
+    """The non-UDP 'default' post-process: the argmax moved 0.25 toward the
+    higher neighbour on each axis, for interior peaks only.
+    ``return_gate`` also returns that interior-peak gate (N, K) float32."""
+    N, K, H, W = heatmaps.shape
+    preds, maxvals = get_max_preds(heatmaps)
+    px, py = preds[..., 0].to(torch.int64), preds[..., 1].to(torch.int64)
+    flat = heatmaps.reshape(N, K, H * W)
+    diff_x = _at(flat, py, px + 1, H, W) - _at(flat, py, px - 1, H, W)
+    diff_y = _at(flat, py + 1, px, H, W) - _at(flat, py - 1, px, H, W)
+    ok = ((px > 1) & (px < W - 1) & (py > 1) & (py < H - 1)).float()
+    shift = torch.stack([_sign(diff_x), _sign(diff_y)], dim=-1) * 0.25
+    out = preds + shift * ok[..., None]
+    return (out, maxvals, ok) if return_gate else (out, maxvals)
+
+
+def modulate_gaussian_blur(heatmaps: torch.Tensor, kernel: int) -> torch.Tensor:
+    """The reference's modulation blur (top_down_eval.py:418-457): each map
+    zero-padded by the kernel radius, blurred (the taps summed in order)
+    and rescaled so its maximum is the original maximum."""
+    r = kernel // 2
+    g = gaussian_taps(kernel)
+    x = heatmaps.float()
+    H, W = x.shape[-2:]
+    orig_max = torch.amax(x, dim=(-2, -1), keepdim=True)
+    xp = F.pad(x, (r, r, r, r))
+    h1 = sum(xp[..., :, i:i + W] * g[i] for i in range(kernel))
+    out = sum(h1[..., i:i + H, :] * g[i] for i in range(kernel))
+    return out * orig_max / torch.amax(out, dim=(-2, -1), keepdim=True)
+
+
+def taylor_refine(log_heatmaps: torch.Tensor, coords: torch.Tensor) -> torch.Tensor:
+    """DARK 'unbiased' refinement: one Newton step on the log heatmaps
+    around each (N, K, 2) argmax, from finite differences, for interior
+    peaks (1 < p < size - 2) with an invertible Hessian."""
+    N, K, H, W = log_heatmaps.shape
+    flat = log_heatmaps.reshape(N, K, H * W)
+    px, py = coords[..., 0].to(torch.int64), coords[..., 1].to(torch.int64)
+
+    def at(dy, dx):
+        return _at(flat, py + dy, px + dx, H, W)
+
+    dx = 0.5 * (at(0, 1) - at(0, -1))
+    dy = 0.5 * (at(1, 0) - at(-1, 0))
+    dxx = 0.25 * (at(0, 2) - 2.0 * at(0, 0) + at(0, -2))
+    dxy = 0.25 * (at(1, 1) - at(-1, 1) - at(1, -1) + at(-1, -1))
+    dyy = 0.25 * (at(2, 0) - 2.0 * at(0, 0) + at(-2, 0))
+    det = dxx * dyy - dxy * dxy
+    ok = (px > 1) & (px < W - 2) & (py > 1) & (py < H - 2) & (det != 0)
+    safe = torch.where(det == 0, torch.ones_like(det), det)
+    off_x = -(dyy * dx - dxy * dy) / safe
+    off_y = -(dxx * dy - dxy * dx) / safe
+    return coords + torch.stack([off_x, off_y], dim=-1) * ok[..., None]
+
+
+def keypoints_from_heatmaps(heatmaps: torch.Tensor, center: torch.Tensor,
+                            scale: torch.Tensor, *, post_process: Optional[str] = "default",
+                            unbiased: bool = False, kernel: int = 11, use_udp: bool = False,
+                            use_pallas: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The mmpose-compatible decode front door (reference
+    top_down_eval.py:493-641), with JAX's dispatch and arguments: UDP
+    (``use_pallas`` runs the full-map K4 on CUDA heatmaps), 'unbiased'
+    (DARK), 'default' (the 0.25 shift), 'megvii' (blurred maps, +0.5 inside
+    the same gate, rescaled scores) or None (the raw argmax), then the
+    image-space transform.  -> (preds (N, K, 2) xy, maxvals (N, K, 1))."""
+    if unbiased:
+        post_process = "unbiased"
+    if use_udp:
+        if post_process == "megvii":
+            raise ValueError("megvii is a non-UDP post-process")
+        return keypoints_from_heatmaps_udp(heatmaps, center, scale, kernel=kernel,
+                                           use_pallas=use_pallas)
+    N, K, H, W = heatmaps.shape
+    if post_process == "megvii":
+        heatmaps = modulate_gaussian_blur(heatmaps, kernel)
+    if post_process == "unbiased":
+        preds, maxvals = get_max_preds(heatmaps)
+        logm = torch.log(torch.clamp(modulate_gaussian_blur(heatmaps, kernel), min=1e-10))
+        preds = taylor_refine(logm, preds)
+    elif post_process is None:
+        preds, maxvals = get_max_preds(heatmaps)
+    else:
+        preds, maxvals, gate = default_shift_decode(heatmaps, return_gate=True)
+        if post_process == "megvii":
+            preds = preds + 0.5 * gate[..., None]
+    preds = transform_preds(preds, center, scale, (W, H), use_udp=False)
+    if post_process == "megvii":
+        maxvals = maxvals / 255.0 + 0.5
+    return preds, maxvals
+
+
+def keypoints_from_heatmaps3d(heatmaps: torch.Tensor, center: torch.Tensor,
+                              scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """3D argmax decode, the xy plane mapped to image space (z stays in
+    heatmap depth units)."""
+    N, K, D, H, W = heatmaps.shape
+    preds, maxvals = get_max_preds_3d(heatmaps)
+    xy = transform_preds(preds[..., :2], center, scale, (W, H), use_udp=False)
+    return torch.cat([xy, preds[..., 2:]], dim=-1), maxvals
 
 
 def newton_point_index(coords: torch.Tensor, H: int, W: int) -> torch.Tensor:

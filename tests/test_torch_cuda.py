@@ -1206,3 +1206,141 @@ def yolo_batch(d, frames):
     from easy_vitpose_tpu_torch.detect import yolo
     return yolo.detect_batch_core(d.model, frames, d.geometry(tuple(frames.shape[1:3])), d.spec,
                                   d.classes, d.conf, d.iou, d.max_det, d.dtype)
+
+
+def small_plus(D=128, heads=2):
+    """A small ViTPose+ model: three tasks, a 2-block backbone of width D."""
+    from easy_vitpose_tpu_torch.models import moe
+    cfg = small_model(D, heads, 0.0)
+    return cfg, moe.init_vitpose_plus_params(cfg, 0, ("coco", "aic", "mpii"))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4), (torch.bfloat16, 2e-2)])
+def test_moe_task_forward_through_k1(dev, dtype, tol):
+    """The spliced ViTPose+ forward of each task: K1 once per block, against
+    ``plain=True`` (JAX's XLA MoE block) and the mixed batch against each
+    row's homogeneous forward."""
+    from easy_vitpose_tpu_torch.models import moe
+    cfg, params = small_plus()
+    sd = moe.plus_params(params, dtype=dtype)
+    x = randn(dev, 5, 256, 192, 3, dtype=dtype)
+    with torch.no_grad():
+        for task, K in (("coco", 17), ("aic", 14), ("mpii", 16)):
+            kernels.reset_launch_counts()
+            got = moe.vitpose_plus_forward(sd, x, cfg, task)
+            assert kernels.launch_counts() == {"block": 2} and got.shape == (5, K, 64, 48)
+            assert rel_err(got, moe.vitpose_plus_forward(sd, x, cfg, task, plain=True)) <= tol
+        onehot = torch.eye(3, device=dev)[torch.tensor([0, 2, 1, 1, 0], device=dev)]
+        mixed = moe.vit_plus_forward(sd, x, cfg, expert_onehot=onehot)
+        for row, e in enumerate((0, 2, 1, 1, 0)):
+            ref = moe.vit_plus_forward(sd, x[row:row + 1], cfg, expert_idx=e, plain=True)
+            assert rel_err(mixed[row:row + 1], ref) <= tol
+
+
+@pytest.mark.parametrize("moments,opt", [("f32", "adam"), ("int8", "adam_q8")])
+def test_moe_steps_through_the_kernels(dev, moments, opt):
+    """Task-alternating AMP steps: K5, K6a and K7 once per block, the norm
+    kernel and K8 (K9) once; the other tasks' weights and moments bit for
+    bit; one step's loss and grads against the plain step."""
+    from easy_vitpose_tpu_torch.train import moe_step
+    from easy_vitpose_tpu_torch.train.fused_opt import make_fused_adam
+    from easy_vitpose_tpu_torch.train.step import render_batch_on_device
+    cfg, params = small_plus()
+    tx = make_fused_adam(3.75e-4, moment_dtype=moments)
+    state = moe_step.init_moe_train_state(params, tx)
+    assert state["step"].is_cuda
+    rng = np.random.default_rng(2)
+    for task, K in (("coco", 17), ("aic", 14), ("coco", 17), ("mpii", 16)):
+        batch = {"images_u8": rng.integers(0, 256, (3, 256, 192, 3), dtype=np.uint8),
+                 "joints": rng.uniform(0, 190, (3, K, 2)).astype(np.float32),
+                 "joints_vis": np.ones((3, K, 2), np.float32)}
+        frozen = {k: v for k, v in state["params"].items() if not moe_step.is_active(k, task)}
+        kernels.reset_launch_counts()
+        new, m = moe_step.make_moe_train_step(cfg, tx, task)(state, batch)
+        assert kernels.launch_counts() == {"train_fwd": 2, "train_bwd_mlp": 2,
+                                           "train_bwd_attn": 2, "grad_norm": 1, opt: 1}
+        assert torch.isfinite(m["loss"])
+        for k, v in frozen.items():
+            assert torch.equal(new["params"][k], v), k
+        rendered = render_batch_on_device(batch, dev)
+        lk, _, gk = moe_step.loss_and_grads(cfg, state, rendered, task)
+        lp, _, gp = moe_step.loss_and_grads(cfg, state, rendered, task, plain=True)
+        assert abs(float(lk) - float(lp)) <= 1e-2 * float(lp)
+        for k in gp:
+            assert rel_err(gk[k], gp[k]) <= 0.1, k
+        state = new
+    assert int(state["opt_state"].count) == 4
+
+
+def test_stem_model_through_the_kernels(dev):
+    """A stem model (4 stages, the 16x12 grid): the serving forward (K1,
+    K2) against ``plain=True`` and an AMP train step (K5, K6a, K7, the
+    norm kernel, K8) against the plain step."""
+    import dataclasses
+    from easy_vitpose_tpu_torch.configs import with_stem
+    from easy_vitpose_tpu_torch.models.vitpose import init_params, serving_copy, vitpose_forward
+    from easy_vitpose_tpu_torch.train import step as tstep
+    from easy_vitpose_tpu_torch.train.fused_opt import make_fused_adam
+    cfg = with_stem(small_model(128, 2, 0.0), (16, 32, 32, 64))
+    model = init_params(cfg, 0).to(dev)
+    x = randn(dev, 5, 256, 192, 3, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for dtype, kernel in (("bf16", "block"), ("int8", "block_q8")):
+            sm = serving_copy(model, dtype)
+            kernels.reset_launch_counts()
+            got = vitpose_forward(sm, x)
+            assert kernels.launch_counts() == {kernel: 2}
+            assert rel_err(got, vitpose_forward(sm, x, plain=True)) <= 2e-2
+    tx = make_fused_adam(3.75e-4)
+    state = tstep.init_train_state(model, tx)
+    batch = small_batch(3, n=3)
+    kernels.reset_launch_counts()
+    state, m = tstep.make_train_step(cfg, tx)(state, batch)
+    assert kernels.launch_counts() == {"train_fwd": 2, "train_bwd_mlp": 2, "train_bwd_attn": 2,
+                                       "grad_norm": 1, "adam": 1}
+    rendered = tstep.render_batch_on_device(batch, dev)
+    lk, _, gk = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered)
+    lp, _, gp = tstep.loss_and_grads(cfg, state["params"], state["bn_state"], rendered, plain=True)
+    assert abs(float(lk) - float(lp)) <= 1e-2 * float(lp)
+    for k in gp:
+        assert rel_err(gk[k], gp[k]) <= 0.1, k
+    assert dataclasses.asdict(cfg)["backbone"]["stem_channels"] == (16, 32, 32, 64)
+
+
+def test_keypoints_from_heatmaps_front_door_through_k4(dev):
+    """``keypoints_from_heatmaps(use_udp=True, use_pallas=True)``: one
+    full-map K4 launch, scores bit for bit and coordinates within 1e-3
+    heatmap px of ``use_pallas=False`` on the same maps (K4's plain
+    version on the card); every mode on the card against the CPU on peaked
+    maps, scores within 1e-6 and coordinates within 1e-3 px (on noise the
+    DARK and UDP Newton steps magnify the CPU's and the card's last-bit
+    differences in the blur: 0.018 px measured)."""
+    rng = np.random.default_rng(4)
+    yy, xx = np.mgrid[0:64, 0:48]
+    cy, cx = rng.uniform(3, 60, (6, 17, 1, 1)), rng.uniform(3, 44, (6, 17, 1, 1))
+    heat = np.exp(-((yy - cy) ** 2 + (xx - cx) ** 2) / 8.0) + 0.01 * rng.uniform(size=(6, 17, 64, 48))
+    heat = torch.from_numpy(heat.astype(np.float32))
+    heat[0, 0] = 0.0
+    heat[1, 0, 3, 5] = heat[1, 0, 40, 20] = 2.0                      # tied peaks
+    center = torch.from_numpy(rng.uniform(100, 400, (6, 2)).astype(np.float32))
+    scale = torch.from_numpy(rng.uniform(80, 240, (6, 2)).astype(np.float32))
+    per_px = (scale / torch.tensor([47.0, 63.0]))[:, None]
+    args = (heat.to(dev), center.to(dev), scale.to(dev))
+    kernels.reset_launch_counts()
+    pk, vk = decode.keypoints_from_heatmaps(*args, use_udp=True, use_pallas=True)
+    assert kernels.launch_counts() == {"modulate": 1}
+    pp, vp = decode.keypoints_from_heatmaps(*args, use_udp=True)
+    assert torch.equal(vk, vp)
+    assert float(((pk - pp).cpu() / per_px).abs().max()) <= 1e-3
+    for kw in (dict(use_udp=True, use_pallas=True), dict(use_udp=True), dict(unbiased=True),
+               dict(post_process="megvii"), dict(post_process="default"),
+               dict(post_process=None)):
+        pk, vk = decode.keypoints_from_heatmaps(*args, **kw)
+        pc, vc = decode.keypoints_from_heatmaps(heat, center, scale, **kw)
+        # megvii's scores come from a blur summed on each device: an ulp apart;
+        # DARK and megvii make NaN of the all-zero map on both
+        assert torch.allclose(vk.cpu(), vc, rtol=1e-6, atol=0, equal_nan=True), kw
+        nan = torch.isnan(pc)
+        assert torch.equal(torch.isnan(pk.cpu()), nan), kw
+        gap = ((pk.cpu() - pc) / per_px).abs()
+        assert float(torch.where(nan, 0.0, gap).max()) <= 1e-3, kw

@@ -144,7 +144,6 @@ def test_unsupported_configs_raise():
             check_exportable(cfg)
         with pytest.raises(NotImplementedError):      # before any weight is read
             vitpose_to_onnx(types.SimpleNamespace(cfg=cfg))
-    with pytest.raises(NotImplementedError, match="A12"):
-        ViTPose(stem)
-    with pytest.raises(NotImplementedError, match="A15"):
-        ViTPose(up)
+    for cfg in (stem, up):            # the port builds both; the ONNX export refuses them
+        with pytest.raises(NotImplementedError, match="no ONNX export"):
+            vitpose_to_onnx(ViTPose(cfg))

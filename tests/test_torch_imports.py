@@ -75,6 +75,12 @@ MODULES = [
     "easy_vitpose_tpu_torch.cli.export",
     "easy_vitpose_tpu_torch.cli.eval_coco",
     "easy_vitpose_tpu_torch.cli.download",
+    "easy_vitpose_tpu_torch.models.stem",
+    "easy_vitpose_tpu_torch.models.moe",
+    "easy_vitpose_tpu_torch.train.moe_step",
+    "easy_vitpose_tpu_torch.train.mesh_losses",
+    "easy_vitpose_tpu_torch.ops.group",
+    "easy_vitpose_tpu_torch.native",
 ]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|easy_vitpose_tpu)\b(?!_torch)", re.M)
 

@@ -103,3 +103,26 @@ def test_cli_runs_on_cuda_unless_asked(coco_dir, tmp_path):
         cli.main(["--data-root", coco_dir, "--model-name", "b", "--work-dir",
                   str(tmp_path / "w")])
     assert not (tmp_path / "w").exists()
+
+
+def test_stem_channels_from_yaml_cli(coco_dir, tmp_path):
+    """A yaml ``stem_channels`` trains the hybrid-stem model (here 4 stages,
+    the 16x12 grid): one epoch with ``--fused-block --fused-opt``, and its
+    ``last.npz`` holds JAX's stem leaves, which load back into a stem model.
+    The stem's math is held to JAX's in tests/test_torch_stem.py."""
+    from easy_vitpose_tpu_torch.configs import with_stem
+    from easy_vitpose_tpu_torch.convert.from_jax import state_dict_from_jax
+    from easy_vitpose_tpu_torch.models.vitpose import ViTPose
+    from easy_vitpose_tpu_torch.utils.checkpoint import load_params
+
+    work = tmp_path / "stem"
+    hist = run(coco_dir, work, "--fused-block", "--fused-opt", "--epochs", "1",
+               config={"stem_channels": "[8, 8, 16, 16]"})
+    assert len(hist) == 1 and np.isfinite(hist[0]["train_loss"])
+    tree = load_params(str(work / "last.npz"))
+    stem = tree["backbone"]["stem"]
+    assert [c["w"].shape for c in stem["convs"]] == [(3, 3, 3, 8), (3, 3, 8, 8),
+                                                     (3, 3, 8, 16), (3, 3, 16, 16)]
+    assert stem["proj_w"].shape == (16, 96) and "patch_w" not in tree["backbone"]
+    cfg = with_stem(no_drop_path(PCFG), (8, 8, 16, 16))
+    ViTPose(cfg).load_state_dict(state_dict_from_jax(tree, cfg))
