@@ -187,6 +187,19 @@ toolkit:
    K6a, K7, the norm kernel, K8 a step) against the same steps by hand;
    and the simple head at ViT-B: one serving forward against
    ``plain=True`` and one train step against the plain step (``stem:``);
+12d. ``parallel:``: (a) the sharded ViT-B f32 and ViT-L
+   int8-moment steps (``make_train_step_sharded``) on a one-rank NCCL group
+   against ``make_train_step``: the same launches, loss and params bit for
+   bit, ms of each and of the flat gradient all-reduce; (b) two spawned
+   ranks on the one card over gloo with CUDA tensors: the DP step of 64
+   crops (32 a rank) through the kernels against the one-process step,
+   2-way TP (6 heads, 1536 units a rank) at float32 against the plain
+   path; PP is named as left out (gloo sends no CUDA tensor, NCCL takes one
+   rank per device); (c) in the ``multistream:`` and ``eval_coco:`` phases,
+   the stream-parallel tick over two mesh entries naming the card, bit for
+   bit its blocks' own 4-stream ticks and, with the boxes given, the
+   8-stream tick (each pose kernel twice), and the eval gt-crops lane so
+   split, bit for bit the one-device lane;
 13. prints the optimizer's times (``optimizer``), the norm kernel's row
    (``grad_norm``: it replaces no Pallas kernel), one JSON line per kernel
    set (``kernels``, 20 rows: D1 and D2 after K4's; K3's, D1's and D2's
@@ -195,9 +208,9 @@ toolkit:
    the HTTP and the tools' measurements (``detector``, ``detector_stacked``,
    ``sampler_stacked``, ``vitinference``, ``multistream``, ``serve_http``,
    ``convert``, ``export``, ``eval_coco``: these three with the card; the
-   kernel rows count their launches too), the ``k4_front_door``, ``moe``
-   and ``stem`` lines (their launches counted in the rows too), the card
-   line, and last ``{"ok": true, "device": {...}}``.
+   kernel rows count their launches too), the ``k4_front_door``, ``moe``,
+   ``stem`` and ``parallel`` lines (their launches counted in the rows
+   too), the card line, and last ``{"ok": true, "device": {...}}``.
 
 The A/B of each flavor against the default, interleaved in one process,
 is ``scripts/bench_torch_breakdown.py --flavors``.
@@ -1411,6 +1424,236 @@ def run_accum_step(torch, model, rng, seed, dev, accum: int = 2, ema: float = 0.
             "max_grad_rel_err_vs_plain": max(grad_err.values()), "bn_rel_err_vs_plain": bn_err}
 
 
+# ----------------------------------------------------------------- parallel
+PAR_RANKS = 2          # spawned ranks of the two-rank checks, both on the one card
+PAR_CROPS = 16         # crops of the two-rank TP check (float32, plain blocks)
+PAR_TIMEOUT = 240.0    # seconds the spawned ranks may take
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+@contextlib.contextmanager
+def nccl_one_rank(torch, dev):
+    """A one-rank NCCL process group on ``dev`` for the block, destroyed
+    after it."""
+    import torch.distributed as dist
+    from easy_vitpose_tpu_torch.kernels import resolve_device
+    torch.cuda.set_device(resolve_device(dev))
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
+def states_equal(torch, a: dict, b: dict) -> bool:
+    return a.keys() == b.keys() and all(torch.equal(a[k], b[k]) for k in a)
+
+
+def run_sharded_one_rank(torch, model, rng, seed, dev, block_kernels, moments: str) -> dict:
+    """(a) The sharded step (``make_train_step_sharded``) over a one-rank
+    NCCL group against ``make_train_step`` from one state, batch and set of
+    drop-path masks: the same launches, loss and params bit for bit; ms per
+    step of each (alternating windows) and of the flat all-reduce alone."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.models.vit import draw_drop_path_masks
+    from easy_vitpose_tpu_torch.parallel import comm
+    from easy_vitpose_tpu_torch.parallel.mesh import make_mesh
+    from easy_vitpose_tpu_torch.train import fused_opt, step as tstep
+
+    cfg, B = model.cfg, SLOTS
+    depth, name = cfg.backbone.depth, f"parallel one-rank NCCL ViT-{cfg.name.upper()} {moments}"
+    batch = train_batch(torch, rng, B, dev)
+    masks = draw_drop_path_masks(cfg.backbone, B, torch.Generator(device=dev).manual_seed(seed),
+                                 dev)
+    tx = fused_opt.make_fused_adam(TRAIN_LR, max_grad_norm=TRAIN_CLIP, moment_dtype=moments)
+    want = {**dict.fromkeys(block_kernels, depth), fused_opt.KERNEL_NORM: 1,
+            (fused_opt.KERNEL_Q8 if moments == "int8" else fused_opt.KERNEL): 1}
+    with nccl_one_rank(torch, dev):
+        mesh = make_mesh(device=dev)
+        check(mesh.size == 1 and mesh.group is not None, f"{name}: mesh {mesh}")
+        steps = {"bare": tstep.make_train_step(cfg, tx, use_amp=True),
+                 "sharded": tstep.make_train_step_sharded(cfg, tx, mesh, use_amp=True)}
+        out, counts = {}, {}
+        for k, step in steps.items():
+            state = tstep.init_train_state(model, tx, device=dev)
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            out[k] = step(state, batch, drop_path_masks=masks)
+            torch.cuda.synchronize()
+            counts[k] = kernels.launch_counts()
+            del state
+        print(f"{name}: launches {counts['sharded']}")
+        check(counts["sharded"] == counts["bare"] == want,
+              f"{name} launched {counts}, expected {want}")
+        (sb, mb), (ss, msh) = out["bare"], out["sharded"]
+        check(torch.equal(mb["loss"], msh["loss"]), f"{name}: loss {msh['loss']} vs {mb['loss']}")
+        check(states_equal(torch, sb["params"], ss["params"]), f"{name}: params differ")
+        check(states_equal(torch, sb["bn_state"], ss["bn_state"]), f"{name}: BN statistics differ")
+        del sb
+
+        def window(step):
+            nonlocal ss
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(TRAIN_REPS):
+                ss, _ = step(ss, batch, drop_path_masks=masks)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / TRAIN_REPS
+
+        ms = {"bare": [], "sharded": []}
+        for _ in range(4):
+            for k in ("bare", "sharded"):
+                ms[k].append(window(steps[k]))
+        grads = [torch.randn_like(v) for v in ss["params"].values()]
+        n = sum(g.numel() for g in grads)
+        ar_ms = device_ms(torch, lambda: comm.all_reduce_mean_flat(grads, mesh.group), reps=20)
+        del ss, grads
+    res = {"launches": counts["sharded"], "bit_equal": True,
+           "ms_per_step": statistics.median(ms["sharded"]),
+           "bare_ms_per_step": statistics.median(ms["bare"]),
+           "flat_all_reduce_ms": ar_ms, "flat_all_reduce_floats": n}
+    print(f"{name}: bit-equal to make_train_step; {json.dumps(res)}")
+    return res
+
+
+def _parallel_rank(rank: int, world: int, store: str, seed: int, out_dir: str) -> None:
+    """(b) One spawned rank of the two-rank checks over gloo with CUDA
+    tensors, both ranks on cuda:0: DP and TP.  Rank 0 holds each against the
+    one-process path on the card and saves the summary; an exception is
+    saved for the parent, which fails."""
+    import traceback
+    import torch
+    try:
+        _parallel_rank_checks(torch, rank, world, store, seed, out_dir)
+    except BaseException:  # noqa: BLE001 — the parent reads it and fails
+        with open(os.path.join(out_dir, f"{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        sys.exit(1)
+
+
+def _parallel_rank_checks(torch, rank, world, store, seed, out_dir):
+    import torch.distributed as dist
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.models.vit import draw_drop_path_masks
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    from easy_vitpose_tpu_torch.parallel import tp
+    from easy_vitpose_tpu_torch.parallel.mesh import initialize_distributed, make_mesh, shard_batch
+    from easy_vitpose_tpu_torch.train import fused_opt, step as tstep
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev, cfg, slots, crops = torch.device("cuda", 0), get_model_config("coco", "b"), SLOTS, PAR_CROPS
+    initialize_distributed("file://" + store, world, rank, device=dev, backend="gloo")
+    model = init_params(cfg, seed).to(dev)
+    res = {}
+    # DP: the global batch of `slots` crops, slots / world a rank, through the kernels
+    mesh = make_mesh(device=dev)
+    batch = train_batch(torch, np.random.default_rng(seed + 30), slots, dev)
+    tx = fused_opt.make_fused_adam(TRAIN_LR, max_grad_norm=TRAIN_CLIP)
+    step = tstep.make_train_step_sharded(cfg, tx, mesh, use_amp=True)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    new, m = step(tstep.init_train_state(model, tx, device=dev), shard_batch(mesh, batch), gen)
+    if rank == 0:
+        masks = draw_drop_path_masks(cfg.backbone, slots,
+                                     torch.Generator(device=dev).manual_seed(seed), dev)
+        one, m1 = tstep.make_train_step(cfg, tx, use_amp=True)(
+            tstep.init_train_state(model, tx, device=dev), batch, drop_path_masks=masks)
+        grads = {}
+        for (k, mu), mu1 in zip(new["opt_state"].mu.items(), one["opt_state"].mu.values()):
+            s = 0.1 * min(1.0, TRAIN_CLIP / float(m["grad_norm"]))
+            s1 = 0.1 * min(1.0, TRAIN_CLIP / float(m1["grad_norm"]))
+            grads[k] = max_rel_err(torch, mu / s, mu1 / s1)[1]
+        res["dp"] = {"loss": float(m["loss"]), "one_process_loss": float(m1["loss"]),
+                     "loss_rel_err": abs(float(m["loss"]) - float(m1["loss"])) / float(m1["loss"]),
+                     "max_grad_rel_err": max(grads.values()),
+                     "worst": sorted(grads.items(), key=lambda kv: kv[1])[-2:]}
+        del one
+    del new
+    # TP: 2-way model parallel (6 heads, 1536 hidden units a rank), float32 plain blocks
+    sd = {k: v.float() for k, v in model.state_dict().items() if not k.endswith("tracked")}
+    params, bn = tstep.split_bn_state(sd)
+    rendered = tstep.render_batch_on_device(
+        {k: v[:crops] for k, v in batch.items()}, dev)
+    mesh2 = tp.make_mesh_2d(1, world, device=dev)
+    local = {k: v.detach().requires_grad_(True) for k, v in tp.shard_params(params, mesh2).items()}
+    heat, _ = tp.tp_vitpose_forward_train({**local, **bn}, rendered["images"], cfg, mesh2)
+    loss = tstep.joints_mse_loss(heat, rendered["targets"], rendered["target_weights"])
+    g = dict(zip(local, torch.autograd.grad(loss, list(local.values()))))
+    g = tp.gather_params(g, mesh2)
+    if rank == 0:        # the TP step has no drop-path
+        import dataclasses
+        cfg0 = dataclasses.replace(cfg, backbone=dataclasses.replace(cfg.backbone,
+                                                                     drop_path_rate=0.0))
+        l1, _, g1 = tstep.loss_and_grads(cfg0, params, bn, rendered, use_amp=False,
+                                         block_impl="xla")
+        errs = {k: max_rel_err(torch, g[k], g1[k])[1] for k in g1}
+        res["tp"] = {"loss_rel_err": abs(float(loss.detach()) - float(l1)) / float(l1),
+                     "max_grad_rel_err": max(errs.values()),
+                     "worst": sorted(errs.items(), key=lambda kv: kv[1])[-2:],
+                     "heads_per_rank": cfg.backbone.num_heads // world,
+                     "hidden_per_rank": local["backbone.blocks.0.mlp.fc1.weight"].shape[0]}
+    del g, local
+    # PP is left out here: this build's gloo cannot send a CUDA tensor (its
+    # send writes from the device pointer: "writev: Bad address"), and NCCL
+    # takes one rank per device.  The CPU gloo tests hold it.
+    torch.save(res, os.path.join(out_dir, f"{rank}.pt"))
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def run_parallel_ranks(torch, seed: int) -> dict:
+    """(b) PAR_RANKS spawned ranks on the one card over gloo with CUDA
+    tensors (NCCL takes one rank per device): the DP step of SLOTS crops
+    through the kernels against the one-process step (loss within 1e-4
+    relative, grads within STEP_GRAD_TOL) and 2-way TP against the plain
+    one-process path at float32 (loss within 1e-4, grads within
+    STEP_GRAD_TOL).  PP is named as left out: gloo sends no CUDA tensor."""
+    import multiprocessing as mp
+    import tempfile
+
+    t0 = time.perf_counter()
+    ctx = mp.get_context("spawn")
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=_parallel_rank,
+                             args=(r, PAR_RANKS, os.path.join(d, "store"), seed, d))
+                 for r in range(PAR_RANKS)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + PAR_TIMEOUT
+        for p in procs:
+            p.join(max(deadline - time.monotonic(), 0.0))
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(10)
+        errors = [open(os.path.join(d, f"{r}.err")).read() for r in range(PAR_RANKS)
+                  if os.path.exists(os.path.join(d, f"{r}.err"))]
+        check(not errors and all(p.exitcode == 0 for p in procs),
+              f"parallel ranks failed: exit codes {[p.exitcode for p in procs]}\n"
+              + "\n".join(errors))
+        results = [torch.load(os.path.join(d, f"{r}.pt"), weights_only=False)
+                   for r in range(PAR_RANKS)]
+    res = results[0]
+    res["seconds"] = time.perf_counter() - t0
+    dp, tpr = res["dp"], res["tp"]
+    check(dp["loss_rel_err"] <= 1e-4 and dp["max_grad_rel_err"] <= STEP_GRAD_TOL,
+          f"parallel DP on {PAR_RANKS} ranks disagrees with one process: {dp}")
+    check(tpr["loss_rel_err"] <= 1e-4 and tpr["max_grad_rel_err"] <= STEP_GRAD_TOL,
+          f"parallel TP disagrees with the plain path: {tpr}")
+    res["pp"] = {"left_out": "gloo sends no CUDA tensor on this torch build (its tcp "
+                             "transport writes from the device pointer: writev Bad address); "
+                             "NCCL takes one rank per device; held by the CPU gloo tests"}
+    print(f"parallel ranks: {json.dumps(res)}")
+    return res
+
+
 def run_pose_steps(torch, model, rng, reps, dev):
     """The main path at each serving dtype; returns launches and times."""
     from easy_vitpose_tpu_torch import kernels
@@ -2117,7 +2360,7 @@ def hold_fused_to_plain(torch, msf, det_plain, model, frames, slots: int) -> dic
     from easy_vitpose_tpu_torch.pipeline import pose_step as ps
     from easy_vitpose_tpu_torch.pipeline.fused_detect import detect_pose_multi
     det = msf.detector
-    dev_frames = msf._upload(frames)
+    (dev_frames,) = msf._upload(frames)           # one block: the unsharded tick
     geom = det.geometry(tuple(dev_frames.shape[1:3]))
     key = ("detect_pose_multi", tuple(dev_frames.shape), slots, float(msf._det_gate))
     replay = det.graphs.run(key, None, dev_frames)
@@ -2254,6 +2497,7 @@ def run_multistream(torch, frame_np, params_x, seed, dev) -> dict:
         for a, b in zip(want, got):
             check(all(same_results(x, y) for x, y in zip(a, b)),
                   f"{name}: pipelined results differ from sync ones a tick late")
+    res["sharded"] = check_sharded_ticks(torch, model, det, det_f, ticks, slots, dev)
     # timing of each mode
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2269,6 +2513,87 @@ def run_multistream(torch, frame_np, params_x, seed, dev) -> dict:
     print(f"multistream: fused divergence {json.dumps(res['fused_divergence'])}, held "
           f"{json.dumps(held)}, peak {res['peak_memory_gib']:.2f} GiB")
     return res
+
+
+def check_sharded_ticks(torch, model, det, det_f, ticks, slots: int, dev) -> dict:
+    """(c) Stream-parallel ticks (``MultiStreamPose(mesh=)``) over a
+    ``batch`` mesh whose two entries name the one card, a block of STACK / 2
+    streams each.  Every sharded tick, two-program and single-dispatch, is
+    bit for bit the ticks of two unsharded STACK / 2-stream instances, one
+    per block (the same programs at the blocks' shapes), and launches what
+    the two launch (a fused tick's coast rows ride one fallback pose step
+    for all blocks, where each block alone runs its own).  With the boxes
+    given (the unsharded STACK-stream
+    detector's), the sharded pose tick is bit for bit the unsharded
+    STACK-stream tick, each kernel launched twice: the pose step is
+    batch-invariant.  The detector is not: cuDNN's bf16 convolutions of
+    YOLO round differently at batch STACK / 2 than at STACK (the largest
+    gap of its raw outputs is reported), so a detection tick's sharded and
+    unsharded detections may differ."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.detect import yolo
+    from easy_vitpose_tpu_torch.parallel.mesh import make_mesh
+    from easy_vitpose_tpu_torch.pipeline.stream import MultiStreamPose
+
+    mesh = make_mesh(axis="batch", devices=[dev, dev])
+    half = STACK // 2
+
+    def mk(detector, n=STACK, **k):
+        return MultiStreamPose(model, detector=detector, n_streams=n,
+                               max_people_per_stream=slots, **k)
+
+    def tick(ms, *a):
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        r = ms.step(*a)
+        torch.cuda.synchronize()
+        return r, kernels.launch_counts()
+
+    out = {"mesh": [str(d) for d in mesh.devices]}
+    for name, k in (("two_program", {}), ("single_dispatch", {"single_dispatch": True})):
+        d = det_f if k else det
+        sharded, blocks = mk(d, mesh=mesh, **k), [mk(d, half, **k) for _ in range(2)]
+        for t, frames in enumerate(ticks):
+            r, counts = tick(sharded, frames)
+            want, want_counts = [], {}
+            for i, b in enumerate(blocks):
+                rb, cb = tick(b, frames[i * half:(i + 1) * half])
+                want += rb
+                add_counts(want_counts, cb)
+            check(all(same_results(x, y) for x, y in zip(want, r)),
+                  f"sharded {name} tick {t}: results differ from its blocks' unsharded ticks")
+            if k:   # the coast rows of every block ride one fallback pose step, as JAX's
+                fallbacks = want_counts.get("sampler", 0) - 2
+                expect = {**want_counts, "sampler": 2 + min(fallbacks, 1)}
+                for n in ("block_q8", "decode"):
+                    expect[n] = want_counts[n] // want_counts["sampler"] * expect["sampler"]
+            else:
+                expect = want_counts
+            check(counts == expect,
+                  f"sharded {name} tick {t}: launched {counts}, its blocks {want_counts}")
+        out[name] = {"bit_equal_to_blocks": True, "launches_per_tick": counts}
+    # the pose tick with the boxes given: the unsharded STACK-stream tick's bits
+    ref, sharded = mk(det), mk(det, mesh=mesh)
+    for t, frames in enumerate(ticks):
+        stack = torch.from_numpy(np.stack(frames)).to(dev)
+        boxes = ref._boxes_from_detect(det.detect_batch_async(stack), tuple(stack.shape[1:3]))
+        (a, ca), (b, cb) = tick(ref, frames, boxes), tick(sharded, frames, boxes)
+        check(all(same_results(x, y) for x, y in zip(a, b)),
+              f"sharded pose tick {t} with boxes given: results differ from the unsharded tick")
+        check(cb == {n: 2 * c for n, c in ca.items()},
+              f"sharded pose tick {t}: launched {cb}, unsharded {ca}")
+    out["boxes_given"] = {"bit_equal": True, "launches_per_tick": cb}
+    # the detector's batch dependence: YOLO's raw outputs, STACK frames vs two blocks
+    x = yolo.letterbox_input(stack, det.geometry(tuple(stack.shape[1:3])), det.dtype)
+    x = x.permute(0, 2, 3, 1)
+    with torch.no_grad():
+        whole = yolo.yolo_forward(det.model, x)
+        parts = [torch.cat(p) for p in zip(yolo.yolo_forward(det.model, x[:half]),
+                                           yolo.yolo_forward(det.model, x[half:]))]
+    out["detector_batch_max_abs_diff"] = max(float((a.float() - b.float()).abs().max())
+                                             for a, b in zip(whole, parts))
+    print(f"multistream sharded: {json.dumps(out)}")
+    return out
 
 
 def run_serve_http(torch, pose, det_path, frame_np) -> dict:
@@ -2916,6 +3241,19 @@ def run_eval_coco(torch, model, det, seed: int, dev) -> dict:
                     add_counts(res["launches"], g["launches"])
                 print(f"eval_coco {lane}: {json.dumps(row)}")
                 res[lane] = row
+            # (c) the gt-crops lane split over two mesh entries on the one card
+            argv = base + lanes["gt_crops"] + ["--devices", str(dev), str(dev), "--out",
+                                               os.path.join(d, "gt_crops_sharded.json")]
+            sh = run_eval_lane(torch, argv, spied=False)
+            one = res["gt_crops"]
+            check(sh["results"] == json.load(open(os.path.join(d, "gt_crops.json"))),
+                  "sharded gt-crops lane: results differ from one device")
+            per = {n: c / one["batches"] for n, c in sh["launches"].items()}
+            check(per == {"block_q8": 24}, f"sharded gt-crops lane: launched {per}")
+            res["gt_crops_sharded"] = {"bit_equal": True, "launches_per_batch": per,
+                                       "s": sh["s"], "crops_per_s": len(anns) / sh["s"]}
+            add_counts(res["launches"], sh["launches"])
+            print(f"eval_coco gt_crops_sharded: {json.dumps(res['gt_crops_sharded'])}")
         finally:
             eval_coco.cv2, dataset.cv2 = real_cv2
     res["phase_s"] = time.perf_counter() - t_phase
@@ -3834,6 +4172,8 @@ def main() -> int:
                                    (fbt.FWD, fbt.BWD_MLP_MS, fbt.BWD_ATTN_SAVED),
                                    flavor={"EVT_TRAIN_ATTN": "saved", "EVT_TRAIN_MLP": "saved"})
     accum = run_accum_step(torch, model, rng2, args.seed, dev)
+    par_b = run_sharded_one_rank(torch, model, rng2, args.seed, dev,
+                                 (fbt.FWD, fbt.BWD_MLP, fbt.BWD_ATTN), "f32")
     del model
     model_l = init_params(get_model_config("coco", "l"), args.seed).to(dev)
     meas.update(check_wide_kernels(torch, model_l, rng, dev))
@@ -3850,6 +4190,9 @@ def main() -> int:
         torch, model_l, rng2, args.seed, dev,
         (fbt.FWD, fbt.BWD_MLP_DX_SAVE_MS, fbt.BWD_MLP_DW_SAVED, fbt.BWD_ATTN), moments="int8",
         flavor={"EVT_TRAIN_MLP": "saved"})
+    par_l = run_sharded_one_rank(torch, model_l, rng2, args.seed, dev,
+                                 (fbt.FWD, fbt.BWD_MLP_DX_SAVE, fbt.BWD_MLP_DW_SAVED, fbt.BWD_ATTN),
+                                 "int8")
     del model_l
     torch.cuda.empty_cache()
     loop = run_train_loop(torch, args.seed, dev, train["ms_per_step"])
@@ -3861,9 +4204,14 @@ def main() -> int:
     moe_res = run_moe(torch, args.seed, dev)
     torch.cuda.empty_cache()
     stem_res = run_stem(torch, args.seed, dev)
-    phase_counts = {}          # the moe, stem and K4 front-door phases' launches
-    for counts in (moe_res["launches"], stem_res["launches"], k4_door["launches"]):
+    torch.cuda.empty_cache()
+    par_ranks = run_parallel_ranks(torch, args.seed)
+    phase_counts = {}          # the moe, stem, K4 front-door and parallel phases' launches
+    for counts in (moe_res["launches"], stem_res["launches"], k4_door["launches"],
+                   par_b["launches"], par_l["launches"]):
         add_counts(phase_counts, counts)
+    for name in ("two_program", "single_dispatch", "boxes_given"):
+        add_counts(phase_counts, ms["sharded"][name]["launches_per_tick"])
 
     rows = []
     spec = (("K1 fused_block bf16", "bf16", "block.cu", "models/fused_block.py:51", "bf16", "block"),
@@ -3892,7 +4240,8 @@ def main() -> int:
     rows[1]["launches"] += exported["launches"]["fp32"].get("block", 0)
     for i, counter in ((2, "block_q8"), (3, "sampler"), (5, "decode")):
         rows[i]["launches"] += new_paths.get(counter, 0)
-    for i, counter in ((0, "block"), (2, "block_q8"), (4, "modulate")):   # all bf16 K1
+    for i, counter in ((0, "block"), (2, "block_q8"), (3, "sampler"), (4, "modulate"),
+                       (5, "decode")):   # all bf16 K1
         rows[i]["launches"] += phase_counts.get(counter, 0)
     d = det["configs"]["n320_bf16_square"]              # the detector of the main path
     for name, src, replaces, counter, pre in (
@@ -3901,7 +4250,8 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": f"easy_vitpose_tpu_torch/csrc/{src}",
                      "replaces": f"easy_vitpose_tpu/{replaces}",
                      "launches": (vi["int8_image"]["launches_per_frame"].get(counter, 0)
-                                  + int(tick.get(counter, 0)) + new_paths.get(counter, 0)),
+                                  + int(tick.get(counter, 0)) + new_paths.get(counter, 0)
+                                  + phase_counts.get(counter, 0)),
                      "max_abs_err": d[f"{pre}_err"], "ms": d[f"{pre}_ms"],
                      "plain_ms": d[f"{pre}_plain_ms"], "bound_ms": d[f"{pre}_bound"][0],
                      "bound_by": d[f"{pre}_bound"][1], "library_ms": None})
@@ -3971,6 +4321,10 @@ def main() -> int:
     print("k4_front_door:", json.dumps(k4_door), "|", card)
     print("moe:", json.dumps({k: v for k, v in moe_res.items() if k != "launches"}), "|", card)
     print("stem:", json.dumps({k: v for k, v in stem_res.items() if k != "launches"}), "|", card)
+    print("parallel:", json.dumps({
+        "one_rank_nccl": {"vit_b_f32": par_b, "vit_l_int8": par_l},
+        "two_ranks_gloo_cuda": par_ranks, "sharded_serving": ms["sharded"],
+        "sharded_eval": ev["gt_crops_sharded"]}), "|", card)
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

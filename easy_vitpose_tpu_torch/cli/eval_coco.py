@@ -16,9 +16,13 @@ CUDA unless ``--device cpu`` is given:
 
 ``--plain`` runs every kernel's plain version (the comparison the card's
 checks make).  ``main(argv, model_cfg=)`` hands a custom config to both
-lanes (JAX's image lane builds its own from ``--model-name``).  JAX's
-data-parallel gt-crops branch is not ported (ROADMAP A14): one device runs
-every batch.
+lanes (JAX's image lane builds its own from ``--model-name``).
+
+Data-parallel gt crops (JAX's branch over the local mesh): where the local
+``batch`` mesh (every local CUDA device, or ``--devices``) has more than
+one entry and divides B, each batch is split over its devices, each with a
+replica of the model running its rows' forward (K1 or K2 blocks on the
+card) and decode; the host gathers the rows in order.
 
 Usage:
   python -m easy_vitpose_tpu_torch.cli.eval_coco --ann ann.json --imgdir val2017 \\
@@ -86,6 +90,9 @@ def main(argv=None, model_cfg=None):
                    help="torch device; default CUDA ('cpu' runs the kernels' plain versions)")
     p.add_argument("--plain", action="store_true",
                    help="run every kernel's plain version on the device (for checks)")
+    p.add_argument("--devices", nargs="+", default=None,
+                   help="with --gt-crops-batched: the local mesh's entries (default: every "
+                        "local CUDA device; the --device alone where it is the CPU)")
     args = p.parse_args(argv)
 
     with open(args.ann) as f:
@@ -217,6 +224,19 @@ def _gt_crops_batched(args, model_cfg=None):
     net = model_from_params(params, cfgm, task=args.task, dataset=dataset)
     model = serving_copy(net, SERVING[args.dtype]).to(device)
     in_dtype = compute_dtype(model)
+    B = args.gt_crops_batched
+    # data-parallel over the local mesh where it divides the batch: a
+    # replica per device, each batch's rows in per-device blocks
+    shards = [(device, model)]
+    if args.devices is not None or device.type == "cuda":
+        from ..parallel.mesh import make_mesh
+        mesh = make_mesh(axis="batch", devices=args.devices)
+        if mesh.size > 1 and B % mesh.size == 0:
+            replicas = {device: model}
+            for d in mesh.devices:
+                if d not in replicas:
+                    replicas[d] = serving_copy(net, SERVING[args.dtype]).to(d)
+            shards = [(d, replicas[d]) for d in mesh.devices]
     fp = None
     if args.flip_test:
         from ..skeletons import flip_pairs as _flip_pairs
@@ -228,24 +248,31 @@ def _gt_crops_batched(args, model_cfg=None):
         ann_file=args.ann, is_train=False, num_joints=K)
     if args.limit:
         ds.data = ds.data[:args.limit]  # --limit counts gt instances here
-    B = args.gt_crops_batched
     results = []
     t0 = time.perf_counter()
     done = 0
+    per = B // len(shards)
     for b in batch_iterator(ds, B, shuffle=False, drop_last=False, prefetch=2):
         n = len(b["images"])
         imgs = b["images"]
+        metas = b["meta"]
+        centers = np.stack([m["center"] for m in metas]).astype(np.float32)
+        scales = (np.stack([m["scale"] for m in metas]) * PIXEL_STD).astype(np.float32)
         if n < B:  # keep the forward's shape fixed
             imgs = np.concatenate([imgs, np.repeat(imgs[-1:], B - n, 0)])
-        x = torch.from_numpy(np.ascontiguousarray(imgs)).to(device).to(in_dtype)
-        with torch.no_grad():
-            heat = forward_heatmaps(model, x, fp, args.plain)[:n]
-            metas = b["meta"]
-            centers = np.stack([m["center"] for m in metas]).astype(np.float32)
-            scales = (np.stack([m["scale"] for m in metas]) * PIXEL_STD).astype(np.float32)
-            preds, maxv = keypoints_from_heatmaps_udp(heat, torch.from_numpy(centers).to(device),
-                                                      torch.from_numpy(scales).to(device))
-        preds, maxv = preds.cpu().numpy(), maxv.cpu().numpy()
+            centers = np.concatenate([centers, np.repeat(centers[-1:], B - n, 0)])
+            scales = np.concatenate([scales, np.repeat(scales[-1:], B - n, 0)])
+        outs = []
+        for j, (dev, rep) in enumerate(shards):
+            rows = slice(j * per, (j + 1) * per)
+            x = torch.from_numpy(np.ascontiguousarray(imgs[rows])).to(dev).to(in_dtype)
+            with torch.no_grad():
+                heat = forward_heatmaps(rep, x, fp, args.plain)
+                outs.append(keypoints_from_heatmaps_udp(
+                    heat, torch.from_numpy(centers[rows]).to(dev),
+                    torch.from_numpy(scales[rows]).to(dev)))
+        preds = np.concatenate([p_.cpu().numpy() for p_, _ in outs])[:n]
+        maxv = np.concatenate([m_.cpu().numpy() for _, m_ in outs])[:n]
         for i, m in enumerate(metas):
             flat = np.concatenate([preds[i], maxv[i]], -1).ravel()
             results.append({

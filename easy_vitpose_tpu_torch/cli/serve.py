@@ -6,7 +6,8 @@ Port of ``easy_vitpose_tpu/cli/serve.py`` with the same parser, on
 detector program and one pose step per tick, and the pipelined schedule
 hides host tracking under the card's work.  Runs on CUDA unless
 ``--device cpu`` is given.  Video input needs cv2.  ``--shard-streams``
-(streams across devices) is not ported yet (ROADMAP A14) and exits.
+puts the streams in per-device blocks over a ``batch`` mesh of the local
+CUDA devices (or of ``--devices``), a model and detector replica on each.
 
 Usage:
   python -m easy_vitpose_tpu_torch.cli.serve --inputs a.mp4 b.mp4 c.mp4 \\
@@ -52,7 +53,11 @@ def build_parser():
                         "(pipeline/fused_detect.py): IDs identical, pose crops use the "
                         "raw detection boxes instead of the Kalman-updated ones")
     p.add_argument("--shard-streams", action="store_true",
-                   help="not ported yet (ROADMAP A14)")
+                   help="shard the streams across the local devices (a replica on each; "
+                        "the stream count must divide evenly)")
+    p.add_argument("--devices", nargs="+", default=None,
+                   help="the mesh's entries for --shard-streams (default: every local "
+                        "CUDA device; the --device once where it is the CPU)")
     p.add_argument("--device", default=None,
                    help="torch device to run on; default CUDA ('cpu' runs the kernels' "
                         "plain versions)")
@@ -64,9 +69,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.shard_streams:
-        raise SystemExit("--shard-streams is not ported to the PyTorch package yet "
-                         "(ROADMAP A14); run on one device without it")
     from ..pipeline.inference import load_pose_model
     from ..pipeline.stream import MultiStreamPose
 
@@ -85,11 +87,17 @@ def main(argv=None):
         detector = YoloDetector(args.yolo, imgsz=args.yolo_size, classes=(0,), conf=det_conf,
                                 dtype=dtype, rect=True, device=device)
 
+    mesh = None
+    if args.shard_streams:
+        from ..parallel.mesh import make_mesh
+        devices = args.devices or ([device] if device.type == "cpu" else None)
+        mesh = make_mesh(axis="batch", devices=devices)
+
     ms = MultiStreamPose(model, detector=detector, n_streams=len(args.inputs),
                          yolo_step=args.yolo_step,
                          max_people_per_stream=args.max_people_per_stream,
                          smooth=args.smooth, tracker=args.tracker,
-                         single_dispatch=args.single_dispatch)
+                         single_dispatch=args.single_dispatch, mesh=mesh)
 
     readers = [iter(VideoReader(p)) for p in args.inputs]
     logs = [[] for _ in args.inputs]

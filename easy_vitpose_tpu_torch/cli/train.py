@@ -7,10 +7,18 @@ head final layer on shape mismatch), optional backbone freeze, then the
 epoch loop.  Runs on CUDA unless ``--device cpu`` is given; the dataset
 reads its images with cv2.
 
+Under ``torchrun`` (``RANK``, ``WORLD_SIZE`` and ``LOCAL_RANK`` set) each
+process trains on ``cuda:LOCAL_RANK`` in an NCCL group (with ``--device
+cpu``, on the CPU in a gloo group), data-parallel (``train/loop.py``):
+``--batch-size`` is the global batch.  The main process picks the session
+directory and writes the files.  Without ``torchrun`` it is one process.
+
 Usage:
   python -m easy_vitpose_tpu_torch.cli.train --data-root datasets/COCO \
       --model-name b --dataset coco [--resume-from ckpt.npz] \
       [--config config.yaml] [--freeze-backbone] [--fused-block --fused-opt]
+  torchrun --nproc-per-node 8 -m easy_vitpose_tpu_torch.cli.train ... \
+      --fused-block --fused-opt --batch-size 512
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import os
 from ..configs import get_model_config, with_stem
 from ..kernels import resolve_device
 from ..models.vitpose import init_params
+from ..parallel import mesh as meshlib
 from ..skeletons import flip_pairs, num_keypoints
 from ..train.dataset import CocoPoseDataset
 from ..train.loop import partial_load_for_finetune, train_model
@@ -36,14 +45,25 @@ def next_session_dir(base: str = "runs/train") -> str:
     return path
 
 
-def _fused_train_impl(device) -> str:
+def _session_dir() -> str:
+    """A new session directory, made by the main process and shared with
+    the other ranks of a process group."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return next_session_dir()
+    path = [next_session_dir() if dist.get_rank() == 0 else None]
+    dist.broadcast_object_list(path, 0)
+    return path[0]
+
+
+def _fused_train_impl(device, say=print) -> str:
     """--fused-block's implementation on ``device``: the training block's
     kernels on CUDA, their plain versions on the CPU."""
     if device.type == "cuda":
         return "pallas_train"
-    print(">>> --fused-block on a non-CUDA device: running the fused "
-          "kernels' plain versions (correct but slow; intended "
-          "for functional verification only)")
+    say(">>> --fused-block on a non-CUDA device: running the fused "
+        "kernels' plain versions (correct but slow; intended "
+        "for functional verification only)")
     return "pallas_train_interpret"
 
 
@@ -121,7 +141,14 @@ def main(argv=None):
                    help="torch device to train on; default CUDA ('cpu' runs the kernels' "
                         "plain versions)")
     args = p.parse_args(argv)
-    device = resolve_device(args.device)
+    if int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        # one process per device: cuda:LOCAL_RANK in an NCCL group, or
+        # the CPU in a gloo group where asked
+        device = meshlib.local_device(args.device)
+        meshlib.initialize_distributed(device=device)
+    else:
+        device = resolve_device(args.device)
+    say = print if meshlib.is_main_process() else (lambda *a, **k: None)
 
     overrides = {}
     if args.config:
@@ -133,7 +160,7 @@ def main(argv=None):
         # the hybrid CNN stem (reference HybridEmbed, ``models/stem.py``):
         # yaml ``stem_channels: [64, 128, 256, 512]`` replaces PatchEmbed
         cfg = with_stem(cfg, overrides["stem_channels"])
-    work_dir = args.work_dir or next_session_dir()
+    work_dir = args.work_dir or _session_dir()
     from ..train import presets
     preset_fn = (presets.from_scratch if args.preset == "from-scratch"
                  else presets.finetune)
@@ -141,7 +168,7 @@ def main(argv=None):
         total_epochs=overrides.get("total_epochs", args.epochs),
         batch_size=overrides.get("batch_size", args.batch_size),
         use_amp=overrides.get("use_amp", not args.no_amp),
-        block_impl=(_fused_train_impl(device) if args.fused_block
+        block_impl=(_fused_train_impl(device, say) if args.fused_block
                     or overrides.get("fused_block") else "xla"),
         save_interval=overrides.get("save_interval", 10),
         freeze_backbone=args.freeze_backbone or
@@ -195,7 +222,7 @@ def main(argv=None):
             from ..utils.checkpoint import load_params
             loaded = state_dict_from_jax(load_params(args.resume_from), cfg)
         params = partial_load_for_finetune(params, loaded)
-        print(f">>> resumed from {args.resume_from}")
+        say(f">>> resumed from {args.resume_from}")
 
     K = num_keypoints(args.dataset) if args.dataset != "custom" else cfg.head.num_keypoints
     fp = [list(pr) for pr in flip_pairs(args.dataset)]
@@ -206,22 +233,24 @@ def main(argv=None):
                                seed=settings.seed, **ds_kw)
     val_ds = CocoPoseDataset(args.data_root, args.val_version,
                              is_train=False, ann_file=args.val_ann, **ds_kw)
-    print(f">>> train {len(train_ds)} instances, val {len(val_ds)}; "
-          f"work dir {work_dir}")
+    say(f">>> train {len(train_ds)} instances, val {len(val_ds)}; "
+        f"work dir {work_dir}")
 
     if args.resilient:
         from ..train.resilient import train_model_resilient
         out = train_model_resilient(params, cfg, train_ds, val_ds, settings, device=device)
     else:
         out = train_model(params, cfg, train_ds, val_ds, settings, device=device)
+    if not meshlib.is_main_process():
+        return
     with open(os.path.join(work_dir, "history.json"), "w") as f:
         json.dump(out["history"], f, indent=1)
     if out.get("preempted"):
-        print(f">>> preempted; resume with "
-              f"--resume-state {os.path.join(work_dir, 'train_state')} "
-              f"--work-dir {work_dir}")
+        say(f">>> preempted; resume with "
+            f"--resume-state {os.path.join(work_dir, 'train_state')} "
+            f"--work-dir {work_dir}")
     else:
-        print(f">>> done; checkpoints in {work_dir}")
+        say(f">>> done; checkpoints in {work_dir}")
 
 
 if __name__ == "__main__":

@@ -42,6 +42,7 @@ float32 bias (promoting), rounds back to bf16 and then applies SiLU, as
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import math
@@ -715,6 +716,18 @@ class YoloDetector:
         self.plain = plain
         from ..pipeline.graphs import GraphCache
         self.graphs = GraphCache()
+
+    def on(self, device) -> "YoloDetector":
+        """A replica on ``device`` (this detector where it is there
+        already): the same settings, its weights copied there, its own
+        graphs."""
+        device = kernels.resolve_device(device)
+        if device == self.device:
+            return self
+        from ..pipeline.graphs import GraphCache
+        r = copy.copy(self)
+        r.device, r.model, r.graphs = device, copy.deepcopy(self.model).to(device), GraphCache()
+        return r
 
     @property
     def graphed(self) -> bool:

@@ -90,16 +90,27 @@ def head_forward_params(params, x: torch.Tensor, cfg: HeadConfig, prefix: str = 
 
 
 def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
-                     running_mean: torch.Tensor, running_var: torch.Tensor):
+                     running_mean: torch.Tensor, running_var: torch.Tensor, group=None):
     """Train-mode BatchNorm over NCHW, as ``head.py::batch_norm(train=True)``:
     float32 batch statistics, the biased variance to normalize and the
     unbiased one (n / (n - 1)) in the running average, momentum 0.1.
     Returns (y in x's dtype, new running mean, new running var); the new
-    statistics carry no gradient."""
+    statistics carry no gradient.
+
+    With a process ``group`` the statistics are the global batch's, as
+    JAX's ``batch_norm(axis_name=)``: the mean of the ranks' means, then the
+    mean of their ``E[(x - mean)^2]`` around it, and ``n`` times the group's
+    size in the unbiased variance; the all-reduces are differentiated."""
     xf = x.float()
-    mean = xf.mean((0, 2, 3))
-    var = (xf - mean[:, None, None]).square().mean((0, 2, 3))
     n = x.shape[0] * x.shape[2] * x.shape[3]
+    if group is None:
+        mean = xf.mean((0, 2, 3))
+        var = (xf - mean[:, None, None]).square().mean((0, 2, 3))
+    else:
+        from ..parallel.comm import all_reduce_mean, world
+        mean = all_reduce_mean(xf.mean((0, 2, 3)), group)
+        var = all_reduce_mean((xf - mean[:, None, None]).square().mean((0, 2, 3)), group)
+        n *= world(group)
     with torch.no_grad():
         unbiased = var * n / torch.full_like(var, max(n - 1, 1))
         new_mean = (1 - BN_MOMENTUM) * running_mean + BN_MOMENTUM * mean
@@ -109,19 +120,22 @@ def batch_norm_train(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return y.to(x.dtype), new_mean, new_var
 
 
-def head_forward_train(params, x: torch.Tensor, cfg: HeadConfig, prefix: str = "keypoint_head"):
+def head_forward_train(params, x: torch.Tensor, cfg: HeadConfig, prefix: str = "keypoint_head",
+                       group=None):
     """(B, D, Hp, Wp) features -> ((B, K, 4*Hp, 4*Wp) heatmaps, new BN
     running statistics by state-dict name), with train-mode BatchNorm;
     ``params`` maps the ``keypoint_head.*`` state-dict names (running
     statistics included) to tensors (``{prefix}.*`` for another head, such
     as a ViTPose+ associate head).  The final conv's bias is added after
-    the conv, in the working dtype, as the JAX head adds it."""
+    the conv, in the working dtype, as the JAX head adds it.  ``group``:
+    the global BatchNorm statistics of :func:`batch_norm_train`."""
     new_bn = {}
     for i, k in enumerate(cfg.deconv_kernels):
         dc, bn = f"{prefix}.deconv_layers.{3 * i}", f"{prefix}.deconv_layers.{3 * i + 1}"
         x = F.conv_transpose2d(x, params[f"{dc}.weight"], stride=2, padding=k // 2 - 1)
         y, mean, var = batch_norm_train(x, params[f"{bn}.weight"], params[f"{bn}.bias"],
-                                        params[f"{bn}.running_mean"], params[f"{bn}.running_var"])
+                                        params[f"{bn}.running_mean"], params[f"{bn}.running_var"],
+                                        group)
         new_bn[f"{bn}.running_mean"], new_bn[f"{bn}.running_var"] = mean, var
         x = torch.relu(y)
     if cfg.upsample > 1:

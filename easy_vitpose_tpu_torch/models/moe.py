@@ -171,14 +171,15 @@ def vitpose_plus_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 def vitpose_plus_forward_train(params: Mapping[str, torch.Tensor], x: torch.Tensor,
                                cfg: ModelConfig, task: str, block_impl: str = "pallas_train",
-                               plain: bool = False):
+                               plain: bool = False, group=None):
     """The training forward of one task over ``params`` (the head's BN
     running statistics included): -> ((B, K, 64, 48) heatmaps, the new BN
     running statistics of ``task``'s head by name).  ``block_impl``:
     "pallas_train" (the training block: K5-K7 on the card, their plain
     versions on the CPU or with ``plain=True``), "pallas_train_interpret"
     (the plain versions on any device) or "xla" (:func:`moe_block` under
-    autograd).  No drop-path: the MoE recipe has none."""
+    autograd).  No drop-path: the MoE recipe has none.  ``group``: the
+    head's global BatchNorm statistics over a data-parallel process group."""
     from .fused_block_train import fused_block_train
 
     if block_impl not in TRAIN_BLOCK_IMPLS:
@@ -200,7 +201,7 @@ def vitpose_plus_forward_train(params: Mapping[str, torch.Tensor], x: torch.Tens
     Hp, Wp = bb.patch_shape
     feats = tokens.reshape(B, Hp, Wp, bb.embed_dim).permute(0, 3, 1, 2)
     return head_forward_train(params, feats, task_head_config(cfg, params, task),
-                              head_prefix(task))
+                              head_prefix(task), group=group)
 
 
 def plus_params(sd: Mapping, device=None, dtype: torch.dtype = torch.float32) -> Tensors:

@@ -53,15 +53,16 @@ def vitpose_forward(model: ViTPose, x: torch.Tensor, *, plain: bool = False) -> 
 
 def vitpose_forward_train(params, x: torch.Tensor, cfg: ModelConfig, *,
                           drop_path_masks=None, generator=None,
-                          block_impl: str = "fused_train", plain: bool = False):
+                          block_impl: str = "fused_train", plain: bool = False, group=None):
     """Training forward over ``params`` (state-dict names to tensors, the
     head's BN running statistics included): (B, 256, 192, 3) normalized NHWC
     crops -> ((B, K, 64, 48) heatmaps, new BN running statistics by name).
     Drop-path, ``block_impl`` and ``plain``: see
-    :func:`..models.vit.vit_forward_train`."""
+    :func:`..models.vit.vit_forward_train`; ``group``: the head's global
+    BatchNorm statistics over a data-parallel process group."""
     feats = vit_forward_train(params, x, cfg.backbone, drop_path_masks=drop_path_masks,
                               generator=generator, block_impl=block_impl, plain=plain)
-    return head_forward_train(params, feats.permute(0, 3, 1, 2), cfg.head)
+    return head_forward_train(params, feats.permute(0, 3, 1, 2), cfg.head, group=group)
 
 
 def cast_params(model: ViTPose, dtype: torch.dtype) -> ViTPose:

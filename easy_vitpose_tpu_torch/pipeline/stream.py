@@ -11,11 +11,26 @@ crop).  On the card the batched detector is a CUDA graph replay
 (``pipeline/fused_detect.py::detect_pose_multi``); the bare pose step of a
 two-program tick runs eagerly, as ``pose_step`` does everywhere.
 
-The mesh-sharded forms of JAX's class (``mesh=``, ``_build_sharded_pose``,
-``_sharded_fused``) are not ported (ROADMAP A14).
+Stream-parallel serving (``mesh=``, JAX's ``_build_sharded_pose`` and
+``_sharded_fused``) runs over a ``batch`` mesh of local devices
+(``parallel/mesh.py``): the streams go in per-device blocks, as JAX's slot
+layout has them (slot ``si * max_pp + j`` of stream si lies in its
+device's block, so each crop's frame is on its device), and each device
+holds a replica of the pose model and the detector and runs its block's
+detector (D1 and D2 over its frames), pose step (K3, the blocks, the fused
+decode) or fused tick; the host gathers the blocks in order.  Without a
+mesh the class runs one block on the model's device.  A sharded tick is
+bit for bit the unsharded ticks of its blocks.  Given the same boxes, its
+pose step is also the whole stack's unsharded tick, bit for bit (the pose
+kernels are batch-invariant); its detections are the detector's over each
+block, which on the card may round differently from the whole stack's
+(cuDNN picks the convolutions' algorithms by batch).  The rare coast
+fallback of a fused tick runs unsharded on the first device, as JAX's
+does.
 """
 from __future__ import annotations
 
+import copy
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
@@ -28,8 +43,17 @@ from ..track.sort import Sort, track_and_cap
 from .pose_step import bucket_slots, pose_multi_frame
 
 
+class _Shard:
+    """One block of the tick's streams: the device, its pose model and its
+    detector (replicas where the device is not the model's)."""
+
+    def __init__(self, device: torch.device, model: ViTPose, detector):
+        self.device, self.model, self.detector = device, model, detector
+
+
 class MultiStreamPose:
-    """Batched multi-stream pose serving on one card.
+    """Batched multi-stream pose serving on one card, or over a ``batch``
+    mesh of local devices (``mesh=``, stream-parallel).
 
     Per tick, call :meth:`step` (or :meth:`step_pipelined`) with one RGB
     frame per stream, all of one resolution.  Detection cadence follows
@@ -45,6 +69,9 @@ class MultiStreamPose:
         one fetch; IDs are those of the two-program tick, and pose runs on
         the raw detection boxes instead of the tracker's.  Needs a
         ``YoloDetector``.
+      mesh: a ``batch`` mesh (``parallel/mesh.py::make_mesh(axis="batch")``)
+        whose size divides ``n_streams``: the streams in per-device blocks,
+        each device with its replica.
       plain: run every kernel's plain version, eagerly (for checks).
     """
 
@@ -52,9 +79,6 @@ class MultiStreamPose:
                  max_people_per_stream: int = 8, mesh=None, smooth: bool = False,
                  smooth_params=None, tracker: str = "sort", single_dispatch: bool = False,
                  plain: bool = False):
-        if mesh is not None:
-            raise NotImplementedError("stream-parallel serving over a mesh is not ported yet "
-                                      "(ROADMAP A14)")
         if tracker not in ("sort", "bytetrack"):
             raise ValueError(f"tracker must be 'sort' or 'bytetrack', got {tracker!r}")
         self.model = model
@@ -76,6 +100,18 @@ class MultiStreamPose:
                                   iou_threshold=0.3)
                              for _ in range(n_streams)]
             self._det_gate = 0.35  # reference inference.py:240-241
+        self.mesh = mesh
+        self._shards = [_Shard(self.device, model, detector)]
+        if mesh is not None:
+            nd = mesh.size
+            if n_streams % nd:
+                raise ValueError(f"n_streams={n_streams} must be a multiple of mesh size {nd}")
+            replicas = {self.device: self._shards[0]}
+            for d in mesh.devices:
+                if d not in replicas:
+                    replicas[d] = _Shard(d, copy.deepcopy(model).to(d),
+                                         None if detector is None else detector.on(d))
+            self._shards = [replicas[d] for d in mesh.devices]
         self.frame_counter = 0
         self.smooth = bool(smooth)
         self._smooth_kw = dict(smooth_params or {})
@@ -88,14 +124,28 @@ class MultiStreamPose:
 
     # ------------------------------------------------------------ plumbing
 
-    def _upload(self, frames) -> torch.Tensor:
-        """The tick's (S, H, W, 3) stack on the device; frames of mixed
-        resolution are refused, as ``np.stack`` refuses them."""
+    def _upload(self, frames) -> List[torch.Tensor]:
+        """The tick's (S, H, W, 3) stack as each shard's block of streams on
+        its device; frames of mixed resolution are refused, as ``np.stack``
+        refuses them."""
         if len(frames) != self.n:
             raise ValueError(f"expected {self.n} frames, got {len(frames)}")
-        if isinstance(frames, torch.Tensor):
-            return frames.to(self.device)
-        return to_device(np.stack(frames), self.device)
+        if not isinstance(frames, torch.Tensor):
+            frames = np.stack(frames)
+        per = self.n // len(self._shards)
+        return [to_device(frames[i * per:(i + 1) * per], sh.device)
+                for i, sh in enumerate(self._shards)]
+
+    @staticmethod
+    def _frame_hw(frames_dev) -> tuple:
+        return tuple(frames_dev[0].shape[1:3])
+
+    @staticmethod
+    def _gather(handles) -> torch.Tensor:
+        """The shards' outputs as one host tensor, in the shards' order."""
+        if len(handles) == 1:
+            return handles[0].cpu()
+        return torch.cat([h.cpu() for h in handles])
 
     def _det_due(self) -> bool:
         """Detection cadence for this tick (reference inference.py:235-236)."""
@@ -108,13 +158,15 @@ class MultiStreamPose:
         self.frame_counter += 1
         if not run_det or self.detector is None:
             return None
-        return self.detector.detect_batch_async(frames_dev)
+        return [sh.detector.detect_batch_async(f) for sh, f in zip(self._shards, frames_dev)]
 
     def _boxes_from_detect(self, det, frame_hw):
         if det is None:
             return [np.empty((0, 5), np.float32) for _ in range(self.n)]
-        if isinstance(det, torch.Tensor):  # packed rows on the device: the fetch
-            det = det.cpu().numpy()
+        if isinstance(det, torch.Tensor):
+            det = [det]
+        if isinstance(det, list):  # each shard's packed rows on its device: the fetch
+            det = self._gather(det).numpy()
         det = self.detector.unpack_batch(det, frame_hw)
         return [(r[r[:, 4] > self._det_gate][:, :5] if len(r)
                  else np.empty((0, 5), np.float32)) for r in det]
@@ -123,7 +175,7 @@ class MultiStreamPose:
              boxes_per_stream: Optional[List[np.ndarray]] = None) -> List[Dict[int, np.ndarray]]:
         """Synchronous tick: frames -> per stream {track_id: (K, 3)}."""
         frames_dev = self._upload(frames)
-        H, W = frames_dev.shape[1:3]
+        H, W = self._frame_hw(frames_dev)
         if boxes_per_stream is None and self.single_dispatch and self._det_due():
             return self._collect_fused(self._dispatch_fused(frames_dev), frames_dev)
         if boxes_per_stream is None:
@@ -163,7 +215,7 @@ class MultiStreamPose:
         self._pending = None
         if kind == "fused":
             return self._collect_fused(payload, prev_dev)
-        H, W = prev_dev.shape[1:3]
+        H, W = self._frame_hw(prev_dev)
         boxes = self._boxes_from_detect(payload, (H, W))
         handle, book = self._track_and_pose(prev_dev, boxes)
         return self._collect(handle, book)
@@ -171,17 +223,20 @@ class MultiStreamPose:
     # ------------------------------------------------ single-dispatch tick
 
     def _dispatch_fused(self, frames_dev):
-        """Queue the detector + pose program of this tick without fetching:
-        (packed (S, max_det, 7), keypoints (S * max_pp, K, 3)) on the device,
-        a CUDA graph replay on the card."""
+        """Queue the detector + pose program of this tick without fetching,
+        on each shard: its (packed (s, max_det, 7), keypoints (s * max_pp,
+        K, 3)) on its device, a CUDA graph replay on the card."""
+        self.frame_counter += 1
+        return [self._dispatch_fused_shard(sh, f) for sh, f in zip(self._shards, frames_dev)]
+
+    def _dispatch_fused_shard(self, sh: _Shard, frames_dev: torch.Tensor):
         from .fused_detect import detect_pose_multi
-        det = self.detector
+        det = sh.detector
         geom = det.geometry(tuple(frames_dev.shape[1:3]))
         gate = float(self._det_gate)
-        self.frame_counter += 1
 
         def program(frames):
-            return detect_pose_multi(det.model, self.model, frames, geom, det.spec, det.classes,
+            return detect_pose_multi(det.model, sh.model, frames, geom, det.spec, det.classes,
                                      det.conf, det.iou, det.max_det, det.dtype, self.max_pp,
                                      gate, plain=self.plain)
 
@@ -198,11 +253,13 @@ class MultiStreamPose:
         without an in-slot detection this tick (coasting tracks, detections
         beyond max_pp) take one multi-frame pose step on their tracker
         boxes."""
-        H, W = frames_dev.shape[1:3]
-        packed_dev, kpts_dev = handles
-        both = torch.cat([packed_dev.reshape(-1), kpts_dev.reshape(-1)]).cpu().numpy()
-        packed = both[:packed_dev.numel()].reshape(packed_dev.shape)
-        kpts = both[packed_dev.numel():].reshape(kpts_dev.shape)
+        H, W = self._frame_hw(frames_dev)
+        packed, kpts = [], []
+        for packed_dev, kpts_dev in handles:   # one fetch per shard
+            both = torch.cat([packed_dev.reshape(-1), kpts_dev.reshape(-1)]).cpu().numpy()
+            packed.append(both[:packed_dev.numel()].reshape(packed_dev.shape))
+            kpts.append(both[packed_dev.numel():].reshape(kpts_dev.shape))
+        packed, kpts = np.concatenate(packed), np.concatenate(kpts)
         # one copy of the host gate: the slot alignment needs it to be the
         # device gate's
         gated = self._boxes_from_detect(packed, (H, W))
@@ -233,7 +290,12 @@ class MultiStreamPose:
             boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, H)
             fidx[:nb] = [si for si, _ in fb_keys]
             mask[:nb] = True
-            out = self._pose(frames_dev, boxes, fidx, mask).cpu().numpy()
+            # unsharded on the first shard, as JAX's: coast rows are rare and
+            # their streams fall in any block; the frames move device to device
+            first = self._shards[0]
+            frames = (frames_dev[0] if len(frames_dev) == 1 else
+                      torch.cat([f.to(first.device) for f in frames_dev]))
+            out = self._pose(first, frames, boxes, fidx, mask).cpu().numpy()
             for j, (si, tid) in enumerate(fb_keys[:M]):
                 results[si][tid] = out[j]
 
@@ -244,13 +306,13 @@ class MultiStreamPose:
 
     # ------------------------------------------------------ two-program tick
 
-    def _pose(self, frames_dev, boxes, fidx, mask) -> torch.Tensor:
-        dev = self.device
-        return pose_multi_frame(self.model, frames_dev, to_device(boxes, dev),
+    def _pose(self, sh: _Shard, frames_dev, boxes, fidx, mask) -> torch.Tensor:
+        dev = sh.device
+        return pose_multi_frame(sh.model, frames_dev, to_device(boxes, dev),
                                 to_device(fidx, dev), to_device(mask, dev), plain=self.plain)
 
     def _track_and_pose(self, frames_dev, boxes_per_stream):
-        H, W = frames_dev.shape[1:3]
+        H, W = self._frame_hw(frames_dev)
         # a fixed slot count in per-stream blocks (slot si * max_pp + j is
         # person j of stream si): one program shape for the whole stream
         M = self.n * self.max_pp
@@ -269,7 +331,12 @@ class MultiStreamPose:
             return None, book
         boxes[:, 0::2] = np.clip(boxes[:, 0::2], 0, W)
         boxes[:, 1::2] = np.clip(boxes[:, 1::2], 0, H)
-        return self._pose(frames_dev, boxes, fidx, mask), book  # queued, not fetched
+        # each shard poses its block of slots from its block of frames
+        per = M // len(self._shards)
+        outs = [self._pose(sh, f, boxes[i * per:(i + 1) * per], fidx[:per],
+                           mask[i * per:(i + 1) * per])
+                for i, (sh, f) in enumerate(zip(self._shards, frames_dev))]
+        return outs, book  # queued, not fetched
 
     def _collect(self, out_handle, book) -> List[Dict[int, np.ndarray]]:
         results: List[Dict[int, np.ndarray]] = [dict() for _ in range(self.n)]
@@ -278,7 +345,7 @@ class MultiStreamPose:
                 for d in self._smoothers:
                     d.clear()
             return results
-        out = out_handle.cpu().numpy()
+        out = self._gather(out_handle).numpy()
         for slot, si, tid in book:
             results[si][tid] = out[slot]
         if self.smooth:

@@ -277,7 +277,8 @@ def _collate(items):
 
 def batch_iterator(ds: CocoPoseDataset, batch_size: int,
                    shuffle: bool = True, drop_last: bool = True,
-                   prefetch: int = 2, seed: int = 0, workers: int = 0
+                   prefetch: int = 2, seed: int = 0, workers: int = 0,
+                   rows: Optional[slice] = None
                    ) -> Iterator[Dict[str, np.ndarray]]:
     """Assemble NHWC batches; the reference's DataLoader(num_workers,
     DistributedSampler) role.
@@ -289,12 +290,20 @@ def batch_iterator(ds: CocoPoseDataset, batch_size: int,
     'spawn' (not fork) because the parent may hold an initialized CUDA context;
     standard spawn caveat applies: the main module must be importable
     (scripts with ``if __name__ == "__main__"``, not stdin/REPL one-liners).
+
+    ``rows``: load only these rows of each batch (a data-parallel rank's
+    ``parallel/mesh.py::local_batch_slice``); the order, and so each
+    global batch, is every rank's.
     """
     order = list(range(len(ds)))
     if shuffle:
         random.Random(seed).shuffle(order)
     n_batches = (len(order) // batch_size if drop_last
                  else (len(order) + batch_size - 1) // batch_size)
+    if rows is not None:
+        order = [i for bi in range(n_batches)
+                 for i in order[bi * batch_size:(bi + 1) * batch_size][rows]]
+        batch_size = len(range(batch_size)[rows])
 
     def make(bi):
         idxs = order[bi * batch_size:(bi + 1) * batch_size]

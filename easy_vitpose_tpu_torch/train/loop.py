@@ -1,6 +1,6 @@
 """Epoch training loop (reference vit_utils/train_valid_fn.py:41-166).
 
-Port of ``easy_vitpose_tpu/train/loop.py`` for one device (CUDA unless the
+Port of ``easy_vitpose_tpu/train/loop.py`` on ``device`` (CUDA unless the
 caller passes ``device="cpu"``).  Semantics parity: Adam + grad-clip, bf16
 mixed precision, ReduceLROnPlateau on the validation loss, checkpoint every
 ``save_interval`` epochs, best-checkpoint retention after
@@ -20,6 +20,17 @@ at the start of each epoch from ``(settings.seed, epoch)`` in place of
 JAX's ``PRNGKey`` splits: the draws differ from JAX's, and a run resumed at
 an epoch draws what the uninterrupted run drew there (JAX's resumed run
 starts its key chain again from the seed).
+
+Under a process group (``torchrun``; ``parallel/mesh.py``) the loop is
+data-parallel as JAX's over its mesh: the global batch must divide by the
+ranks times ``grad_accum``; each rank loads its ``local_batch_slice`` of
+every global batch and runs ``make_train_step_sharded`` (every rank draws
+the same drop-path generator); validation pads a tail batch to the world
+size as JAX pads it (tiling its rows) and shards it, the loss is the mean
+over ranks and the heatmaps are gathered, so every rank computes the same
+PCK, AP and learning rate; the ranks agree on a SIGTERM each step; only
+the main process logs and writes TensorBoard scalars and checkpoints; a
+resume restores every rank from the same directory.
 """
 from __future__ import annotations
 
@@ -37,6 +48,7 @@ import torch
 from ..configs import ModelConfig
 from ..convert.from_jax import state_dict_to_jax
 from ..kernels import resolve_device
+from ..parallel import mesh as meshlib
 from ..utils.checkpoint import save_params
 from . import step as steplib
 from .dataset import CocoPoseDataset, batch_iterator
@@ -152,6 +164,19 @@ class _BgWriter:
             self._t.join()
 
 
+class _NullWriter:
+    """The writer of a rank that does not write: the main process writes."""
+
+    def submit(self, fn):
+        pass
+
+    def drain(self):
+        pass
+
+    def close(self):
+        pass
+
+
 class PlateauScheduler:
     """ReduceLROnPlateau (mode=min) equivalent of the torch scheduler the
     reference uses (train_valid_fn.py:79)."""
@@ -210,6 +235,9 @@ def train_model(params, cfg: ModelConfig, train_ds: CocoPoseDataset,
     dying mid-epoch (the reference has no preemption story at all).
     """
     dev = resolve_device(device)
+    main = meshlib.is_main_process()
+    if not main:
+        log = _quiet  # the main process logs
     stop_sig = {"n": None}
     old_sigterm = None
     if settings.handle_sigterm:
@@ -219,7 +247,7 @@ def train_model(params, cfg: ModelConfig, train_ds: CocoPoseDataset,
                 stop_sig["n"] = signum
                 log("!! SIGTERM: checkpointing at the next step boundary")
             old_sigterm = signal.signal(signal.SIGTERM, _request_stop)
-    writer = _BgWriter()
+    writer = _BgWriter() if main else _NullWriter()
     try:
         out = _train_model(_as_state_dict(params), cfg, train_ds, val_ds, settings, log,
                            stop_sig, writer, dev)
@@ -238,6 +266,10 @@ def train_model(params, cfg: ModelConfig, train_ds: CocoPoseDataset,
         if old_sigterm is not None:
             import signal
             signal.signal(signal.SIGTERM, old_sigterm)
+
+
+def _quiet(msg: str) -> None:
+    pass
 
 
 def build_optimizer(cfg: ModelConfig, settings: TrainSettings, steps_per_epoch: int):
@@ -280,6 +312,45 @@ def epoch_generator_seed(seed: int, epoch: int) -> int:
     return seed * 1_000_003 + epoch
 
 
+def _stop_agreed(stop_sig: Dict, mesh) -> bool:
+    """Whether to stop at this step boundary: this process's SIGTERM, or,
+    under a process group, any rank's (one small all-reduce, so every rank
+    breaks at the same step)."""
+    stop = stop_sig["n"] is not None
+    if mesh is None or mesh.size == 1:
+        return stop
+    flag = torch.tensor([float(stop)], device=mesh.device)
+    torch.distributed.all_reduce(flag, op=torch.distributed.ReduceOp.MAX, group=mesh.group)
+    return bool(flag.item())
+
+
+def pad_to_devices(batch: Mapping, n_dev: int) -> Dict:
+    """A batch padded to a multiple of ``n_dev`` rows by tiling its rows,
+    as JAX's loop pads a tail validation batch (``meta`` is left out)."""
+    b = {k: v for k, v in batch.items() if k != "meta"}
+    n = len(b["images"])
+    if n % n_dev == 0:
+        return b
+    pad = n_dev - n % n_dev
+    # tile, don't slice: the tail batch may hold fewer rows than the
+    # shortfall (2 leftover rows needing pad 6)
+    reps = -(-pad // n) + 1
+    return {k: np.concatenate([np.asarray(v)] * reps)[:n + pad] for k, v in b.items()}
+
+
+def _sharded_eval(eval_step, state, batch, mesh):
+    """The eval step of a batch padded to the world size and sharded:
+    -> (the loss averaged over the ranks, the padded batch's heatmaps
+    gathered in order on this rank)."""
+    b = pad_to_devices(batch, mesh.size)
+    loss, heat = eval_step(state, meshlib.shard_batch(mesh, b))
+    loss = loss.reshape(1).clone()
+    torch.distributed.all_reduce(loss, group=mesh.group)
+    parts = [torch.empty_like(heat) for _ in range(mesh.size)]
+    torch.distributed.all_gather(parts, heat.contiguous(), group=mesh.group)
+    return loss[0] / mesh.size, torch.cat(parts)
+
+
 def fetch_mean(values) -> float:
     """The host mean (float64) of a list of float32 device scalars: one
     read of the device for the whole list."""
@@ -291,9 +362,13 @@ def _train_model(params, cfg: ModelConfig, train_ds: CocoPoseDataset,
                  log: Callable[[str], None], stop_sig: Dict, writer: _BgWriter,
                  dev: torch.device) -> Dict:
     os.makedirs(settings.work_dir, exist_ok=True)
+    mesh = meshlib.make_mesh(device=dev) if torch.distributed.is_initialized() else None
+    n_dev = mesh.size if mesh is not None else 1
+    if settings.batch_size % n_dev:
+        raise ValueError(f"batch {settings.batch_size} not divisible by {n_dev} devices")
     k_accum = max(int(settings.grad_accum), 1)
-    if settings.batch_size % k_accum:
-        raise ValueError(f"batch {settings.batch_size} not divisible by "
+    if settings.batch_size % (n_dev * k_accum):
+        raise ValueError(f"batch {settings.batch_size} not divisible by {n_dev} devices x "
                          f"{k_accum} grad-accum micro-batches")
 
     steps_per_epoch = max(len(train_ds) // settings.batch_size, 1)
@@ -330,10 +405,14 @@ def _train_model(params, cfg: ModelConfig, train_ds: CocoPoseDataset,
             sigma=train_ds.heatmap_sigma,
             joints_weight=train_ds.joints_weight,
             use_different_joints_weight=train_ds.use_different_joints_weight)
-    train_step = steplib.make_train_step(cfg, tx, use_amp=settings.use_amp,
-                                         block_impl=settings.block_impl,
-                                         ema_decay=settings.ema_decay, grad_accum=k_accum,
-                                         render_kwargs=render_kwargs)
+    step_kw = dict(use_amp=settings.use_amp, block_impl=settings.block_impl,
+                   ema_decay=settings.ema_decay, grad_accum=k_accum, render_kwargs=render_kwargs)
+    if mesh is None:
+        train_step = steplib.make_train_step(cfg, tx, **step_kw)
+        rows = None
+    else:
+        train_step = steplib.make_train_step_sharded(cfg, tx, mesh, **step_kw)
+        rows = meshlib.local_batch_slice(settings.batch_size, mesh)
     eval_step = steplib.make_eval_step(cfg, use_amp=settings.use_amp, return_heatmaps=True)
 
     sched = PlateauScheduler(settings.lr, settings.lr_factor,
@@ -379,7 +458,7 @@ def _train_model(params, cfg: ModelConfig, train_ds: CocoPoseDataset,
         except ImportError:  # pragma: no cover
             log("tensorboard writer unavailable; scalars disabled")
 
-    log(f"#== train: 1 device ({dev}), batch {settings.batch_size}, "
+    log(f"#== train: {n_dev} device(s) ({dev} here), batch {settings.batch_size}, "
         f"lr {settings.lr}, amp {settings.use_amp}, "
         f"{sum(v.numel() for v in state['params'].values()):,d} params ==#")
 
@@ -415,18 +494,18 @@ def _train_model(params, cfg: ModelConfig, train_ds: CocoPoseDataset,
         losses = []
         it = batch_iterator(train_ds, settings.batch_size, shuffle=True,
                             seed=settings.seed + epoch,
-                            workers=settings.workers)
+                            workers=settings.workers, rows=rows)
         gen.manual_seed(epoch_generator_seed(settings.seed, epoch))
         gnorms = []
         for batch in it:
             # checked BEFORE dispatch: a signal that lands during the
             # previous step/validation stops without burning another step
-            if stop_sig["n"] is not None:
+            if _stop_agreed(stop_sig, mesh):
                 break
             state, metrics = train_step(state, batch, gen)
             losses.append(metrics["loss"])
             gnorms.append(metrics["grad_norm"])
-        if stop_sig["n"] is not None:
+        if _stop_agreed(stop_sig, mesh):
             # preemption: persist everything an exact resume needs (the
             # resumed run re-enters this epoch from its start, with the
             # mid-epoch optimizer state — same contract as the reference's
@@ -475,15 +554,20 @@ def _train_model(params, cfg: ModelConfig, train_ds: CocoPoseDataset,
                           if settings.ema_decay else state)
             vlosses = []
             acc_w, acc_n = 0.0, 0
-            # one device: the tail batch runs as it is, unpadded
+            # one device: the tail batch runs as it is, unpadded; under a
+            # process group each rank runs its shard of the padded batch
             for batch in batch_iterator(val_ds, settings.batch_size,
                                         shuffle=False, drop_last=False,
                                         prefetch=1):
-                loss, heat = eval_step(eval_state, batch)
-                heat_np = heat.cpu().numpy()
+                n_orig = len(batch["images"])
+                if mesh is None:
+                    loss, heat = eval_step(eval_state, batch)
+                else:
+                    loss, heat = _sharded_eval(eval_step, eval_state, batch, mesh)
+                heat_np = heat.cpu().numpy()[:n_orig]
                 vlosses.append(float(loss))
-                # in-loop PCK@0.05 (the reference loop never fills its
-                # accuracy slot, train_valid_fn.py:25)
+                # in-loop PCK@0.05 on the unpadded rows (the reference loop
+                # never fills its accuracy slot, train_valid_fn.py:25)
                 _, avg, cnt = pose_pck_accuracy(
                     heat_np, np.asarray(batch["targets"]),
                     np.asarray(batch["target_weights"])[:, :, 0] > 0)
@@ -496,7 +580,7 @@ def _train_model(params, cfg: ModelConfig, train_ds: CocoPoseDataset,
                     centers = np.stack([m["center"] for m in metas])
                     scales = np.stack([m["scale"] for m in metas]) * PIXEL_STD
                     preds, maxv = keypoints_from_heatmaps_udp(
-                        heat, torch.from_numpy(centers).to(dev),
+                        heat[:n_orig], torch.from_numpy(centers).to(dev),
                         torch.from_numpy(scales.astype(np.float32)).to(dev))
                     preds, maxv = preds.cpu().numpy(), maxv.cpu().numpy()
                     for i, m in enumerate(metas):

@@ -1,6 +1,6 @@
 """Multi-task (ViTPose+) finetuning steps, in PyTorch.
 
-Port of ``easy_vitpose_tpu/train/moe_step.py`` for one device.  The ViTPose+
+Port of ``easy_vitpose_tpu/train/moe_step.py``.  The ViTPose+
 recipe trains task-homogeneous batches, alternating tasks across steps: a
 step of task t reaches the shared backbone, t's expert slices and t's head.
 One optimizer state covers the whole model, and a step leaves the other
@@ -41,8 +41,12 @@ Usage::
     for batch, task in schedule:
         state, metrics = steps[task](state, batch)
 
-The sharded step (``make_moe_train_step_sharded``) and the expert-parallel
-annotations are ROADMAP A14.
+``make_moe_train_step_sharded`` is the same step over a ``data`` mesh of
+processes (JAX's shard_map twin): each rank runs its rows of the global
+batch, the head's BatchNorm statistics are global, and the mean loss and
+the active leaves' gradients are all-reduced as one flat buffer before the
+optimizer, so every rank updates alike and the inactive tasks stay
+bit-frozen everywhere.  Expert parallelism is ``parallel/tp.py``'s.
 """
 from __future__ import annotations
 
@@ -57,7 +61,7 @@ from ..kernels import resolve_device
 from ..models.moe import TRAIN_BLOCK_IMPLS, head_prefix, plus_tasks, vitpose_plus_forward_train
 from ..models.vitpose import BN_STATS
 from .losses import joints_mse_loss
-from .step import apply_optimizer, backward, render_batch_on_device
+from .step import all_reduce_grads, apply_optimizer, backward, render_batch_on_device
 
 Tensors = Dict[str, torch.Tensor]
 _EXPERT = re.compile(r"\.mlp\.experts\.(\d+)\.")
@@ -126,17 +130,17 @@ def _merged(old, new):
 
 def loss_and_grads(cfg: ModelConfig, state: Mapping[str, Any], batch: Mapping[str, torch.Tensor],
                    task: str, *, use_amp: bool = True, loss_fn: Callable = joints_mse_loss,
-                   block_impl: str = "pallas_train", plain: bool = False):
+                   block_impl: str = "pallas_train", plain: bool = False, group=None):
     """The forward and backward of one rendered batch of ``task``: (loss,
     the new BN running statistics of its head, float32 grads of the active
-    leaves by name)."""
+    leaves by name); ``group``: global BatchNorm statistics."""
     names = [k for k in state["params"] if is_active(k, task)]
     leaves = {k: state["params"][k].detach().requires_grad_(True) for k in names}
     dt = torch.bfloat16 if use_amp else torch.float32
     fwd = {k: v.to(dt) for k, v in leaves.items()}
     fwd.update(state["bn_state"][task])
     heat, new_bn = vitpose_plus_forward_train(fwd, batch["images"].to(dt), cfg, task,
-                                              block_impl=block_impl, plain=plain)
+                                              block_impl=block_impl, plain=plain, group=group)
     loss = loss_fn(heat, batch["targets"], batch["target_weights"])
     return loss.detach(), new_bn, backward(loss, leaves)
 
@@ -153,6 +157,26 @@ def make_moe_train_step(cfg: ModelConfig, tx, task: str, *, use_amp: bool = True
     "pallas_train_interpret" (the plain versions) or "xla"
     (``models/moe.py::moe_block`` under autograd).  No drop-path: the
     recipe has none."""
+    return _make_step(cfg, tx, task, None, use_amp=use_amp, loss_fn=loss_fn,
+                      block_impl=block_impl, plain=plain)
+
+
+def make_moe_train_step_sharded(cfg: ModelConfig, tx, mesh, task: str, *, use_amp: bool = True,
+                                loss_fn: Callable = joints_mse_loss,
+                                block_impl: str = "pallas_train", plain: bool = False):
+    """:func:`make_moe_train_step` over a ``data`` mesh (``parallel/mesh.py``),
+    one process per device: ``(state, batch) -> (new_state, metrics)`` with
+    ``batch`` this rank's rows of the global batch and the state
+    replicated.  The head's BatchNorm statistics are global; the mean loss
+    and the active leaves' mean gradients, in the optimizer's leaf order,
+    are all-reduced as one flat buffer; then every rank runs the same
+    optimizer launches (the norm kernel and one K8 or K9 on the card)."""
+    return _make_step(cfg, tx, task, mesh.group, use_amp=use_amp, loss_fn=loss_fn,
+                      block_impl=block_impl, plain=plain)
+
+
+def _make_step(cfg: ModelConfig, tx, task: str, group, *, use_amp: bool, loss_fn: Callable,
+               block_impl: str, plain: bool):
     if block_impl not in TRAIN_BLOCK_IMPLS:
         raise ValueError(f"block_impl must be one of {TRAIN_BLOCK_IMPLS}, got {block_impl!r}")
     if task not in SPLIT_DATASETS:
@@ -161,8 +185,11 @@ def make_moe_train_step(cfg: ModelConfig, tx, task: str, *, use_amp: bool = True
     def step(state, batch):
         batch = render_batch_on_device(batch, state["step"].device)
         loss, new_bn, grads = loss_and_grads(cfg, state, batch, task, use_amp=use_amp,
-                                             loss_fn=loss_fn, block_impl=block_impl, plain=plain)
+                                             loss_fn=loss_fn, block_impl=block_impl, plain=plain,
+                                             group=group)
         names = list(grads)
+        if group is not None:
+            loss, grads = all_reduce_grads(loss, grads, names, group)
         opt = state["opt_state"]
         sub_opt = opt._replace(mu=_subset(opt.mu, names), nu=_subset(opt.nu, names))
         new_sub, new_opt, gnorm = apply_optimizer(tx, grads, sub_opt,

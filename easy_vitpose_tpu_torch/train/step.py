@@ -1,6 +1,6 @@
 """The training and evaluation steps, in PyTorch.
 
-Port of ``easy_vitpose_tpu/train/step.py`` for one device: ``make_train_step``
+Port of ``easy_vitpose_tpu/train/step.py``: ``make_train_step``
 with bf16 AMP, the head's BatchNorm running statistics carried outside the
 trainable tree, the device-input batch (uint8 crops and joints, rendered on
 the device, with the renderer's ``render_kwargs``) or a host-rendered one, a
@@ -9,7 +9,10 @@ weights; ``make_eval_step``; and the optimizers: the fused clip + Adam
 (``train/fused_opt.py``) and the optax chains of the JAX package in plain
 torch (:func:`make_optimizer`, :func:`make_adamw_layer_decay_optimizer`
 with :func:`layerwise_lr_decay` and :func:`make_step_lr_schedule`), which
-JAX computes in XLA.
+JAX computes in XLA; and :func:`make_train_step_sharded`, the data-parallel
+step over a process group (``parallel/mesh.py``).  JAX's
+``jit_data_parallel`` (GSPMD propagation over any step) has no torch
+counterpart: the sharded step is the port's only data-parallel step.
 
 State is a plain dict of tensors on one device, where the step runs; it is
 CUDA unless :func:`init_train_state` is asked for the CPU:
@@ -46,6 +49,7 @@ from torch import nn
 from ..configs import IMAGENET_MEAN, IMAGENET_STD, ModelConfig
 from ..convert.from_jax import jax_leaves
 from ..kernels import resolve_device
+from ..models.vit import draw_drop_path_masks
 from ..models.vitpose import BN_STATS, ViTPose, vitpose_forward, vitpose_forward_train
 from ..ops.heatmap import generate_gaussian_targets
 from .fused_opt import global_norm, sqrt_rn
@@ -151,16 +155,17 @@ def forward_loss(cfg: ModelConfig, trainable: Mapping[str, torch.Tensor],
                  use_amp: bool = True, loss_fn: LossFn = joints_mse_loss,
                  block_impl: str = "fused_train", plain: bool = False,
                  generator: Optional[torch.Generator] = None,
-                 drop_path_masks: Optional[torch.Tensor] = None):
+                 drop_path_masks: Optional[torch.Tensor] = None, group=None):
     """The forward and loss of one rendered batch from fresh leaves that
     require grad: -> (loss, new BN running statistics, leaves by name).
-    ``loss_fn(heatmaps, targets, target_weights)`` gives the loss."""
+    ``loss_fn(heatmaps, targets, target_weights)`` gives the loss; ``group``
+    makes the head's BatchNorm statistics global over a process group."""
     leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
     dt = torch.bfloat16 if use_amp else torch.float32
     params = merge_bn_state({k: v.to(dt) for k, v in leaves.items()}, bn_state)
     heat, new_bn = vitpose_forward_train(params, batch["images"].to(dt), cfg,
                                          drop_path_masks=drop_path_masks, generator=generator,
-                                         block_impl=block_impl, plain=plain)
+                                         block_impl=block_impl, plain=plain, group=group)
     return loss_fn(heat, batch["targets"], batch["target_weights"]), new_bn, leaves
 
 
@@ -191,9 +196,10 @@ class AdamState(NamedTuple):
 
 
 class Optimizer(NamedTuple):
-    """``init(params) -> AdamState``; ``update(grads, state, params) ->
-    (updates of the trained leaves, new state)``, added to the params by
-    :func:`apply_optimizer`."""
+    """``init(params) -> AdamState``; ``update(grads, state, params,
+    g_norm=None) -> (updates of the trained leaves, new state)``, added to
+    the params by :func:`apply_optimizer`; ``g_norm`` is the clip's global
+    norm where the caller has it (tensor-parallel shards)."""
     init: Callable
     update: Callable
 
@@ -209,11 +215,14 @@ def _sqrt(x: torch.Tensor) -> torch.Tensor:
     return x.sqrt() if x.is_cuda else sqrt_rn(x)
 
 
-def _clip_by_global_norm(gs: Sequence[torch.Tensor], max_norm: float) -> list:
+def _clip_by_global_norm(gs: Sequence[torch.Tensor], max_norm: float,
+                         g_norm: Optional[torch.Tensor] = None) -> list:
     """``optax.clip_by_global_norm``: each leaf, or ``(g / ||g||) * max_norm``
-    where the norm (``optax.global_norm``) reaches ``max_norm``, chosen on
-    the device."""
-    g_norm = global_norm(gs)
+    where the norm (``optax.global_norm``, or ``g_norm`` where the leaves
+    are shards of a larger tree) reaches ``max_norm``, chosen on the
+    device."""
+    if g_norm is None:
+        g_norm = global_norm(gs)
     trigger = g_norm < max_norm
     return [torch.where(trigger, g, (g / g_norm) * max_norm) for g in gs]
 
@@ -240,9 +249,10 @@ def _adam_chain(learning_rate, max_grad_norm: float, trained: Callable[[str], bo
         return AdamState(count, zeros(), zeros(),
                          {"learning_rate": torch.as_tensor(lr0, dtype=torch.float32).to(dev)})
 
-    def update(grads: Tensors, state: AdamState, params: Tensors):
+    def update(grads: Tensors, state: AdamState, params: Tensors,
+               g_norm: Optional[torch.Tensor] = None):
         names = list(state.mu)
-        gs = _clip_by_global_norm([grads[k].float() for k in names], max_grad_norm)
+        gs = _clip_by_global_norm([grads[k].float() for k in names], max_grad_norm, g_norm)
         lr = (learning_rate(state.count).float() if callable(learning_rate)
               else state.hyperparams["learning_rate"])
         count = state.count + 1
@@ -369,19 +379,28 @@ def make_adamw_layer_decay_optimizer(learning_rate=5e-4, weight_decay: float = 0
                        scale=layerwise_lr_decay(layer_decay_rate, cfg))
 
 
-def apply_optimizer(tx, grads, opt_state, params):
+def apply_optimizer(tx, grads, opt_state, params, g_norm: Optional[torch.Tensor] = None):
     """(grads, opt_state, params) -> (new params, new opt_state, grad norm):
     the fused optimizer's one pass (anything with ``fused_apply``), or an
     :class:`Optimizer`'s updates added to the params (leaves it does not
-    train are kept) and the global norm of every gradient."""
+    train are kept) and the global norm of every gradient.  ``g_norm``
+    gives an :class:`Optimizer` the global norm of a tree whose leaves here
+    are shards (the fused optimizer takes none)."""
     if hasattr(tx, "fused_apply"):
+        if g_norm is not None:
+            raise ValueError("the fused optimizer computes its own norm; sharded leaves "
+                             "need an Optimizer (make_optimizer)")
         return tx.fused_apply(grads, opt_state, params)
-    updates, new_opt = tx.update(grads, opt_state, params)
+    if g_norm is None:
+        updates, new_opt = tx.update(grads, opt_state, params)
+        g_norm = global_norm(grads)
+    else:
+        updates, new_opt = tx.update(grads, opt_state, params, g_norm=g_norm)
     names = list(updates)
     new = dict(params)
     new.update(zip(names, torch._foreach_add([params[k] for k in names],
                                              [updates[k] for k in names])))
-    return new, new_opt, global_norm(grads)
+    return new, new_opt, g_norm
 
 
 def make_train_step(cfg: ModelConfig, tx, *, use_amp: bool = True,
@@ -406,42 +425,137 @@ def make_train_step(cfg: ModelConfig, tx, *, use_amp: bool = True,
     (``e' = d e + (1 - d) p'``), after the optimizer.  ``plain=True`` runs
     the blocks' plain versions on any device: the on-card reference of a
     whole step."""
+    k = _check_step_args(grad_accum, block_impl)
+    forward_kw = _forward_kw(use_amp, loss_fn, block_impl, plain)
+
+    def step(state, batch, generator=None, drop_path_masks=None):
+        dev = state["step"].device
+        batch = render_batch_on_device(batch, dev, render_kwargs)
+        loss, bn_state, grads = _accumulate(cfg, state, batch, k, generator, drop_path_masks,
+                                            forward_kw)
+        return _finish(tx, state, loss, bn_state, grads, ema_decay)
+
+    return step
+
+
+def _check_step_args(grad_accum: int, block_impl: str) -> int:
     k = int(grad_accum)
     if k < 1:
         raise ValueError(f"grad_accum must be >= 1, got {grad_accum}")
     if block_impl not in BLOCK_IMPLS:
         raise ValueError(f"block_impl must be one of {BLOCK_IMPLS}, got {block_impl!r}")
-    forward_kw = dict(use_amp=use_amp, loss_fn=loss_fn,
-                      block_impl="xla" if block_impl == "xla" else "fused_train",
-                      plain=plain or block_impl == "pallas_train_interpret")
+    return k
+
+
+def _forward_kw(use_amp: bool, loss_fn: LossFn, block_impl: str, plain: bool) -> dict:
+    return dict(use_amp=use_amp, loss_fn=loss_fn,
+                block_impl="xla" if block_impl == "xla" else "fused_train",
+                plain=plain or block_impl == "pallas_train_interpret")
+
+
+def _accumulate(cfg: ModelConfig, state, batch: Tensors, k: int, generator, drop_path_masks,
+                forward_kw: dict):
+    """(loss, BN running statistics, float32 grads) of a rendered batch in
+    ``k`` micro-batches of its rows in order: their drop-path masks the
+    given masks' columns or each its own draw, the BN statistics chained
+    through them, the losses and grads summed and divided by ``k``."""
+    dev = state["step"].device
+    B = batch["images"].shape[0]
+    if B % k:
+        raise ValueError(f"batch {B} not divisible by grad_accum {k}")
+    rows, bn_state, loss, grads = B // k, state["bn_state"], None, None
+    for i in range(k):
+        part = slice(i * rows, (i + 1) * rows)
+        masks = None if drop_path_masks is None else drop_path_masks[:, part]
+        l_i, bn_state, g_i = loss_and_grads(
+            cfg, state["params"], bn_state, {n: v[part] for n, v in batch.items()},
+            generator=generator, drop_path_masks=masks, **forward_kw)
+        if grads is None:
+            loss, grads = l_i, g_i
+        else:
+            loss, grads = loss + l_i, {n: g + g_i[n] for n, g in grads.items()}
+    if k > 1:
+        kt = torch.full((), float(k), device=dev)
+        loss, grads = loss / kt, {n: g / kt for n, g in grads.items()}
+    return loss, bn_state, grads
+
+
+def _finish(tx, state, loss, bn_state, grads, ema_decay: float):
+    """The optimizer's update of ``state`` from ``grads``, the EMA after it:
+    -> (new state, metrics)."""
+    new_params, new_opt, gnorm = apply_optimizer(tx, grads, state["opt_state"],
+                                                 state["params"])
+    new_state = {"params": new_params, "opt_state": new_opt, "bn_state": bn_state,
+                 "step": state["step"] + 1}
+    if ema_decay:
+        new_state["ema_params"] = _ema_update(state["ema_params"], new_params, ema_decay)
+    return new_state, {"loss": loss, "grad_norm": gnorm}
+
+
+def all_reduce_grads(loss: torch.Tensor, grads: Mapping[str, torch.Tensor], names, group):
+    """The group means of ``loss`` and of ``grads`` (in ``names``' order, the
+    optimizer's leaf order) through one all-reduce of one flat float32
+    buffer: -> (loss, grads by name, each a view of the buffer)."""
+    from ..parallel.comm import all_reduce_mean_flat
+    out = all_reduce_mean_flat([grads[n] for n in names] + [loss], group)
+    return out[-1], dict(zip(names, out[:-1]))
+
+
+def global_drop_path_masks(cfg: ModelConfig, mesh, rows: int, generator, drop_path_masks,
+                           device) -> Optional[torch.Tensor]:
+    """This rank's columns of the GLOBAL batch's drop-path masks (JAX :504):
+    the given (depth, B_global, 1, 1) masks, or a draw for the global batch
+    from ``generator``, whose state every rank shares.  None without
+    drop-path."""
+    if drop_path_masks is None:
+        if cfg.backbone.drop_path_rate <= 0.0:
+            return None
+        if generator is None:
+            raise ValueError("drop-path needs a torch.Generator (or drop_path_masks)")
+        drop_path_masks = draw_drop_path_masks(cfg.backbone, rows * mesh.size, generator, device)
+    if drop_path_masks.shape[1] != rows * mesh.size:
+        raise ValueError(f"drop-path masks for {drop_path_masks.shape[1]} rows, the global "
+                         f"batch has {rows} x {mesh.size}")
+    return drop_path_masks[:, mesh.shard(rows * mesh.size, mesh.rank)].to(device)
+
+
+def make_train_step_sharded(cfg: ModelConfig, tx, mesh, *, use_amp: bool = True,
+                            loss_fn: LossFn = joints_mse_loss,
+                            block_impl: str = "pallas_train", ema_decay: float = 0.0,
+                            grad_accum: int = 1,
+                            render_kwargs: Optional[Mapping[str, Any]] = None,
+                            plain: bool = False):
+    """The data-parallel step over a ``data`` mesh (``parallel/mesh.py``),
+    one process per device: JAX's ``make_train_step_sharded``, with the
+    contract of :func:`make_train_step`: ``(state, batch, generator=None,
+    drop_path_masks=None) -> (new_state, {"loss", "grad_norm"})``.
+
+    ``batch`` is this rank's rows of the global batch (``mesh.shard_batch``
+    or a loader's ``local_batch_slice``); the state is replicated.  The
+    single-program semantics hold:
+
+    * the drop-path masks are the GLOBAL batch's, drawn from ``generator``
+      (the same state on every rank) or given for the global batch, and
+      each rank takes its columns (:func:`global_drop_path_masks`);
+    * the head's BatchNorm statistics are global at every micro-step;
+    * each rank renders its rows and runs its blocks on B / world rows
+      (K5, the MLP backward, K7 on the card); with ``grad_accum=k``
+      micro-batch i is the union of every rank's i-th local slice;
+    * the mean loss and gradients are all-reduced as ONE flat buffer in the
+      optimizer's leaf order, then every rank runs the same optimizer
+      launches (the norm kernel, K8 or K9), so the state stays replicated;
+      the EMA follows."""
+    k = _check_step_args(grad_accum, block_impl)
+    forward_kw = dict(_forward_kw(use_amp, loss_fn, block_impl, plain), group=mesh.group)
 
     def step(state, batch, generator=None, drop_path_masks=None):
         dev = state["step"].device
         batch = render_batch_on_device(batch, dev, render_kwargs)
-        B = batch["images"].shape[0]
-        if B % k:
-            raise ValueError(f"batch {B} not divisible by grad_accum {k}")
-        rows, bn_state, loss, grads = B // k, state["bn_state"], None, None
-        for i in range(k):
-            part = slice(i * rows, (i + 1) * rows)
-            masks = None if drop_path_masks is None else drop_path_masks[:, part]
-            l_i, bn_state, g_i = loss_and_grads(
-                cfg, state["params"], bn_state, {n: v[part] for n, v in batch.items()},
-                generator=generator, drop_path_masks=masks, **forward_kw)
-            if grads is None:
-                loss, grads = l_i, g_i
-            else:
-                loss, grads = loss + l_i, {n: g + g_i[n] for n, g in grads.items()}
-        if k > 1:
-            kt = torch.full((), float(k), device=dev)
-            loss, grads = loss / kt, {n: g / kt for n, g in grads.items()}
-        new_params, new_opt, gnorm = apply_optimizer(tx, grads, state["opt_state"],
-                                                     state["params"])
-        new_state = {"params": new_params, "opt_state": new_opt, "bn_state": bn_state,
-                     "step": state["step"] + 1}
-        if ema_decay:
-            new_state["ema_params"] = _ema_update(state["ema_params"], new_params, ema_decay)
-        return new_state, {"loss": loss, "grad_norm": gnorm}
+        masks = global_drop_path_masks(cfg, mesh, batch["images"].shape[0], generator,
+                                       drop_path_masks, dev)
+        loss, bn_state, grads = _accumulate(cfg, state, batch, k, None, masks, forward_kw)
+        loss, grads = all_reduce_grads(loss, grads, list(state["params"]), mesh.group)
+        return _finish(tx, state, loss, bn_state, grads, ema_decay)
 
     return step
 

@@ -104,7 +104,8 @@ def multistream_tick(torch, frame_np, seed, reps: int) -> dict:
     out["tick_ms"], _ = stage_ms(torch, lambda: ms.step(frames), reps)
     out["stack_ms"], stack = stage_ms(torch, lambda: np.stack(frames), reps)
     out["upload_ms"], frames_dev = stage_ms(torch, lambda: ms._upload(frames), reps)
-    out["detector_ms"], packed = stage_ms(torch, lambda: det.detect_batch_async(frames_dev), reps)
+    out["detector_ms"], packed = stage_ms(torch, lambda: det.detect_batch_async(frames_dev[0]),
+                                          reps)
     out["det_fetch_gate_ms"], boxes = stage_ms(
         torch, lambda: ms._boxes_from_detect(packed, (H, W)), reps)
     out["detections_per_stream"] = [len(b) for b in boxes]

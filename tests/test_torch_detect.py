@@ -14,6 +14,7 @@ distance from JAX in the same quantities, and the test asserts that each
 margin is at least twice that noise, so the chosen scene is visible in the
 test.
 """
+import functools
 import itertools
 
 import jax
@@ -31,6 +32,10 @@ SPEC = P.YoloSpec("n")
 # bounds on port-vs-JAX differences at f32, after the measured noise of the
 # test's scenes (scores 1e-5, boxes 2e-3 input px)
 SCORE_TOL, BOX_TOL = 5e-5, 5e-3
+# JAX's forward and decode compiled once per shape, as its pipeline runs
+# them (jitted), rather than op by op
+jax_yolo_forward = jax.jit(J.yolo_forward, static_argnums=2)
+jax_decode_detections = jax.jit(J.decode_detections, static_argnums=1)
 
 
 def scene(seed=0, h=120, w=200):
@@ -62,12 +67,19 @@ def scores_of(boxes, scores, classes):
     return boxes, scores
 
 
+@functools.partial(jax.jit, static_argnums=2)
+def jax_scores(jparams, frame, geom):
+    """JAX's letterbox, forward and decode of a frame, compiled once per
+    shape and geometry."""
+    r, nw, nh, left, top, cw, ch = geom
+    img = J.letterbox_sample(frame, (cw, ch), r, nw, nh, left, top)
+    outs = J.yolo_forward(jparams, (img / 255.0).astype(jnp.float32)[None], SPEC)
+    return J.decode_detections(outs, SPEC.nc)
+
+
 def both_scores(jparams, model, frame, geom, classes=None):
     """(boxes (A, 4), scores (A, nc)) before NMS: JAX's and the port's."""
-    r, nw, nh, left, top, cw, ch = geom
-    img = J.letterbox_sample(jnp.asarray(frame), (cw, ch), r, nw, nh, left, top)
-    outs = J.yolo_forward(jparams, (img / 255.0).astype(jnp.float32)[None], SPEC)
-    ref = scores_of(*J.decode_detections(outs, SPEC.nc), classes)
+    ref = scores_of(*jax_scores(jparams, jnp.asarray(frame), tuple(geom)), classes)
     x = P.letterbox_input_plain(torch.from_numpy(frame), geom)
     outs = P.yolo_forward(model, x.permute(0, 2, 3, 1))
     got = scores_of(*P.decode_detections(outs, SPEC.nc), classes)
@@ -130,7 +142,7 @@ def assert_clear(margins, noise, keys=("gate", "class", "order", "iou")):
 
 
 def test_init_params_have_jax_layout():
-    ref = J.init_yolo_params(jax.random.PRNGKey(0), J.YoloSpec("n"))
+    ref = jax.eval_shape(lambda k: J.init_yolo_params(k, J.YoloSpec("n")), jax.random.PRNGKey(0))
     got = P.init_yolo_params(1, SPEC, imgsz=64)
     assert (jax.tree.map(lambda a: tuple(a.shape), ref)
             == jax.tree.map(lambda a: tuple(a.shape), got))
@@ -142,7 +154,7 @@ def test_init_params_have_jax_layout():
 def test_yolo_forward_matches_jax_f32(net):
     _, _, model, jparams = net
     x = np.random.default_rng(3).random((1, 96, 128, 3), dtype=np.float32)
-    ref = J.yolo_forward(jparams, jnp.asarray(x), SPEC)
+    ref = jax_yolo_forward(jparams, jnp.asarray(x), SPEC)
     got = P.yolo_forward(model, torch.from_numpy(x))
     assert len(got) == 3
     for a, b in zip(ref, got):
@@ -156,8 +168,8 @@ def test_yolo_forward_bf16_close_to_jax(net):
     _, params, _, jparams = net
     model = P.yolo_params_from_jax(params, SPEC, torch.bfloat16)
     x = np.random.default_rng(4).random((1, 64, 96, 3), dtype=np.float32)
-    ref = J.yolo_forward(jparams, jnp.asarray(x, jnp.bfloat16), SPEC)
-    f32 = J.yolo_forward(jparams, jnp.asarray(x), SPEC)
+    ref = jax_yolo_forward(jparams, jnp.asarray(x, jnp.bfloat16), SPEC)
+    f32 = jax_yolo_forward(jparams, jnp.asarray(x), SPEC)
     got = P.yolo_forward(model, torch.from_numpy(x).to(torch.bfloat16))
     for a, a32, b in zip(ref, f32, got):
         assert b.dtype == torch.bfloat16
@@ -171,8 +183,8 @@ def test_yolo_forward_bf16_close_to_jax(net):
 def test_decode_detections_matches_jax(net):
     _, _, model, jparams = net
     x = np.random.default_rng(5).random((2, 64, 128, 3), dtype=np.float32)
-    outs = [np.asarray(o) for o in J.yolo_forward(jparams, jnp.asarray(x), SPEC)]
-    bj, sj = J.decode_detections([jnp.asarray(o) for o in outs], SPEC.nc)
+    outs = [np.asarray(o) for o in jax_yolo_forward(jparams, jnp.asarray(x), SPEC)]
+    bj, sj = jax_decode_detections([jnp.asarray(o) for o in outs], SPEC.nc)
     bp, sp = P.decode_detections([torch.from_numpy(o.copy()) for o in outs], SPEC.nc)
     assert bp.dtype == sp.dtype == torch.float32
     np.testing.assert_allclose(bp.numpy(), np.asarray(bj), atol=BOX_TOL)

@@ -93,11 +93,11 @@ def val(tmp_path_factory):
         yield {"dir": d, "ann": ann, "imgdir": str(imgdir), "ckpt": ckpt}
 
 
-def run_both(val, *argv):
+def run_both(val, *argv, port_args=()):
     out = {}
     for name, main, cfg in (("jax", jmain, JCASES["tiny"]), ("port", pmain, PCASES["tiny"])):
         path = str(val["dir"] / f"{name}.json")
-        extra = ["--device", "cpu"] if name == "port" else []
+        extra = ["--device", "cpu", *port_args] if name == "port" else []
         stats = main(["--ann", val["ann"], "--imgdir", val["imgdir"], "--model", val["ckpt"],
                       "--model-name", "s", "--out", path, *argv, *extra], model_cfg=cfg)
         out[name] = (stats, json.load(open(path)))
@@ -156,6 +156,22 @@ def test_gt_crops_int8_soft_nms_matches_jax(val):
 def test_gt_crops_flip_test_matches_jax(val):
     out = run_both(val, "--gt-crops-batched", "8", "--dtype", "fp32", "--flip-test")
     assert len(out["port"][1]) == 2 * N_IMAGES
+    check(out)
+
+
+def test_gt_crops_data_parallel_matches_one_device_and_jax(val):
+    """``--gt-crops-batched 8`` over a two-entry CPU mesh (``--devices cpu
+    cpu``: each batch's rows in two blocks, a replica and the decode per
+    entry, gathered in order) gives the one-device results bit for bit,
+    and holds to JAX's data-parallel branch (8 virtual devices divide the
+    batch) at the fp32 bounds."""
+    out = run_both(val, "--gt-crops-batched", "8", "--dtype", "fp32",
+                   port_args=("--devices", "cpu", "cpu"))
+    one = str(val["dir"] / "one.json")
+    pmain(["--ann", val["ann"], "--imgdir", val["imgdir"], "--model", val["ckpt"],
+           "--model-name", "s", "--gt-crops-batched", "8", "--dtype", "fp32", "--device", "cpu",
+           "--out", one], model_cfg=PCASES["tiny"])
+    assert out["port"][1] == json.load(open(one))
     check(out)
 
 

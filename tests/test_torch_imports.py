@@ -81,6 +81,11 @@ MODULES = [
     "easy_vitpose_tpu_torch.train.mesh_losses",
     "easy_vitpose_tpu_torch.ops.group",
     "easy_vitpose_tpu_torch.native",
+    "easy_vitpose_tpu_torch.parallel",
+    "easy_vitpose_tpu_torch.parallel.comm",
+    "easy_vitpose_tpu_torch.parallel.mesh",
+    "easy_vitpose_tpu_torch.parallel.tp",
+    "easy_vitpose_tpu_torch.parallel.pp",
 ]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|easy_vitpose_tpu)\b(?!_torch)", re.M)
 

@@ -311,11 +311,14 @@ def test_entry_points_run_on_cuda_unless_asked(files, tmp_path):
 @pytest.fixture(scope="module")
 def vits(tmp_path_factory):
     """A random ViT-S in the JAX package's .npz (the CLI takes no custom
-    config), as tests/test_cli.py makes it."""
-    from easy_vitpose_tpu.configs import get_model_config
-    from easy_vitpose_tpu.models.vitpose import init_vitpose_params
+    config): the port's numpy-seeded weights in JAX's tree (the tests
+    compare the port with itself here; JAX's own init, op by op, took 15 s)."""
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    from easy_vitpose_tpu_torch.convert.from_jax import state_dict_to_jax
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
     path = str(tmp_path_factory.mktemp("vits") / "vitpose-s-coco.npz")
-    save_params(path, init_vitpose_params(jax.random.PRNGKey(0), get_model_config("coco", "s")))
+    cfg = get_model_config("coco", "s")
+    save_params(path, state_dict_to_jax(init_params(cfg, 0).state_dict(), cfg))
     return path
 
 

@@ -6,9 +6,12 @@ two-program ticks (with boxes given and with the detector) against JAX's;
 single-dispatch ticks with the IDs of the two-program path, their slots
 keyed to the fused program's rows exactly, pipelined ticks equal to sync
 ones one tick late (both kinds), coasting rows riding the fallback pose
-step, the real-detector requirement, per-stream smoothing; ``mesh=`` and
-``--shard-streams`` raising (ROADMAP A14); frames of mixed resolution
-refused.
+step, the real-detector requirement, per-stream smoothing; stream-parallel
+ticks over a ``batch`` mesh of two CPU entries (``mesh=``,
+``--shard-streams --devices cpu cpu``) bit for bit the unsharded ticks and
+against JAX's sharded class on two devices (tests/test_stream_sharded.py),
+a stream count the mesh does not divide refused with JAX's message; frames
+of mixed resolution refused.
 
 The detector is the port's YOLOv8n at imgsz 160 with weights scaled on
 tests/test_torch_inference.py's moving scene, fed to both packages, and
@@ -257,8 +260,41 @@ def test_smoothing_matches_single_filter(nets):
 
 
 def test_mesh_and_mixed_resolution_refused(nets):
-    with pytest.raises(NotImplementedError, match="A14"):
-        make(nets, mesh=object())
+    """Stream-parallel ticks over a two-entry CPU mesh (a replica of the
+    pose model and detector per entry, each block of streams through its
+    own detector, pose step and fused tick): bit for bit the unsharded
+    ticks, two-program, single-dispatch and pipelined, and within the pose
+    step's bounds of JAX's sharded class on two devices.  A stream count
+    the mesh does not divide, and frames of mixed resolution, are
+    refused."""
+    from easy_vitpose_tpu.parallel.mesh import make_mesh as jax_mesh
+    from easy_vitpose_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(axis="batch", devices=["cpu", "cpu"])
+    seq = ticks(3)
+    kp = Keypoints()
+    j = make(nets, jax=True, mesh=jax_mesh(2, axis="batch"))
+    for kw in ({}, {"single_dispatch": True}):
+        a, b = make(nets, **kw), make(nets, mesh=mesh, **kw)
+        assert len(b._shards) == 2 and b._shards[0] is b._shards[1]
+        for frames in seq:
+            ra, rb = a.step(frames), b.step(frames)
+            assert_equal_results(ra, rb)
+            if not kw:
+                add_all(kp, j.step(frames), rb)
+        a, b = make(nets, **kw), make(nets, mesh=mesh, **kw)
+        for frames in seq:
+            assert_equal_results(a.step_pipelined(frames) or [], b.step_pipelined(frames) or [])
+        assert_equal_results(a.flush(), b.flush())
+    kp.check(min_people=4)
+    with pytest.raises(ValueError, match="n_streams=3 must be a multiple of mesh size 2"):
+        make(nets, mesh=mesh, n_streams=3)
+    # another device gets replicas of its own (the meta device: shapes only)
+    far = make(nets, mesh=make_mesh(axis="batch", devices=["cpu", "meta"]))._shards
+    assert far[0].model is nets["model"] and far[0].detector is nets["det"]
+    assert far[1].device.type == "meta" and far[1].model.backbone.pos_embed.is_meta
+    assert far[1].detector.device.type == "meta" and far[1].detector.graphs is not nets["det"].graphs
+    assert far[1].detector.imgsz == nets["det"].imgsz and far[1].detector.conf == nets["det"].conf
     ms = make(nets, detector=None)
     with pytest.raises(ValueError):
         ms.step([frame_of(0), frame_of(0, h=200)], [np.zeros((0, 5), np.float32)] * 2)
@@ -268,7 +304,7 @@ def test_mesh_and_mixed_resolution_refused(nets):
 
 def test_serve_cli_sync_and_pipelined(files, vits, tmp_path):
     """cli/serve.py on two clips: the pipelined run gives the sync run's
-    keypoints; --shard-streams exits naming A14."""
+    keypoints, and so does ``--shard-streams`` over two CPU entries."""
     from easy_vitpose_tpu_torch.cli import serve
     paths = []
     for s in range(2):
@@ -289,5 +325,10 @@ def test_serve_cli_sync_and_pipelined(files, vits, tmp_path):
     assert any(len(t) for t in sync[0])
     saved = json.load(open(tmp_path / "a" / "cam1_keypoints.json"))["keypoints"]
     assert len(saved) == 3
-    with pytest.raises(SystemExit, match="A14"):
-        serve.main(base + ["--shard-streams"])
+    sharded = serve.main(base + ["--shard-streams", "--devices", "cpu", "cpu",
+                                 "--output-path", str(tmp_path / "c")])
+    for ls, lp in zip(sync, sharded):
+        for a, b in zip(ls, lp):
+            assert set(a) == set(b)
+            for k in a:
+                np.testing.assert_array_equal(a[k], b[k])

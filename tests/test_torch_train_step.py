@@ -61,10 +61,10 @@ def raw_batch(rng, n=B):
 def random_params(seed=0, cfg=CFG):
     rng = np.random.default_rng(seed)
 
-    def noisy(path, a):
+    def noisy(path, a):       # the float32 sum in numpy: JAX's bits, no op to compile
         if "bn_state" in jax.tree_util.keystr(path):
             return a
-        return a + jnp.asarray(0.02 * rng.standard_normal(a.shape), jnp.float32)
+        return np.asarray(a) + (0.02 * rng.standard_normal(a.shape)).astype(np.float32)
     return jax.tree_util.tree_map_with_path(noisy, init_vitpose_params(jax.random.PRNGKey(0), cfg))
 
 
@@ -265,8 +265,9 @@ def test_targets_and_loss_match_jax():
     raw = raw_batch(rng, 4)
     raw["joints"][0, :4] = [[-30.0, 10.0], [400.0, 50.0], [-2.3, -2.6], [191.5, 255.5]]
     got = pstep.render_batch_on_device(raw, device="cpu")
-    jt, jw = generate_gaussian_targets_jnp(jnp.asarray(raw["joints"]), jnp.asarray(raw["joints_vis"]))
-    ref = jstep.render_batch_on_device({k: jnp.asarray(v) for k, v in raw.items()})
+    jt, jw = jax.jit(generate_gaussian_targets_jnp)(jnp.asarray(raw["joints"]),
+                                                    jnp.asarray(raw["joints_vis"]))
+    ref = jax.jit(jstep.render_batch_on_device)({k: jnp.asarray(v) for k, v in raw.items()})
     np.testing.assert_array_equal(got["target_weights"].numpy(), np.asarray(jw))
     assert np.abs(got["targets"].numpy() - np.asarray(jt)).max() <= 1e-6
     assert np.abs(got["images"].numpy() - np.asarray(ref["images"])).max() <= 1e-6
@@ -274,7 +275,7 @@ def test_targets_and_loss_match_jax():
                                        torch.from_numpy(raw["joints_vis"]))
     assert torch.equal(pt, got["targets"]) and torch.equal(pw, got["target_weights"])
     pred = rng.uniform(0, 1, (4, 17, 64, 48)).astype(np.float32)
-    jl = float(jax_mse(jnp.asarray(pred), jt, jw))
+    jl = float(jax.jit(jax_mse)(jnp.asarray(pred), jt, jw))
     assert abs(float(joints_mse_loss(torch.from_numpy(pred), pt, pw)) - jl) <= 1e-6 * jl
 
 
@@ -432,7 +433,8 @@ def test_eval_step_matches_jax(accum_runs, return_heatmaps):
     js = accum_runs[-1][0]
     batch = raw_batch(np.random.default_rng(26), 2)
     kw = {"use_amp": False, "return_heatmaps": return_heatmaps, "render_kwargs": {"sigma": 2.0}}
-    ref = jstep.make_eval_step(CFG, **kw)(js, {n: jnp.asarray(v) for n, v in batch.items()})
+    ref = jax.jit(jstep.make_eval_step(CFG, **kw))(js, {n: jnp.asarray(v)
+                                                        for n, v in batch.items()})
     got = pstep.make_eval_step(PCFG, **kw)(train_state_from_jax(js, PCFG, device="cpu"), batch)
     jl, pl = (ref[0], got[0]) if return_heatmaps else (ref, got)
     assert abs(float(pl) - float(jl)) <= 1e-4 * float(jl)
@@ -452,9 +454,8 @@ def test_render_kwargs_match_jax():
     jw_ = rng.uniform(0.5, 1.5, (17, 1)).astype(np.float32)
     kw = {"heatmap_size": (24, 32), "image_size": (96, 128), "sigma": 2.0,
           "use_different_joints_weight": True}
-    jt, jw = generate_gaussian_targets_jnp(jnp.asarray(raw["joints"]) / 2,
-                                           jnp.asarray(raw["joints_vis"]),
-                                           joints_weight=jnp.asarray(jw_), **kw)
+    jt, jw = jax.jit(lambda j, v, w: generate_gaussian_targets_jnp(j, v, joints_weight=w, **kw))(
+        jnp.asarray(raw["joints"]) / 2, jnp.asarray(raw["joints_vis"]), jnp.asarray(jw_))
     pt, pw = generate_gaussian_targets(torch.from_numpy(raw["joints"]) / 2,
                                        torch.from_numpy(raw["joints_vis"]),
                                        joints_weight=torch.from_numpy(jw_), **kw)
@@ -462,8 +463,8 @@ def test_render_kwargs_match_jax():
     np.testing.assert_array_equal(pw.numpy(), np.asarray(jw))
     assert np.abs(pt.numpy() - np.asarray(jt)).max() <= 1e-6
     got = pstep.render_batch_on_device(raw, device="cpu", render_kwargs={"sigma": 2.0})
-    ref = jstep.render_batch_on_device({k: jnp.asarray(v) for k, v in raw.items()},
-                                       {"sigma": 2.0})
+    ref = jax.jit(lambda b: jstep.render_batch_on_device(b, {"sigma": 2.0}))(
+        {k: jnp.asarray(v) for k, v in raw.items()})
     np.testing.assert_array_equal(got["target_weights"].numpy(), np.asarray(ref["target_weights"]))
     assert np.abs(got["targets"].numpy() - np.asarray(ref["targets"])).max() <= 1e-6
     assert not torch.equal(got["targets"], pstep.render_batch_on_device(raw, device="cpu")["targets"])
@@ -624,7 +625,7 @@ def test_opt_state_from_jax(moment_dtype):
     trainable, _ = jstep.split_bn_state(random_params(13))
     rng = np.random.default_rng(14)
     tx = jax_fused_adam(LR, moment_dtype=moment_dtype)
-    st, apply = tx.init(trainable), jax.jit(tx.fused_apply)
+    st, apply = jax.jit(tx.init)(trainable), jax.jit(tx.fused_apply)
     for _ in range(2):
         grads = jax.tree.map(lambda a: jnp.asarray(rng.standard_normal(a.shape) * 1e-3,
                                                    jnp.float32), trainable)
@@ -640,8 +641,9 @@ def test_opt_state_from_jax(moment_dtype):
                 assert v.dtype == (torch.bfloat16 if moment_dtype == "bf16" else torch.float32)
                 assert torch.equal(v.float(), ref[k]), k
             continue
-        ref = port_tree(jax.tree.map(lambda q, s, p: _q8_decode(q, s, levels, p.shape),
-                                     jm["q_tree"], jm["s_tree"], trainable))
+        ref = port_tree(jax.jit(lambda q_tree, s_tree: jax.tree.map(
+            lambda q, s, p: _q8_decode(q, s, levels, p.shape), q_tree, s_tree, trainable))(
+                jm["q_tree"], jm["s_tree"]))
         half = -Q8_LN_EPS / (levels - 1) / 2
         for k, r in ref.items():
             r = r.numpy().astype(np.float64)
