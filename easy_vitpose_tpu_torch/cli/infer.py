@@ -26,6 +26,7 @@ import numpy as np
 from ..pipeline.inference import VitInference
 from ..skeletons import joints_dict
 from ..utils.io import NumpyEncoder, VideoReader, video_metadata
+from ..utils.profiling import device_trace
 
 try:
     import cv2
@@ -226,18 +227,6 @@ def run_one(args, input_path: str) -> None:
         print(f">>> frames: {len(fps_hist)}  mean FPS (steady): {np.mean(steady):.1f}")
 
 
-@contextlib.contextmanager
-def _trace(logdir: str):
-    """A torch.profiler trace of the block, written to logdir/trace.json."""
-    from torch.profiler import ProfilerActivity, profile
-    import torch
-    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
-    with profile(activities=acts) as prof:
-        yield
-    os.makedirs(logdir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
-
-
 def check_flags(args) -> None:
     """JAX's mode-conflict rules, checked before the model loads."""
     if args.batch and (args.target_fps or args.pipelined):
@@ -256,7 +245,7 @@ def check_flags(args) -> None:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     check_flags(args)
-    with (_trace(args.trace) if args.trace else contextlib.nullcontext()):
+    with (device_trace(args.trace) if args.trace else contextlib.nullcontext()):
         if os.path.isdir(args.input):
             inputs = sorted(sum((glob(os.path.join(args.input, "*" + e))
                                  for e in VIDEO_EXTS + IMAGE_EXTS), []))

@@ -65,6 +65,17 @@ def _load() -> ctypes.CDLL:
         return _lib
 
 
+def native_available() -> bool:
+    """Whether the compiled host NMS is loaded, building it first if it is
+    not built yet: what :func:`nms_cpu` runs.  False where no compiler can
+    build it (``nms_cpu`` then raises)."""
+    try:
+        _load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def nms_cpu(dets: np.ndarray, thr: float) -> List[int]:
     """Greedy IoU NMS over [x1, y1, x2, y2, score] rows: the kept row
     indices, highest score first (ties in row order)."""

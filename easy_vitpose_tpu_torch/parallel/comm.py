@@ -18,7 +18,9 @@ which also transpose them for the backward pass.  Here each is an
 * :func:`send_to` and :func:`recv_from`: a pipeline stage's hand-off; the
   backward of a send receives the gradient from the next stage, the
   backward of a receive sends it to the previous one.  Messages carry a
-  tag, so each gradient meets its activation.
+  tag, so each gradient meets its activation.  Over gloo a CUDA tensor is
+  staged through pinned host memory (gloo sends host memory only); NCCL
+  and CPU tensors are sent as they are.
 
 Ranks are global ranks of the default group where a peer is named;
 ``group`` is the group the collective runs over (``dist.group.WORLD`` or
@@ -104,20 +106,50 @@ class _Broadcast(torch.autograd.Function):
         return (g if ctx.is_src else torch.zeros_like(g)), None, None
 
 
+def _staged(device: torch.device, group) -> bool:
+    """Whether a message on ``device`` goes through host memory: gloo's
+    send and receive move host memory only (given a CUDA tensor, its
+    transport writes from the device address and the pair dies), while its
+    collectives stage CUDA tensors themselves.  Decided by the group's
+    backend, so NCCL and CPU messages go as they are."""
+    return device.type == "cuda" and dist.get_backend(group) == dist.Backend.GLOO
+
+
+def _send(x: torch.Tensor, dst: int, tag: int, group) -> None:
+    x = x.contiguous()
+    if _staged(x.device, group):
+        # a blocking copy into pinned memory waits for this process's
+        # stream only; gloo's send returns once the buffer is sent
+        host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+        host.copy_(x)
+        x = host
+    dist.send(x, dst, group=group, tag=tag)
+
+
+def _recv(shape, dtype: torch.dtype, device: torch.device, src: int, tag: int,
+          group) -> torch.Tensor:
+    if not _staged(device, group):
+        x = torch.empty(shape, dtype=dtype, device=device)
+        dist.recv(x, src, group=group, tag=tag)
+        return x
+    host = torch.empty(shape, dtype=dtype, pin_memory=True)
+    dist.recv(host, src, group=group, tag=tag)
+    return host.to(device)
+
+
 class _Send(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, dst, tag, group):
         ctx.dst, ctx.tag, ctx.group = dst, tag, group
         ctx.shape, ctx.dtype = x.shape, x.dtype
-        dist.send(x.contiguous(), dst, group=group, tag=tag)
+        _send(x, dst, tag, group)
         # a zero that depends on x: added to the stage's output, it puts the
         # send in the graph, so its backward receives the gradient
         return x.new_zeros(())
 
     @staticmethod
     def backward(ctx, zero_grad):
-        g = torch.empty(ctx.shape, dtype=ctx.dtype, device=zero_grad.device)
-        dist.recv(g, ctx.dst, group=ctx.group, tag=ctx.tag)
+        g = _recv(ctx.shape, ctx.dtype, zero_grad.device, ctx.dst, ctx.tag, ctx.group)
         return g, None, None, None
 
 
@@ -125,13 +157,11 @@ class _Recv(torch.autograd.Function):
     @staticmethod
     def forward(ctx, anchor, shape, dtype, src, tag, group):
         ctx.src, ctx.tag, ctx.group = src, tag, group
-        x = torch.empty(shape, dtype=dtype, device=anchor.device)
-        dist.recv(x, src, group=group, tag=tag)
-        return x
+        return _recv(shape, dtype, anchor.device, src, tag, group)
 
     @staticmethod
     def backward(ctx, g):
-        dist.send(g.contiguous(), ctx.src, group=ctx.group, tag=ctx.tag)
+        _send(g, ctx.src, ctx.tag, ctx.group)
         return None, None, None, None, None, None
 
 

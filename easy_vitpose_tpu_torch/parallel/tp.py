@@ -194,11 +194,11 @@ def tp_block(x: torch.Tensor, w: BlockWeights, num_heads: int, eps: float, group
     return x + m
 
 
-def tp_vitpose_forward_train(params: Mapping[str, torch.Tensor], x: torch.Tensor,
-                             cfg: ModelConfig, mesh: Mesh2D):
-    """The training forward over a model rank's shards (no drop-path):
-    -> ((B, K, 64, 48) heatmaps, new BN running statistics), the BatchNorm
-    statistics global over the ``data`` group."""
+def tp_backbone_forward_train(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                              cfg: ModelConfig, mesh: Mesh2D) -> torch.Tensor:
+    """The backbone's training forward over a model rank's shards (no
+    drop-path): (B, H, W, 3) -> (B, D, Hp, Wp) features, whole on every
+    rank of the model group."""
     bb = cfg.backbone
     n_model = mesh.model.size
     if bb.num_heads % n_model:
@@ -211,7 +211,15 @@ def tp_vitpose_forward_train(params: Mapping[str, torch.Tensor], x: torch.Tensor
     tokens = layer_norm(tokens, params["backbone.last_norm.weight"],
                         params["backbone.last_norm.bias"], bb.layer_norm_eps)
     Hp, Wp = bb.patch_shape
-    feats = tokens.reshape(B, Hp, Wp, bb.embed_dim).permute(0, 3, 1, 2)
+    return tokens.reshape(B, Hp, Wp, bb.embed_dim).permute(0, 3, 1, 2)
+
+
+def tp_vitpose_forward_train(params: Mapping[str, torch.Tensor], x: torch.Tensor,
+                             cfg: ModelConfig, mesh: Mesh2D):
+    """The training forward over a model rank's shards (no drop-path):
+    -> ((B, K, 64, 48) heatmaps, new BN running statistics), the BatchNorm
+    statistics global over the ``data`` group."""
+    feats = tp_backbone_forward_train(params, x, cfg, mesh)
     return head_forward_train(params, feats, cfg.head, group=mesh.data.group)
 
 

@@ -4,8 +4,8 @@ VideoReader additionally supports background prefetch (a decode thread ahead
 of the compute loop) so host video decode overlaps device compute — the
 double-buffering the reference lists as TODO (README.md:320-328).
 
-The port's own copy of the parts of ``easy_vitpose_tpu/utils/io.py`` that
-``cli/infer.py`` uses; cv2 is an optional import (media input needs it).
+The port's own copy of ``easy_vitpose_tpu/utils/io.py``; cv2 is an
+optional import (media input and :func:`save_image_grid` need it).
 """
 from __future__ import annotations
 
@@ -109,3 +109,45 @@ def video_metadata(path) -> dict:
     }
     cap.release()
     return meta
+
+
+def check_video_rotation(path) -> int:
+    """The rotation in degrees (a ``ROTATION_MAP`` key) that undoes the
+    container's rotation metadata, probed with ffprobe (reference
+    visualization.py:560-582 uses ffmpeg-python); 0 without ffprobe or
+    when the probe fails or finds none."""
+    import shutil
+    import subprocess
+    if shutil.which("ffprobe") is None:
+        return 0
+    try:
+        out = subprocess.run(
+            ["ffprobe", "-v", "quiet", "-print_format", "json", "-show_streams", str(path)],
+            capture_output=True, timeout=30).stdout
+        meta = json.loads(out or b"{}")
+        for stream in meta.get("streams", []):
+            rot = stream.get("tags", {}).get("rotate")
+            if rot is not None:
+                return {90: 270, 180: 180, 270: 90}.get(int(rot) % 360, 0)
+            for sd in stream.get("side_data_list", []) or []:
+                if "rotation" in sd:
+                    return {-90: 90, 90: 270, 180: 180, -180: 180}.get(int(sd["rotation"]), 0)
+    except (OSError, subprocess.SubprocessError, ValueError, TypeError, AttributeError):
+        pass            # an unreadable probe reads as no rotation, as JAX's
+    return 0
+
+
+def save_image_grid(path: str, images, cols: int = 4, pad: int = 2) -> None:
+    """Tile a batch of HWC uint8 RGB images into one PNG, ``cols`` a row
+    with ``pad`` black pixels between them (the reference's TensorBoard
+    grid role, visualization.py:484-557, without TensorBoard).  Needs cv2."""
+    import math
+    import cv2
+    images = [np.asarray(im) for im in images]
+    h, w = images[0].shape[:2]
+    rows = math.ceil(len(images) / cols)
+    grid = np.zeros((rows * (h + pad) - pad, cols * (w + pad) - pad, 3), np.uint8)
+    for i, im in enumerate(images):
+        r, c = divmod(i, cols)
+        grid[r * (h + pad):r * (h + pad) + h, c * (w + pad):c * (w + pad) + w] = im[..., :3]
+    cv2.imwrite(path, grid[..., ::-1])

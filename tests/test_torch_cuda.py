@@ -1344,3 +1344,60 @@ def test_keypoints_from_heatmaps_front_door_through_k4(dev):
         assert torch.equal(torch.isnan(pk.cpu()), nan), kw
         gap = ((pk.cpu() - pc) / per_px).abs()
         assert float(torch.where(nan, 0.0, gap).max()) <= 1e-3, kw
+
+
+@pytest.fixture(scope="module")
+def hand_off(dev, tmp_path_factory):
+    """Two gloo ranks on cuda:0 (tests/torch_parallel_workers.py::
+    cuda_hand_off): CUDA messages through the pipeline's hand-off, then a
+    2-stage pipelined backbone (D=128, depth 4, 4 micro-batches of 2) and
+    the one-process plain backbone on the same weights and crops."""
+    import dataclasses
+    from easy_vitpose_tpu_torch.models.vitpose import init_params
+    # by the module's own name: pytest puts tests/ on the path, while a
+    # ``tests`` package installed on the GPU host would shadow ``tests.*``
+    from torch_parallel_workers import Ranks
+    rng = np.random.default_rng(5)
+    messages = [(rng.normal(size=(3, 77, 5)).astype(np.float32),
+                 rng.normal(size=(3, 77, 5)).astype(np.float32)),
+                (rng.integers(-9, 9, (1001,)).astype(np.float32),
+                 rng.normal(size=(1001,)).astype(np.float32))]
+    base = small_model(128, 4, 0.0)
+    cfg = dataclasses.replace(base, backbone=dataclasses.replace(base.backbone, depth=4))
+    sd = {k: v.numpy() for k, v in init_params(cfg, 3).state_dict().items()
+          if v.is_floating_point()}
+    x = rng.normal(size=(8, 256, 192, 3)).astype(np.float32)
+    cot = rng.normal(size=(8, *cfg.backbone.patch_shape, 128)).astype(np.float32)
+    payload = {"messages": messages, "cfg": cfg, "params": sd, "x": x, "cot": cot, "n_micro": 4}
+    return messages, Ranks(2, "cuda_hand_off", tmp_path_factory.mktemp("hand_off"),
+                           payload).join()
+
+
+def test_gloo_hand_off_stages_cuda_tensors(hand_off):
+    """A CUDA tensor sent over gloo arrives on the card bit for bit (gloo
+    moves host memory only, so the hand-off stages it), and the gradient
+    the receiver's backward sends back reaches the sender's leaf bit for
+    bit; the sender's token is a zero."""
+    messages, (r0, r1) = hand_off
+    for (x, cot), sent, got in zip(messages, r0["messages"], r1["messages"]):
+        assert got["device"] == "cuda:0"
+        assert np.array_equal(got["got"], x)
+        assert np.array_equal(sent["grad"], cot) and sent["zero"] == 0.0
+
+
+def test_pipeline_on_the_card_matches_one_process(hand_off):
+    """The 2-stage pipelined backbone on cuda:0 (float32, TF32 off): each
+    stage's output and the gradients of every leaf it holds within 1e-5 of
+    the largest value of the one-process plain backbone's (the CPU gloo
+    tests' bound, tests/test_torch_parallel_tp.py)."""
+    _, results = hand_off
+    held = set()
+    for rank, r in enumerate(results):
+        pp = r["pp"]
+        assert pp["layers"] == [2 * rank, 2 * rank + 1]
+        assert np.abs(pp["out"] - pp["ref"]).max() <= 1e-5 * np.abs(pp["ref"]).max()
+        for k, (g, ref) in pp["grads"].items():
+            assert np.abs(g - ref).max() <= 1e-5 * max(np.abs(ref).max(), 1e-30), (rank, k)
+        held |= set(pp["grads"])
+    n_leaves = sum(1 for k in results[0]["pp"]["grads"] if not k.startswith("backbone.blocks."))
+    assert n_leaves > 0 and len(held) == n_leaves + 4 * 12

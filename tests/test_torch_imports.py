@@ -86,6 +86,9 @@ MODULES = [
     "easy_vitpose_tpu_torch.parallel.mesh",
     "easy_vitpose_tpu_torch.parallel.tp",
     "easy_vitpose_tpu_torch.parallel.pp",
+    "easy_vitpose_tpu_torch.version",
+    "easy_vitpose_tpu_torch.utils.logging",
+    "easy_vitpose_tpu_torch.utils.profiling",
 ]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|easy_vitpose_tpu)\b(?!_torch)", re.M)
 
@@ -112,3 +115,45 @@ def test_sources_import_no_jax():
     assert FORBIDDEN.search("import jax.numpy as jnp")
     assert FORBIDDEN.search("from easy_vitpose_tpu.ops import decode")
     assert not FORBIDDEN.search("from easy_vitpose_tpu_torch.ops import decode")
+
+
+def test_top_level_exports_vitinference_and_version():
+    """The package's public API is the JAX package's: ``VitInference`` (the
+    class of ``pipeline/inference.py``) and ``__version__``, the same
+    ``__all__``; another name raises AttributeError."""
+    import easy_vitpose_tpu
+    import easy_vitpose_tpu_torch
+    from easy_vitpose_tpu_torch.pipeline import inference
+
+    assert easy_vitpose_tpu_torch.VitInference is inference.VitInference
+    from easy_vitpose_tpu_torch import VitInference, __version__
+    assert VitInference is inference.VitInference
+    assert __version__ == easy_vitpose_tpu.__version__ == "0.1.0"
+    assert easy_vitpose_tpu_torch.__all__ == easy_vitpose_tpu.__all__
+    try:
+        easy_vitpose_tpu_torch.NotAName
+    except AttributeError as e:
+        assert "NotAName" in str(e)
+    else:
+        raise AssertionError("an unknown attribute did not raise")
+    assert not hasattr(easy_vitpose_tpu_torch, "EVT_FORCE_CPU")
+
+
+def test_package_import_stays_light():
+    """``import easy_vitpose_tpu_torch`` loads neither the pipeline nor JAX
+    (checked in a fresh interpreter); reading ``VitInference`` loads the
+    pipeline, still without JAX."""
+    code = ("import sys\n"
+            "import easy_vitpose_tpu_torch as p\n"
+            "heavy = lambda: sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'easy_vitpose_tpu') or m.startswith('easy_vitpose_tpu_torch.pipeline'))\n"
+            "print(','.join(heavy()))\n"
+            "p.VitInference\n"
+            "print('easy_vitpose_tpu_torch.pipeline.inference' in sys.modules, "
+            "any(m.split('.')[0] == 'jax' for m in sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env, check=True,
+                         capture_output=True, text=True, timeout=120)
+    before, after = out.stdout.split("\n")[:2]
+    assert before == ""
+    assert after == "True False"

@@ -264,7 +264,52 @@ def _pp(p, mesh):
             "grads": {k: v.grad.numpy() for k, v in local.items()}}
 
 
-SCENARIOS = {"dp": dp, "model_parallel": model_parallel}
+def cuda_hand_off(rank, world, p, wait):
+    """Two gloo ranks sharing cuda:0 (tests/test_torch_cuda.py): the
+    pipeline's hand-off of CUDA tensors, staged through host memory (each
+    of ``p["messages"]`` sent from rank 0 and received by rank 1, whose
+    gradient comes back), then the pipelined backbone at float32 and the
+    gradients of every leaf its stage holds, beside the one-process plain
+    backbone's on the card."""
+    from easy_vitpose_tpu_torch.models.vit import vit_forward_train
+    from easy_vitpose_tpu_torch.parallel import comm, pp
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    out = {"messages": []}
+    for tag, (x, cot) in enumerate(p["messages"]):
+        x, cot = torch.from_numpy(x).to(dev), torch.from_numpy(cot).to(dev)
+        if rank == 0:
+            leaf = x.clone().requires_grad_(True)
+            zero = comm.send_to(leaf, 1, tag)
+            zero.backward()
+            out["messages"].append({"grad": leaf.grad.cpu().numpy(), "zero": float(zero)})
+        else:
+            anchor = torch.zeros((), device=dev, requires_grad=True)
+            y = comm.recv_from(x.shape, x.dtype, 0, tag, anchor)
+            (y.float() * cot.float()).sum().backward()
+            out["messages"].append({"got": y.detach().cpu().numpy(), "device": str(y.device)})
+    cfg = p["cfg"].backbone
+    mesh = pp.make_pipe_mesh(world, device=dev)
+    full = {k: torch.from_numpy(v).to(dev) for k, v in p["params"].items()
+            if k.startswith("backbone.")}
+    x, cot = torch.from_numpy(p["x"]).to(dev), torch.from_numpy(p["cot"]).to(dev)
+    local = {k: v.clone().requires_grad_(True)
+             for k, v in pp.stage_params(full, cfg.depth, mesh).items()}
+    got = pp.pipeline_vit_forward(local, x, cfg, mesh, n_micro=p["n_micro"])
+    (got * cot).sum().backward()
+    ref_leaves = {k: v.clone().requires_grad_(True) for k, v in full.items()}
+    ref = vit_forward_train(ref_leaves, x, cfg, block_impl="xla")
+    (ref * cot).sum().backward()
+    out["pp"] = {"out": got.detach().cpu().numpy(), "ref": ref.detach().cpu().numpy(),
+                 "layers": list(pp.stage_layers(cfg.depth, mesh)),
+                 "grads": {k: (v.grad.cpu().numpy(), ref_leaves[k].grad.cpu().numpy())
+                           for k, v in local.items()}}
+    return out
+
+
+SCENARIOS = {"dp": dp, "model_parallel": model_parallel, "cuda_hand_off": cuda_hand_off}
 
 
 # ------------------------------------------------------- the training CLI
