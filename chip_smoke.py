@@ -250,7 +250,8 @@ import numpy as np
 
 # H100 SXM data sheet, dense: the bound of each kernel is the larger of its
 # bytes over the memory rate and its operations over the peak of their type
-PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "f32": 67e12}
+PEAK = {"hbm": 3.35e12, "bf16": 989e12, "int8": 1979e12, "f32": 67e12, "tf32": 495e12}
+TF32_PASSES = 3    # K1 fp32's products: lo.hi + hi.lo + hi.hi on the TF32 tensor cores
 TOL = {  # max |kernel - plain| allowed, relative to max |plain|
     "fp32": 1e-4,    # float32 sums in another order
     "bf16": 2e-2,    # a few bf16 ulps: roundings at the kernel's points may flip
@@ -433,16 +434,20 @@ def check_block_launches(torch, blk, x, dtype: str) -> dict:
         return errs
     a, mlp, ln = blk.attn, blk.mlp, blk.norm1
     wb = lambda lin: (lin.weight, lin.bias)
+    # float32: the TF32 halves the fp32 copy's block holds
+    sq, sp, s1, s2 = getattr(blk, "tf32_halves", None) or (None,) * 4
     h = vit.layer_norm(x2, ln.weight, ln.bias, blk.eps)
     hold("layernorm", fb.layernorm_cuda(x2, ln.weight, ln.bias, blk.eps, dt), h)
     qkv = vit.linear_f32(h, *wb(a.qkv)).to(dt)
-    hold("gemm qkv", fb.gemm_cuda(h, *wb(a.qkv)), qkv)
+    hold("gemm qkv", fb.gemm_cuda(h, *wb(a.qkv), split=sq), qkv)
     o = vit.attention_core(qkv.reshape(B, N, -1), a.num_heads).reshape(B * N, D)
     hold("attention", fb.attention_cuda(qkv, B, N, a.num_heads), o)
-    hold("gemm proj", fb.gemm_cuda(o, *wb(a.proj)), vit.linear_f32(o, *wb(a.proj)).to(dt))
+    hold("gemm proj", fb.gemm_cuda(o, *wb(a.proj), split=sp),
+         vit.linear_f32(o, *wb(a.proj)).to(dt))
     m = vit.gelu(vit.linear_f32(h, *wb(mlp.fc1))).to(dt)
-    hold("gemm fc1 gelu", fb.gemm_cuda(h, *wb(mlp.fc1), fb.EPI_GELU), m)
-    hold("gemm fc2", fb.gemm_cuda(m, *wb(mlp.fc2)), vit.linear_f32(m, *wb(mlp.fc2)).to(dt))
+    hold("gemm fc1 gelu", fb.gemm_cuda(h, *wb(mlp.fc1), fb.EPI_GELU, split=s1), m)
+    hold("gemm fc2", fb.gemm_cuda(m, *wb(mlp.fc2), split=s2),
+         vit.linear_f32(m, *wb(mlp.fc2)).to(dt))
     return errs
 
 
@@ -488,6 +493,68 @@ def block_work(B, N, D, hidden, w_bytes, x_bytes):
     return linear, attn, 2.0 * B * N * D * x_bytes + weights
 
 
+def check_tf32_parts(torch, blk, x) -> dict:
+    """K1 fp32's own kernels at block 0's shapes.  The four 3xTF32 GEMMs,
+    each fed the kernel path's own A: launched one by one and timed in sum
+    against their plain float32 products and against one ``torch.addmm``
+    each (the product and bias alone), each within LAUNCH_TOL of the plain
+    product, from the TF32 halves the fp32 copy's block holds.  The split
+    kernel on the block's four weights, bit for bit the halves the block
+    holds and the plain split there and on crafted patterns, timed in sum
+    against the plain split."""
+    from easy_vitpose_tpu_torch.models import fused_block as fb, vit
+    from easy_vitpose_tpu_torch.utils.precision import tf32_check_floats
+
+    B, N, D = x.shape
+    M = B * N
+    a, mlp = blk.attn, blk.mlp
+    x2 = x.reshape(M, D)
+    h = fb.layernorm_cuda(x2, blk.norm1.weight, blk.norm1.bias, blk.eps, torch.float32)
+    sq, sp, s1, s2 = blk.tf32_halves
+    qkv = fb.gemm_cuda(h, a.qkv.weight, a.qkv.bias, split=sq)
+    o = fb.attention_cuda(qkv, B, N, a.num_heads)
+    hid = fb.gemm_cuda(h, mlp.fc1.weight, mlp.fc1.bias, fb.EPI_GELU, split=s1)
+    cases = {"qkv": (h, a.qkv, fb.EPI_NONE, sq), "proj": (o, a.proj, fb.EPI_RESIDUAL, sp),
+             "fc1": (h, mlp.fc1, fb.EPI_GELU, s1), "fc2": (hid, mlp.fc2, fb.EPI_RESIDUAL, s2)}
+    err, ms, plain_ms, lib_ms, nbytes, ops = 0.0, 0.0, 0.0, 0.0, 0.0, 0.0
+    for name, (a_in, lin, epi, w) in cases.items():
+        res = x2 if epi == fb.EPI_RESIDUAL else None
+        run = lambda: fb.gemm_tf32_cuda(a_in, w, lin.bias, epi, res)  # noqa: E731
+
+        def plain():
+            y = vit.linear_f32(a_in, lin.weight, lin.bias)
+            return vit.gelu(y) if epi == fb.EPI_GELU else (y + res if res is not None else y)
+
+        e, rel = max_rel_err(torch, run(), plain())
+        check(rel <= LAUNCH_TOL["torch.float32"], f"fp32 gemm_tf32 {name} disagrees: {rel}")
+        err = max(err, e)
+        ms += time_ms(torch, run)
+        plain_ms += time_ms(torch, plain)
+        lib_ms += time_ms(torch, lambda: torch.addmm(lin.bias, a_in, lin.weight.t()))
+        Nw, K = lin.weight.shape
+        nbytes += 4 * (M * K + 2 * Nw * K + Nw + M * Nw + (M * Nw if res is not None else 0))
+        ops += 2.0 * M * Nw * K
+    ws = [t.weight for t in (a.qkv, a.proj, mlp.fc1, mlp.fc2)]
+    held = [torch.stack(s) for s in blk.tf32_halves]
+    pat = torch.from_numpy(tf32_check_floats())
+    for t, h_ in zip(ws + [pat], held + [None]):
+        got = fb.tf32_split_stacked(t.to(x.device))
+        want = torch.stack(fb.tf32_split_plain(t.to(x.device)))
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32))
+              and (h_ is None or torch.equal(h_.view(torch.int32), got.view(torch.int32))),
+              "the TF32 split kernel differs from the plain split or the block's halves")
+    n = sum(t.numel() for t in ws)
+    out = {"gemm_tf32": {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                         "bound": bound(nbytes, {"tf32": TF32_PASSES * ops}),
+                         "library_ms": lib_ms},
+           "tf32_split": {"max_abs_err": 0.0,
+                          "ms": time_ms(torch, lambda: [fb.tf32_split_stacked(t) for t in ws]),
+                          "plain_ms": time_ms(torch, lambda: [fb.tf32_split_plain(t) for t in ws]),
+                          "bound": bound(12.0 * n, {}), "library_ms": None}}
+    print("check fp32 gemm_tf32 and tf32_split:", json.dumps(out))
+    return out
+
+
 def check_kernels(torch, model, rng, dev):
     """Each kernel against its plain version at the main path's shapes and
     a ragged one; returns a dict of measurements per kernel."""
@@ -524,8 +591,15 @@ def check_kernels(torch, model, rng, dev):
             lin, attn, nbytes = block_work(B, N, D, hidden, 1 if dtype == "int8" else
                                            (4 if dtype == "fp32" else 2),
                                            4 if dtype == "fp32" else 2)
+            # fp32: three TF32 passes of every product on the tensor cores
             ops = ({"int8": lin, "bf16": attn} if dtype == "int8" else
-                   {"bf16": lin + attn} if dtype == "bf16" else {"f32": lin + attn})
+                   {"bf16": lin + attn} if dtype == "bf16" else
+                   {"tf32": TF32_PASSES * (lin + attn)})
+            if dtype == "fp32":
+                simt = bound(nbytes, {"f32": lin + attn})
+                print(f"fp32 block bound: {bound(nbytes, ops)[0]:.3f} ms on the TF32 tensor cores "
+                      f"(3 passes), {simt[0]:.3f} ms on the float32 FMA units")
+                out.update(check_tf32_parts(torch, blk, x))
             library_ms = None        # no PyTorch call runs int8 (W8A8) linears
             if dtype != "int8":
                 layer = encoder_layer(torch, blk)
@@ -1843,9 +1917,15 @@ def run_pose_steps(torch, model, rng, reps, dev):
     results = {}
     real_decode = ps.decode_keypoints
     for dtype in ("int8", "bf16", "fp32"):
+        kernels.reset_launch_counts()
         sm = serving_copy(model, dtype)
-        ps.pose_step(sm, frame, boxes, mask)              # warm-up
         torch.cuda.synchronize()
+        made = kernels.launch_counts()
+        if dtype == "fp32":       # the fp32 copy splits each block weight, once
+            print(f"serving copy fp32: launches {made}")
+            check(made.get("tf32_split") == 4 * depth,
+                  f"the fp32 copy split {made.get('tf32_split')} weights, expected {4 * depth}")
+        ps.pose_step(sm, frame, boxes, mask)              # warm-up
         seen = {}
 
         def spy(heat, geo, mask_, *a, **k):               # the step's own decode inputs
@@ -1862,6 +1942,8 @@ def run_pose_steps(torch, model, rng, reps, dev):
             ps.decode_keypoints = real_decode
         print(f"pose step {dtype}: launches {counts}")
         want = {block_kernel[dtype]: depth, "sampler": 1, "decode": 1}
+        if dtype == "fp32":       # the four 3xTF32 GEMMs of each block
+            want["gemm_tf32"] = 4 * depth
         check(counts == want, f"{dtype} pose step launched {counts}, expected {want}")
         check(kp.is_cuda and tuple(kp.shape) == (SLOTS, 17, 3),
               f"keypoints {kp.device} {tuple(kp.shape)}")
@@ -1909,7 +1991,8 @@ def run_pose_steps(torch, model, rng, reps, dev):
         wins = [window() for _ in range(5)]
         ms = statistics.median(w[0] for w in wins)
         host_ms = statistics.median(w[1] for w in wins)
-        results[dtype] = {"launches": counts, "ms_per_step": ms, "host_ms_per_step": host_ms,
+        results[dtype] = {"launches": counts, "copy_launches": made,
+                          "ms_per_step": ms, "host_ms_per_step": host_ms,
                           "crops_per_s": SLOTS / ms * 1e3, "heatmap_max_abs_err": err,
                           "heatmap_range": rng_, "decode_gap_px": gap}
         print(f"pose step {dtype}: {ms:.3f} ms/step, {SLOTS / ms * 1e3:.1f} crops/s, "
@@ -1921,6 +2004,10 @@ def run_pose_steps(torch, model, rng, reps, dev):
 
 DET_CONFIGS = (("n", 320), ("x", 640))   # README's YOLOv8n/320, and the largest at 640
 VI_FRAMES, VIDEO_FRAMES = 10, 30
+# pose steps of an image frame at steady state on this random-weight scene:
+# at fp32 the detector's rows past the slot count that the cap keeps take a
+# second, fetched step (64 people, as seen on an H100)
+VI_POSE_STEPS = {"int8": 1, "bf16": 1, "fp32": 2}
 STACK = 8                 # frames of a stacked launch: the multi-stream tick's streams
 BATCH_WINDOW = 16         # frames of an inference_batched window
 
@@ -2192,7 +2279,8 @@ def hold_to_plain(torch, vi, vi_plain, frames, dtype: str) -> dict:
 
 def run_vitinference(torch, model, frame_np, det, dev) -> dict:
     """The user's entry point at full width: VitInference(ViT-B npz,
-    yolo=YOLOv8n npz, dtype int8, then bf16) on the 1080p frame, image mode
+    yolo=YOLOv8n npz, dtype int8, then bf16, then the default fp32, no
+    dtype given) on the 1080p frame, image mode
     at steady state (after the slot high-water mark has risen) and video
     mode (SORT over VIDEO_FRAMES frames of the frame moving right 8 px a
     frame), each held to the plain path on the card; ms per frame, the
@@ -2213,11 +2301,13 @@ def run_vitinference(torch, model, frame_np, det, dev) -> dict:
         pose, det_path = os.path.join(d, "vitpose-b-coco.npz"), os.path.join(d, "yolov8n.npz")
         save_pose_npz(pose, model)
         yolo.save_yolo_npz(det_path, det["params_n"], "n")
-        for dtype in ("int8", "bf16"):
+        for dtype in ("int8", "bf16", "fp32"):
+            # fp32 is the constructor's default: the frame a user gets without a dtype
+            kw = {} if dtype == "fp32" else {"dtype": dtype}
             t0 = time.perf_counter()
-            vi = VitInference(pose, yolo=det_path, model_name="b", dtype=dtype)
+            vi = VitInference(pose, yolo=det_path, model_name="b", **kw)
             load_s = time.perf_counter() - t0
-            vi_plain = VitInference(pose, yolo=det_path, model_name="b", dtype=dtype, plain=True)
+            vi_plain = VitInference(pose, yolo=det_path, model_name="b", plain=True, **kw)
             check(vi.device.type == "cuda" and vi.single_dispatch, "VitInference not on the card")
             for _ in range(2):                      # the slot high-water mark rises
                 vi.inference(frame_np)
@@ -2227,11 +2317,18 @@ def run_vitinference(torch, model, frame_np, det, dev) -> dict:
             out = images[dtype] = vi.inference(frame_np)
             counts = kernels.launch_counts()
             block = "block_q8" if dtype == "int8" else "block"
-            want = {"letterbox": 1, "nms": 1, "sampler": 1, block: 12, "decode": 1}
-            print(f"vitinference {dtype} image: launches per frame {counts}, people {len(out)}")
-            check(counts == want, f"{dtype} image frame launched {counts}, expected {want}")
+            step = {"sampler": 1, block: 12, "decode": 1}
+            if dtype == "fp32":
+                step["gemm_tf32"] = 48        # the four 3xTF32 GEMMs of each block
+            want = {"letterbox": 1, "nms": 1, **step}
+            steps = VI_POSE_STEPS[dtype]
+            want_frame = {k: n * (steps if k in step else 1) for k, n in want.items()}
+            print(f"vitinference {dtype} image: launches per frame {counts}, people {len(out)}, "
+                  f"pose steps {steps}")
+            check(counts == want_frame,
+                  f"{dtype} image frame launched {counts}, expected {want_frame}")
             syncs = syncs_in(torch, lambda: vi.inference(frame_np))
-            check(syncs == 1, f"{dtype} image frame made {syncs} host syncs, expected 1")
+            check(syncs == steps, f"{dtype} image frame made {syncs} host syncs, expected {steps}")
             # the frame's queue of launches under the check set to raise:
             # eagerly, and as the graph replay that inference() makes
             d_ = vi._detector
@@ -2277,7 +2374,8 @@ def run_vitinference(torch, model, frame_np, det, dev) -> dict:
             row = {"ms_per_frame": ms, "host_queue_ms": queue_ms,
                    "eager_host_queue_ms": eager_queue_ms, "device_ms_per_frame": busy,
                    "profiled_ms_per_frame": wall, "device_busy_share": busy / ms,
-                   "slots": slots, "people": len(out), "launches_per_frame": counts,
+                   "slots": slots, "people": len(out), "pose_steps_per_frame": steps,
+                   "launches_per_frame": counts,
                    "host_syncs_per_frame": syncs, "load_s": load_s, **held}
             print(f"vitinference {dtype} image: {json.dumps(row)}")
             res[f"{dtype}_image"] = row
@@ -4523,13 +4621,19 @@ def main() -> int:
             ("K4 udp_modulate full map", "modulate", "modulate.cu", "ops/pallas_kernels.py:23", "int8",
              "modulate"),
             ("K4 decode_keypoints fused UDP decode", "decode", "decode.cu",
-             "ops/pallas_kernels.py:23", "int8", "decode"))
+             "ops/pallas_kernels.py:23", "int8", "decode"),
+            ("K1 fp32 gemm_tf32 (the block's four 3xTF32 GEMMs)", "gemm_tf32", "gemm_tf32.cuh",
+             "models/fused_block.py:51", "fp32", "gemm_tf32"),
+            ("K1 fp32 tf32_split (the block's four weights' TF32 halves)", "tf32_split",
+             "gemm_tf32.cuh", "models/fused_block.py:51", "fp32", "tf32_split"))
     for name, key, src, replaces, run, counter in spec:
         m = meas[key]
         rows.append({"name": name, "route": "cuda",
                      "source": f"easy_vitpose_tpu_torch/csrc/{src}",
                      "replaces": f"easy_vitpose_tpu/{replaces}",
-                     "launches": steps[run]["launches"].get(counter, 0),
+                     # the split runs once per weight, when the fp32 copy is made
+                     "launches": steps[run]["copy_launches" if counter == "tf32_split"
+                                            else "launches"].get(counter, 0),
                      "max_abs_err": m["max_abs_err"], "ms": m["ms"], "plain_ms": m["plain_ms"],
                      "bound_ms": m["bound"][0], "bound_by": m["bound"][1],
                      "library_ms": m["library_ms"]})
@@ -4540,6 +4644,9 @@ def main() -> int:
     # the .pt2 comparisons' kernel forwards, the ViTPose+ tasks and the eval lanes
     rows[0]["launches"] += exported["launches"]["bf16"].get("block", 0)
     rows[1]["launches"] += exported["launches"]["fp32"].get("block", 0)
+    for i, counter in ((1, "block"), (6, "gemm_tf32")):   # the default fp32 frame
+        rows[i]["launches"] += vi["fp32_image"]["launches_per_frame"].get(counter, 0)
+    rows[6]["launches"] += exported["launches"]["fp32"].get("gemm_tf32", 0)
     for i, counter in ((2, "block_q8"), (3, "sampler"), (5, "decode")):
         rows[i]["launches"] += new_paths.get(counter, 0)
     for i, counter in ((0, "block"), (2, "block_q8"), (3, "sampler"), (4, "modulate"),

@@ -200,7 +200,7 @@ def _gt_crops_batched(args, model_cfg=None):
     from ..configs import NUM_KEYPOINTS, get_model_config
     from ..convert.vitpose_plus import is_plus_params
     from ..kernels import resolve_device
-    from ..models.vitpose import compute_dtype, serving_copy
+    from ..models.vitpose import compute_dtype, serving_copy, serving_replica
     from ..ops.decode import keypoints_from_heatmaps_udp
     from ..pipeline.inference import SERVING, model_from_params
     from ..train.dataset import PIXEL_STD, CocoPoseDataset, batch_iterator
@@ -222,7 +222,7 @@ def _gt_crops_batched(args, model_cfg=None):
         raise SystemExit("--task requires a multi-task (ViTPose+) "
                          "checkpoint from 'cli/convert plus'")
     net = model_from_params(params, cfgm, task=args.task, dataset=dataset)
-    model = serving_copy(net, SERVING[args.dtype]).to(device)
+    model = serving_replica(serving_copy(net, SERVING[args.dtype]), device)
     in_dtype = compute_dtype(model)
     B = args.gt_crops_batched
     # data-parallel over the local mesh where it divides the batch: a
@@ -235,7 +235,7 @@ def _gt_crops_batched(args, model_cfg=None):
             replicas = {device: model}
             for d in mesh.devices:
                 if d not in replicas:
-                    replicas[d] = serving_copy(net, SERVING[args.dtype]).to(d)
+                    replicas[d] = serving_replica(model, d)
             shards = [(d, replicas[d]) for d in mesh.devices]
     fp = None
     if args.flip_test:

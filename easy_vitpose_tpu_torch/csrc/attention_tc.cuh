@@ -1,8 +1,9 @@
 // bf16 attention on the tensor cores: the forward of the serving and
 // training blocks (K1, K2, K5; block.cu's evt_attention) and the attention
 // backward of the training block (K7, K7 _saved; train_block.cu's
-// evt_attn_backward).  float32 keeps the FMA kernels of those files: it is
-// the parity mode.
+// evt_attn_backward).  The float32 forward is attention_tf32.cuh's (3xTF32
+// on the tensor cores); the float32 backward keeps train_block.cu's FMA
+// kernels.
 //
 // What bounds these on the H100: at ViT-B and 64 crops of 192 tokens the
 // forward is 7.2 GFLOP of bf16 products on 57 MB of qkv (17 us of memory,

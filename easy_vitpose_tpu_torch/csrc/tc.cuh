@@ -75,4 +75,21 @@ __device__ __forceinline__ uint32_t scale_bf16x2(uint32_t v, float scale) {
     return pack_bf16(__bfloat162float(p.x) * scale, __bfloat162float(p.y) * scale);
 }
 
+// A finite x rounded to TF32, nearest with ties away from zero, as a
+// float32 bit pattern with the low 13 bits zero: cvt.rna.tf32.f32's bits
+// by an integer add and a mask (half a TF32 ulp added to the bits rounds
+// the magnitude, a carry into the exponent included; the largest floats
+// carry into infinity).  The 3xTF32 kernels' one rounding rule
+// (gemm_tf32.cuh adds the rules for infinities and NaNs); its plain
+// version is models/fused_block.py::tf32_round_plain.
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// a finite x = hi + lo + O(2^-22 |x|), both TF32
+__device__ __forceinline__ void tf32_halves(float x, uint32_t& hi, uint32_t& lo) {
+    hi = tf32_rna(x);
+    lo = tf32_rna(x - __uint_as_float(hi));
+}
+
 }  // namespace tc

@@ -33,10 +33,13 @@ the host wait: the per-device constants are made once.  On the card,
 graph per frame shape (``pipeline/graphs.py``), the counterpart of JAX's
 ``detect_frame_jit`` and ``detect_batch_jit``.
 
-Numerics: the float32 detector assumes float32 convolutions, i.e.
-``torch.backends.cudnn.allow_tf32 = False`` on the card (PyTorch's default
-is True, and TF32 keeps about three decimal digits); ``chip_smoke.py`` and
-the CUDA tests set it.  At bfloat16, each convolution runs in bf16, adds its
+Numerics: the float32 detector's convolutions run in float32 and on
+cuDNN's deterministic algorithms whatever the caller's flags say (PyTorch's
+``torch.backends.cudnn.allow_tf32`` is True by default, and TF32 keeps
+about three decimal digits): :func:`yolo_forward` runs inside
+``utils/precision.py::float32_convolutions``, which sets both for its
+duration and restores the caller's settings, eagerly and in a captured
+graph alike.  At bfloat16, each convolution runs in bf16, adds its
 float32 bias (promoting), rounds back to bf16 and then applies SiLU, as
 ``conv_bn_silu`` does in JAX.
 """
@@ -54,6 +57,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from .. import kernels
+from ..utils.precision import float32_convolutions
 
 # scale -> (depth_mult, width_mult, max_channels)
 SCALES = {
@@ -341,8 +345,10 @@ def _forward_nchw(model: Yolo, x: torch.Tensor) -> List[torch.Tensor]:
 def yolo_forward(model: Yolo, x: torch.Tensor) -> List[torch.Tensor]:
     """Backbone + neck + detect.  x: (B, H, W, 3) normalized [0, 1] NHWC, in
     the detector's dtype.  Returns per-level raw head outputs
-    [(B, h_l, w_l, 4*REG_MAX + nc)], NHWC as in JAX."""
-    outs = _forward_nchw(model, x.permute(0, 3, 1, 2))
+    [(B, h_l, w_l, 4*REG_MAX + nc)], NHWC as in JAX.  float32 convolutions
+    run in float32, deterministically (the module docstring)."""
+    with float32_convolutions(x.dtype):
+        outs = _forward_nchw(model, x.permute(0, 3, 1, 2))
     return [o.permute(0, 2, 3, 1) for o in outs]
 
 

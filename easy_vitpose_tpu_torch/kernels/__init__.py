@@ -53,8 +53,12 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "block": {
         # x, w, b, out, rows, cols, eps, x_bf16, w_bf16, out_bf16, stream
         "evt_layernorm": [_P, _P, _P, _P, _I, _I, _F, _I, _I, _I, _P],
-        # a, w, bias, res, out, M, N, K, bf16 (else f32), epilogue, stream
-        "evt_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # a, w, bias, res, out, M, N, K, epilogue, stream (bf16)
+        "evt_gemm": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # a, w_hi, w_lo, bias, res, out, M, N, K, epilogue, stream (float32, 3xTF32)
+        "evt_gemm_tf32": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # x, hi, lo, n, stream
+        "evt_split_tf32": [_P, _P, _P, _L, _P],
         # qkv, o, crops, tokens, dim, heads, scale, bf16, stream
         "evt_attention": [_P, _P, _I, _I, _I, _I, _F, _I, _P],
     },

@@ -67,8 +67,9 @@ at the bf16 tensor peak.  At ViT-L K6b is three 103-GFLOP products (0.31
 ms), K6c two (0.21 ms), K6d three and K6e four.  The bf16 training GEMMs
 run on ``wgmma`` fed by a TMA ring (``csrc/gemm_wgmma.cuh``: 128x128
 tiles, each operand read as stored), the bf16 attention backward on the
-tensor cores (``csrc/attention_tc.cuh``); float32 keeps FMA kernels.  The
-times are in PERF.md.
+tensor cores (``csrc/attention_tc.cuh``); float32 keeps FMA kernels, but
+for the forward attention, which is K1's (3xTF32, ``csrc/attention_tf32.cuh``).
+The times are in PERF.md.
 
 Each kernel has a plain version here (``*_plain``), written step by step as
 the kernel's math, rounding to the working dtype where the TPU kernels

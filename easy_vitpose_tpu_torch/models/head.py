@@ -29,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..configs import HeadConfig
+from ..utils.precision import float32_convolutions
 
 BN_EPS = 1e-5        # torch BatchNorm2d default
 BN_MOMENTUM = 0.1    # torch default running-stat update rate
@@ -75,7 +76,14 @@ def head_forward(head: Head, x: torch.Tensor) -> torch.Tensor:
 
 def head_forward_params(params, x: torch.Tensor, cfg: HeadConfig, prefix: str = "") -> torch.Tensor:
     """:func:`head_forward` over a mapping from ``{prefix}.``-state-dict
-    names to tensors (a ViTPose+ model's heads, ``models/moe.py``)."""
+    names to tensors (a ViTPose+ model's heads, ``models/moe.py``).  A
+    float32 head's convolutions run in float32 and deterministically
+    whatever cuDNN's flags say (``utils/precision.py``)."""
+    with float32_convolutions(x.dtype):
+        return _head_forward_params(params, x, cfg, prefix)
+
+
+def _head_forward_params(params, x, cfg: HeadConfig, prefix: str) -> torch.Tensor:
     dot = f"{prefix}." if prefix else ""
     for i, k in enumerate(cfg.deconv_kernels):
         dc, bn = f"{dot}deconv_layers.{3 * i}", f"{dot}deconv_layers.{3 * i + 1}"

@@ -22,7 +22,9 @@ The forwards:
   sum as JAX's separate expert product, so the splice equals JAX's
   selection column for column (what ``select_task`` and ``VitInference(task=)``
   rest on).  Serving runs the spliced blocks through the block kernel (K1,
-  ``fused_block_weights``) on the card and its plain version on the CPU;
+  ``fused_block_weights``; at float32 with the TF32 halves of the spliced
+  weights, split anew each call: four split launches a block) on the card
+  and its plain version on the CPU;
   ``plain=True`` runs :func:`moe_block`, JAX's XLA block, on any device;
 * a mixed batch (``expert_onehot``, (B, E) weights) computes every expert
   and mixes them per sample in float32, as JAX's two einsums do
@@ -134,7 +136,7 @@ def vit_plus_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: M
                      expert_onehot: Optional[torch.Tensor] = None, *,
                      plain: bool = False) -> torch.Tensor:
     """The MoE backbone for serving: (B, H, W, 3) -> (B, Hp, Wp, D)."""
-    from .fused_block import fused_block_weights
+    from .fused_block import fused_block_weights, split_weights
 
     bb = cfg.backbone
     tokens = embed(params, x, bb, "backbone")
@@ -144,8 +146,10 @@ def vit_plus_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: M
                                expert_idx=None if expert_onehot is not None else expert_idx,
                                expert_onehot=expert_onehot)
         else:
-            tokens = fused_block_weights(tokens, spliced_block(params, i, expert_idx),
-                                         bb.num_heads, bb.layer_norm_eps)
+            w = spliced_block(params, i, expert_idx)
+            # float32 on the card: the spliced weights' TF32 halves, made each call
+            splits = split_weights(w) if tokens.dtype == torch.float32 and tokens.is_cuda else None
+            tokens = fused_block_weights(tokens, w, bb.num_heads, bb.layer_norm_eps, splits)
     tokens = layer_norm(tokens, params["backbone.last_norm.weight"],
                         params["backbone.last_norm.bias"], bb.layer_norm_eps)
     Hp, Wp = bb.patch_shape

@@ -132,7 +132,7 @@ def gemm_q8_cuda(h: torch.Tensor, wq, sw, b, out_dtype, epilogue: int = EPI_NONE
     q, sx = rowquant_cuda(h)
     M, K = q.shape
     N = wq.shape[0]
-    check_gemm_shape(N, K, 1, True)
+    check_gemm_shape(N, K, 1)
     out = torch.empty((M, N), dtype=out_dtype, device=h.device)
     res = residual.data_ptr() if residual is not None else None
     kernels.call(KERNEL, "evt_gemm_q8", h.device, q.data_ptr(), wq.data_ptr(),

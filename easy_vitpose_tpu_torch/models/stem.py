@@ -60,7 +60,10 @@ def stem_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: Backb
                  prefix: str = "") -> torch.Tensor:
     """(B, H, W, C) normalized NHWC crops -> (B, Hp*Wp, D) tokens in the
     dtype of ``x``; ``params`` maps ``{prefix}.convs.{i}.weight`` and the
-    others (see the module docstring) to tensors."""
+    others (see the module docstring) to tensors.  At float32 the
+    convolutions run in float32 and deterministically whatever cuDNN's
+    flags say (``utils/precision.py``)."""
+    from ..utils.precision import float32_convolutions
     from .vit import layer_norm, linear_f32
 
     dot = f"{prefix}." if prefix else ""
@@ -70,7 +73,8 @@ def stem_forward(params: Mapping[str, torch.Tensor], x: torch.Tensor, cfg: Backb
         top, bottom = same_pad(h.shape[1])
         left, right = same_pad(h.shape[2])
         hc = F.pad(h.permute(0, 3, 1, 2), (left, right, top, bottom))
-        hc = F.conv2d(hc, params[f"{dot}convs.{i}.weight"].to(dt), stride=2)
+        with float32_convolutions(dt):
+            hc = F.conv2d(hc, params[f"{dot}convs.{i}.weight"].to(dt), stride=2)
         h = hc.permute(0, 2, 3, 1) + params[f"{dot}convs.{i}.bias"].to(dt)
         h = layer_norm(h, params[f"{dot}norms.{i}.weight"], params[f"{dot}norms.{i}.bias"],
                        cfg.layer_norm_eps)

@@ -80,15 +80,29 @@ def cast_params(model: ViTPose, dtype: torch.dtype) -> ViTPose:
 
 def serving_copy(model: ViTPose, dtype: str) -> ViTPose:
     """The serving copy of a float32 model for ``dtype`` in
-    :data:`SERVING_DTYPES`: fp32, bf16, or int8 blocks with a bf16 rest."""
-    if dtype == "fp32":
-        return cast_params(model, torch.float32)
-    if dtype == "bf16":
-        return cast_params(model, torch.bfloat16)
+    :data:`SERVING_DTYPES`: fp32, bf16, or int8 blocks with a bf16 rest.
+    An fp32 copy on the card holds its blocks' TF32 weight halves
+    (``fused_block.split_block_weights``), which its block kernel reads."""
+    from .fused_block import split_block_weights
+
+    if dtype in ("fp32", "bf16"):
+        out = cast_params(model, torch.float32 if dtype == "fp32" else torch.bfloat16)
+        split_block_weights(out.backbone)
+        return out
     if dtype == "int8":
         from .quant import quantize_vit_params
         return quantize_vit_params(model, torch.bfloat16)
     raise ValueError(f"dtype must be one of {SERVING_DTYPES}, got {dtype!r}")
+
+
+def serving_replica(model: ViTPose, device) -> ViTPose:
+    """A copy of a serving copy on ``device``, with its fp32 blocks' TF32
+    weight halves made there."""
+    from .fused_block import split_block_weights
+
+    out = copy.deepcopy(model).to(device)
+    split_block_weights(out.backbone)
+    return out
 
 
 def _trunc_normal(rng: np.random.Generator, shape, std: float) -> np.ndarray:

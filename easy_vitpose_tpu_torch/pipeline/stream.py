@@ -30,14 +30,13 @@ does.
 """
 from __future__ import annotations
 
-import copy
 from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
 from ..detect.yolo import YoloDetector, to_device
-from ..models.vitpose import ViTPose
+from ..models.vitpose import ViTPose, serving_replica
 from ..ops.one_euro import apply_track_smoothing
 from ..track.sort import Sort, track_and_cap
 from .pose_step import bucket_slots, pose_multi_frame
@@ -109,7 +108,7 @@ class MultiStreamPose:
             replicas = {self.device: self._shards[0]}
             for d in mesh.devices:
                 if d not in replicas:
-                    replicas[d] = _Shard(d, copy.deepcopy(model).to(d),
+                    replicas[d] = _Shard(d, serving_replica(model, d),
                                          None if detector is None else detector.on(d))
             self._shards = [replicas[d] for d in mesh.devices]
         self.frame_counter = 0

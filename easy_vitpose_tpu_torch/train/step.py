@@ -49,6 +49,7 @@ from torch import nn
 from ..configs import IMAGENET_MEAN, IMAGENET_STD, ModelConfig
 from ..convert.from_jax import jax_leaves
 from ..kernels import resolve_device
+from ..models.fused_block import split_block_weights
 from ..models.vit import draw_drop_path_masks
 from ..models.vitpose import BN_STATS, ViTPose, vitpose_forward, vitpose_forward_train
 from ..ops.heatmap import generate_gaussian_targets
@@ -575,6 +576,7 @@ def serving_model(cfg: ModelConfig, params: Mapping[str, torch.Tensor],
         if k.endswith("num_batches_tracked"):
             sd[k] = torch.zeros((), dtype=torch.long, device=dev)
     model.load_state_dict(sd, assign=True)
+    split_block_weights(model.backbone)       # float32 on the card: the block kernel's halves
     return model.eval()
 
 

@@ -70,8 +70,20 @@ candidate is kept); and the IoU's IEEE division as ``__fdividef`` (changes
 the bits).  The thread and sweep variants are checked for the shipped
 bits.
 
+With ``--tf32-gemm`` it times instead variants of K1's float32 GEMM
+(``csrc/gemm_tf32.cuh``, 3xTF32 on ``wgmma``), each a ``block`` library of
+its own, on ViT-B block 0's four products at 64 crops: the shipped kernel
+(A split in registers from its raw k-tile, 4 ring stages of three
+k-tiles), A split by the launch that produces it (A_hi and A_lo read by
+descriptor, 3 stages of four k-tiles; textual substitutions that put the
+shared-memory form of ``wgmma`` back), the shipped kernel with 3 stages,
+and its split rounded by ``cvt.rna.tf32.f32`` (the same bits) instead of
+an integer add; and the time of the second output that A's producers
+would write.  Outputs are checked against the shipped kernel's.
+
 Usage (a machine with the CUDA toolkit and a card):
-    python3 scripts/bench_kernel_variants.py [--out FILE] [--train-gemm | --adam-q8 | --crop-decode]
+    python3 scripts/bench_kernel_variants.py [--out FILE] [--train-gemm | --adam-q8 |
+                                              --crop-decode | --nms | --tf32-gemm]
 """
 import argparse
 import json
@@ -484,7 +496,8 @@ def train_gemm_variants(card: str) -> dict:
 
 def build_variants(lib_name: str, variants: dict) -> tuple:
     """Each variant of ``csrc/<lib_name>.cu`` (a list of textual
-    substitutions) built into a library of its own, one ``nvcc`` each, all
+    substitutions ``(old, new)``, or ``(file, old, new)`` for another file
+    of ``csrc/``) built into a library of its own, one ``nvcc`` each, all
     at once: ({name: ctypes library}, the temporary directory)."""
     import ctypes
     import shutil
@@ -496,13 +509,14 @@ def build_variants(lib_name: str, variants: dict) -> tuple:
         d = os.path.join(tmp, name)
         shutil.copytree(kernels.CSRC, d)
         path = os.path.join(d, f"{lib_name}.cu")
-        src = open(path).read()
-        for old, new in subs:
+        for sub in subs:
+            fname, old, new = sub if len(sub) == 3 else (f"{lib_name}.cu", *sub)
+            with open(os.path.join(d, fname)) as f:
+                src = f.read()
             if old not in src:
-                raise RuntimeError(f"{lib_name} variant {name}: {old[:40]!r}... not in the source")
-            src = src.replace(old, new)
-        with open(path, "w") as f:
-            f.write(src)
+                raise RuntimeError(f"{lib_name} variant {name}: {old[:40]!r}... not in {fname}")
+            with open(os.path.join(d, fname), "w") as f:
+                f.write(src.replace(old, new))
         so = os.path.join(d, f"lib{lib_name}.so")
         procs[name] = (so, subprocess.Popen([nvcc, *kernels.NVCC_FLAGS, "-I", d, "-o", so, path]))
     libs = {}
@@ -514,6 +528,113 @@ def build_variants(lib_name: str, variants: dict) -> tuple:
             getattr(lib, fn).argtypes = argtypes
         libs[name] = lib
     return libs, tmp
+
+
+# K1's float32 GEMM (csrc/gemm_tf32.cuh through block.cu's evt_gemm_tf32).
+# a_split_by_producer reads A split, A_hi's rows then A_lo's from row
+# gridDim.y * 128 on (the launch producing A would write both), by
+# descriptor with the shared-memory form of wgmma: four k-tiles a ring slot,
+# three slots, and no split in registers.
+_WGMMA_SS = (
+    "__device__ __forceinline__ void wgmma_ss(float (&d)[ACC], uint64_t da, uint64_t db,\n"
+    "                                         int scale_d) {\n"
+    "    asm volatile(\"{\\n.reg .pred p;\\nsetp.ne.b32 p, %66, 0;\\n\"\n"
+    "                 \"wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+    + ", ".join(f"%{i}" for i in range(64)) + "}, %64, %65, p, 1, 1;\\n}\\n\"\n"
+    "                 : " + ", ".join(f'"+f"(d[{i}])' for i in range(64)) + "\n"
+    "                 : \"l\"(da), \"l\"(db), \"r\"(scale_d));\n}\n\n")
+TF32_GEMM = {
+    "shipped": [],
+    "a_split_by_producer": [
+        ("gemm_tf32.cuh", "constexpr int STAGES = 4;", "constexpr int STAGES = 3;"),
+        ("gemm_tf32.cuh", "constexpr int STAGE_BYTES = 3 * TILE_BYTES;",
+         "constexpr int STAGE_BYTES = 4 * TILE_BYTES;"),
+        ("gemm_tf32.cuh", "constexpr uint32_t W_AT = TILE_BYTES;",
+         "constexpr uint32_t W_AT = 2 * TILE_BYTES;"),
+        ("gemm_tf32.cuh", "// byte offset of float (r, k)", _WGMMA_SS + "// byte offset of float (r, k)"),
+        ("gemm_tf32.cuh", "    wg::tma_load(slot, ma, k0, m0, bar);\n",
+         "    wg::tma_load(slot, ma, k0, m0, bar);\n"
+         "    wg::tma_load(slot + TILE_BYTES, ma, k0, gridDim.y * BM + m0, bar);\n"),
+        ("gemm_tf32.cuh", """        wgmma_ra(acc, frag[ks] + 4, dh, ks);  // a_lo . w_hi
+        wgmma_ra(acc, frag[ks], dl, 1);       // a_hi . w_lo
+        wgmma_ra(acc, frag[ks], dh, 1);       // a_hi . w_hi
+""", """        const uint32_t ah = slot + (threadIdx.x >> 7) * (TILE_BYTES / 2) + 32 * ks;
+        const uint64_t dah = wg::desc(ah, 16, 1024), dal = wg::desc(ah + TILE_BYTES, 16, 1024);
+        wgmma_ss(acc, dal, dh, ks);
+        wgmma_ss(acc, dah, dl, 1);
+        wgmma_ss(acc, dah, dh, 1);
+"""),
+        ("gemm_tf32.cuh", "            load_frags(frag[1 - B], ring_ptr + slot_of(kt + 1), row);\n", ""),
+        ("gemm_tf32.cuh", "    load_frags(frag[0], ring_ptr, row);\n", ""),
+        ("gemm_tf32.cuh", "wg::make_map(&ma, a, K, M, K, BK, BM, 4)",
+         "wg::make_map(&ma, a, K, 2 * ((M + BM - 1) / BM * BM), K, BK, BM, 4)")],
+    "3_stages": [("gemm_tf32.cuh", "constexpr int STAGES = 4;", "constexpr int STAGES = 3;")],
+    "cvt_rna_split": [("tc.cuh", "    return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;",
+                       """    uint32_t r;
+    asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+    return r & 0xFFFFE000u;""")],
+}
+
+
+def tf32_gemm_variants(card: str) -> dict:
+    """ms per launch of each TF32_GEMM variant on ViT-B block 0's four
+    products at 64 crops (M = 12288; CUDA events, ``chip_smoke.time_ms``),
+    on the same float32 operands and weight halves.  The shipped kernel
+    splits A in registers; ``a_split_by_producer`` takes A split (A_hi's
+    rows then A_lo's, read by descriptor, four k-tiles a ring slot), here
+    from the split kernel.  The launch producing A (LN, attention, fc1's
+    epilogue) would write A_lo beside A_hi: ``a_lo_write_ms`` times that
+    second output alone, a ``fill_`` of an (M, K) float32 tensor, and
+    ``a_split_by_producer_with_writes_ms`` adds it to that variant's sum
+    (an estimate: the writes are not fused into the producers here).  Each
+    variant's outputs are checked against the shipped one's within 1e-6 of
+    their largest value."""
+    import torch
+    import chip_smoke as cs
+    from easy_vitpose_tpu_torch.models import fused_block as fb
+
+    libs, tmp = build_variants("block", TF32_GEMM)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    R, D = cs.SLOTS * 192, 768
+    out = {"card": card, "tf32_gemm_ms": {}, "a_lo_bytes": {}, "a_lo_write_ms": {}}
+    cases = {"qkv": (3 * D, D, fb.EPI_NONE), "proj": (D, D, fb.EPI_RESIDUAL),
+             "fc1": (4 * D, D, fb.EPI_GELU), "fc2": (D, 4 * D, fb.EPI_RESIDUAL)}
+    with torch.no_grad():
+        for case, (N, K, epi) in cases.items():
+            a = torch.randn(R, K, device=dev, generator=gen)
+            w = fb.tf32_split(torch.randn(N, K, device=dev, generator=gen) * 0.03)
+            b = torch.randn(N, device=dev, generator=gen) * 0.1
+            res = torch.randn(R, N, device=dev, generator=gen)
+            a2 = fb.tf32_split_stacked(a).view(2 * R, K)
+            o = torch.empty(R, N, device=dev)
+            ref = None
+            a_lo = torch.empty_like(a)
+            out["a_lo_bytes"][case] = a_lo.numel() * 4
+            out["a_lo_write_ms"][case] = cs.time_ms(torch, lambda: a_lo.fill_(1.0))
+            for name, lib in libs.items():
+                src = a2 if name == "a_split_by_producer" else a
+                fn = lambda: lib.evt_gemm_tf32(  # noqa: E731
+                    src.data_ptr(), w.hi.data_ptr(), w.lo.data_ptr(), b.data_ptr(),
+                    res.data_ptr() if epi == fb.EPI_RESIDUAL else None, o.data_ptr(),
+                    R, N, K, epi, stream())
+                if fn():
+                    raise RuntimeError(f"TF32 GEMM variant {name} refused {case}")
+                torch.cuda.synchronize()
+                if ref is None:
+                    ref = o.clone()
+                _, rel = cs.max_rel_err(torch, o, ref)
+                cs.check(rel <= 1e-6, f"TF32 GEMM variant {name} differs at {case}: {rel}")
+                out["tf32_gemm_ms"].setdefault(name, {})[case] = cs.time_ms(torch, fn)
+    for row in out["tf32_gemm_ms"].values():
+        row["sum"] = sum(row[c] for c in cases)
+    out["a_lo_write_ms"]["sum"] = sum(out["a_lo_write_ms"][c] for c in cases)
+    out["a_split_by_producer_with_writes_ms"] = (out["tf32_gemm_ms"]["a_split_by_producer"]["sum"]
+                                                 + out["a_lo_write_ms"]["sum"])
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
 
 
 def crop_decode_variants(card: str) -> dict:
@@ -671,12 +792,15 @@ def main():
                     help="time the variants of the crop kernel (K3) and the decode instead")
     ap.add_argument("--nms", action="store_true",
                     help="time the variants of the NMS kernel (D2) instead")
+    ap.add_argument("--tf32-gemm", action="store_true",
+                    help="time the variants of K1's float32 (3xTF32) GEMM instead")
     args = ap.parse_args()
-    if args.train_gemm or args.adam_q8 or args.crop_decode or args.nms:
+    if args.train_gemm or args.adam_q8 or args.crop_decode or args.nms or args.tf32_gemm:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True,
                               text=True).stdout.strip().splitlines()[0]
         line = json.dumps(train_gemm_variants(card) if args.train_gemm else
+                          tf32_gemm_variants(card) if args.tf32_gemm else
                           adam_q8_variants(card) if args.adam_q8 else
                           nms_variants(card) if args.nms else
                           crop_decode_variants(card))

@@ -6,8 +6,10 @@ only, one ``nvcc`` per source in parallel, and prints one line per kernel
 (demangled where ``c++filt`` is there): registers, spill stores and loads,
 stack frame and static shared memory.  Ends with one JSON line and exits 1
 if a kernel whose name matches ``--must-not-spill`` (a regular expression;
-by default the tensor-core attention, the serving GEMM and the bf16
-training GEMMs) spills.
+by default the tensor-core attentions, the serving GEMMs and the bf16
+training GEMMs) spills, or if ptxas serializes a kernel's ``wgmma``
+instructions (its "wgmma.mma_async instructions are serialized" warning,
+printed with the kernel's name).
 
 Usage (a machine with the CUDA toolkit):
     python3 scripts/ptxas_report.py [block train_block ...] [--must-not-spill REGEX]
@@ -63,7 +65,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("sources", nargs="*", default=list(kernels.SOURCES))
     ap.add_argument("--must-not-spill",
-                    default=r"attn_tc::|mma_gemm::gemm_kernel|tg::gemm_(tn2_)?bf16_kernel")
+                    default=r"attn_tc::|attn_tf32::|mma_gemm::gemm_kernel|tf::gemm_tf32_kernel|"
+                            r"tg::gemm_(tn2_)?bf16_kernel")
     args = ap.parse_args()
     nvcc = kernels.nvcc_path()
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]
@@ -74,12 +77,13 @@ def main():
                "-o", os.path.join(tmp, f"{name}.cubin"), str(kernels.CSRC / f"{name}.cu")]
         procs[name] = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                                        text=True)
-    rows, failed = [], []
+    rows, failed, serialized = [], [], []
     for name, proc in procs.items():
         log, _ = proc.communicate()
         if proc.returncode:
             failed.append(name)
             print(log)
+        serialized += [line.strip() for line in log.splitlines() if "serialized" in line]
         for r in parse(log):
             r["source"] = name
             rows.append(r)
@@ -97,8 +101,9 @@ def main():
     print(json.dumps({"kernels": len(rows), "checked": len(checked),
                       "max_registers_checked": max((r["registers"] or 0 for r in checked),
                                                    default=None),
-                      "spilling_checked": bad, "failed_sources": failed}))
-    return 1 if bad or failed else 0
+                      "spilling_checked": bad, "failed_sources": failed,
+                      "wgmma_serialized": serialized}))
+    return 1 if bad or failed or serialized else 0
 
 
 if __name__ == "__main__":

@@ -174,12 +174,12 @@ def test_cuda_wrappers_refuse_cpu_only_and_bad_shapes():
     with pytest.raises(ValueError, match="CUDA"):
         kernels.require_cuda(torch.zeros(2))
     with pytest.raises(ValueError, match="multiple of 64"):
-        fused_block.check_gemm_shape(96, 768, 2, True)
+        fused_block.check_gemm_shape(96, 768, 2)
     with pytest.raises(ValueError, match="multiple of 128"):
-        fused_block.check_gemm_shape(768, 96, 1, True)
+        fused_block.check_gemm_shape(768, 96, 1)
     with pytest.raises(ValueError, match="shared memory"):
         fused_block.check_attention_shape(1024, 1024, 8)
-    fused_block.check_gemm_shape(2304, 768, 2, True)      # ViT-B shapes pass
+    fused_block.check_gemm_shape(2304, 768, 2)      # ViT-B shapes pass
     fused_block.check_attention_shape(192, 768, 12)
 
 
@@ -197,9 +197,9 @@ def test_shape_checks_accept_each_vit_size(size):
         fused_block.check_attention_shape(N, D, heads, dt)
         fused_block_train.check_train_shapes(N, D, hidden, heads, dt)
     for n, k in ((3 * D, D), (D, D), (hidden, D), (D, hidden)):
-        fused_block.check_gemm_shape(n, k, 2, True)
-        fused_block.check_gemm_shape(n, k, 1, True)
-        fused_block.check_gemm_shape(n, k, 4, False)
+        fused_block.check_gemm_shape(n, k, 2)
+        fused_block.check_gemm_shape(n, k, 1)
+        fused_block.check_gemm_shape(n, k, 4)
 
 
 @pytest.mark.parametrize("check,args,match", [
@@ -224,4 +224,4 @@ def test_shape_checks_refuse_bad_shapes(check, args, match):
         elif check == "train":
             fused_block_train.check_train_shapes(*args, torch.bfloat16)
         else:
-            fused_block.check_gemm_shape(*args, True)
+            fused_block.check_gemm_shape(*args)

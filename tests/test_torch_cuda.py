@@ -51,13 +51,79 @@ def test_gemm(dev, dtype, tol, epi, M):
     w = randn(dev, N, K, scale=0.05, dtype=dtype)
     b = randn(dev, N, scale=0.1, dtype=dtype)
     res = randn(dev, M, N, dtype=dtype, seed=1)
-    got = fb.gemm_cuda(a, w, b, epi, res if epi == fb.EPI_RESIDUAL else None)
+    split = fb.tf32_split(w) if dtype == torch.float32 else None
+    got = fb.gemm_cuda(a, w, b, epi, res if epi == fb.EPI_RESIDUAL else None, split=split)
     ref = vit.linear_f32(a, w, b)
     if epi == fb.EPI_GELU:
         ref = vit.gelu(ref)
     if epi == fb.EPI_RESIDUAL:
         ref = res.float() + ref.to(dtype).float()
     assert rel_err(got, ref.to(dtype)) <= tol
+
+
+def test_tf32_split_kernel_bits(dev):
+    """The split kernel gives the plain split's bits on crafted patterns:
+    ties, carries, subnormals, signed zeros, infinities and NaNs."""
+    from easy_vitpose_tpu_torch.utils.precision import tf32_check_floats
+    x = torch.from_numpy(tf32_check_floats())
+    want = fb.tf32_split_plain(x)
+    got = fb.tf32_split(x.to(dev))
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu().view(torch.int32), w.view(torch.int32))
+
+
+# the four products of a block of each ViT width (S, B, L, H; ViTPose+
+# shares them), K from 384 to 5120, at a ragged M, through each epilogue
+VIT_PRODUCTS = sorted({(n, k) for d in (384, 768, 1024, 1280)
+                       for n, k in ((3 * d, d), (d, d), (4 * d, d), (d, 4 * d))})
+
+
+@pytest.mark.parametrize("epi", [fb.EPI_NONE, fb.EPI_GELU, fb.EPI_RESIDUAL])
+@pytest.mark.parametrize("N,K", VIT_PRODUCTS)
+def test_gemm_tf32_vit_widths(dev, N, K, epi):
+    """The float32 GEMM (3xTF32 on wgmma) from W's halves within 1e-5 of
+    the float32 product, launched once, counted once."""
+    M = 577
+    a = randn(dev, M, K)
+    w = randn(dev, N, K, scale=0.05)
+    b = randn(dev, N, scale=0.1)
+    res = randn(dev, M, N, seed=1)
+    split = fb.tf32_split(w)
+    kernels.reset_launch_counts()
+    got = fb.gemm_cuda(a, w, b, epi, res if epi == fb.EPI_RESIDUAL else None, split=split)
+    assert kernels.launch_counts() == {fb.KERNEL_TF32: 1}
+    ref = vit.linear_f32(a, w, b)
+    if epi == fb.EPI_GELU:
+        ref = vit.gelu(ref)
+    if epi == fb.EPI_RESIDUAL:
+        ref = res + ref
+    assert rel_err(got, ref) <= 1e-5
+
+
+def test_gemm_tf32_refuses(dev):
+    """No fallback: a K off the 32-float k-tile, a weight without its TF32
+    halves (or with another weight's), a misaligned operand, halves on
+    another device and a non-float32 weight raise before any launch."""
+    a, b = randn(dev, 64, 80), randn(dev, 128)
+    w = fb.tf32_split(randn(dev, 128, 128))
+    w80, w192 = fb.tf32_split(randn(dev, 128, 80)), fb.tf32_split(randn(dev, 192, 128))
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="depth 80 is not a multiple of 32"):
+        fb.gemm_cuda(a, randn(dev, 128, 80), b, split=w80)
+    a1 = randn(dev, 64, 128)
+    with pytest.raises(ValueError, match="TF32 halves"):
+        fb.gemm_cuda(a1, randn(dev, 128, 128), b)
+    with pytest.raises(ValueError, match="TF32 halves"):
+        fb.gemm_cuda(a1, randn(dev, 128, 128), b, split=w192)
+    with pytest.raises(ValueError, match="different devices"):
+        fb.gemm_tf32_cuda(a1, fb.TF32Split(w.hi.cpu(), w.lo.cpu()), b)
+    a2 = randn(dev, 64 * 128 + 1)[1:].reshape(64, 128)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        fb.gemm_tf32_cuda(a2, w, b)
+    with pytest.raises(ValueError, match="float32"):
+        fb.gemm_tf32_cuda(randn(dev, 64, 128), fb.TF32Split(*(randn(
+            dev, 128, 128, dtype=torch.bfloat16),) * 2), b)
+    assert kernels.launch_counts() == {}
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
@@ -114,7 +180,7 @@ def test_attention(dev, dtype, tol, N, hd):
     """Head dims of ViT-S/B/L (32, 64), ViT-H (80), one padded to 48 (40)
     and the longer ones whose bf16 logits take key chunks (96, 128); token
     counts with a partial 16-key tile (50, 200) and the largest (256).
-    float32 refuses the shapes whose FMA block exceeds shared memory."""
+    float32 (3xTF32) refuses the shapes whose K and V exceed shared memory."""
     B, heads = 3, 2
     qkv = randn(dev, B * N, 3 * heads * hd, dtype=dtype)
     if dtype == torch.float32 and fb.attention_smem_bytes(N, hd) > fb.SMEM_LIMIT:
@@ -280,7 +346,11 @@ def test_pose_step_from_numpy(dev, monkeypatch):
         sm = serving_copy(model, dtype)
         kernels.reset_launch_counts()
         kp = pose_step(sm, frame, boxes, mask)
-        assert kernels.launch_counts() == {block: 2, "sampler": 1, "decode": 1}
+        # four GEMMs a block (the fp32 copy holds its weights' TF32 halves)
+        tf32 = {fb.KERNEL_TF32: 8} if dtype == "fp32" else {}
+        halves = getattr(sm.backbone.blocks[0], "tf32_halves", None)
+        assert (halves is not None) == (dtype == "fp32")
+        assert kernels.launch_counts() == {block: 2, "sampler": 1, "decode": 1, **tf32}
         assert kp.is_cuda and torch.isfinite(kp).all() and (kp[1] == 0).all()
         with torch.no_grad():
             t = [torch.from_numpy(a).to(dev) for a in (frame, boxes)]
@@ -353,6 +423,7 @@ def test_block_at_each_vit_width(dev, size):
     x = randn(dev, 2, cfg.num_tokens, cfg.embed_dim)
     for dtype in (torch.float32, torch.bfloat16):
         b = blk.to(dtype)
+        fb.split_block(b)
         got = fb.fused_block(x.to(dtype), b)
         assert rel_err(got, vit.block(x.to(dtype), b)) <= (1e-4 if dtype == torch.float32 else 2e-2)
     qb = quant.QBlock(blk.float())
@@ -1228,7 +1299,9 @@ def test_moe_task_forward_through_k1(dev, dtype, tol):
         for task, K in (("coco", 17), ("aic", 14), ("mpii", 16)):
             kernels.reset_launch_counts()
             got = moe.vitpose_plus_forward(sd, x, cfg, task)
-            assert kernels.launch_counts() == {"block": 2} and got.shape == (5, K, 64, 48)
+            # float32: the spliced weights' TF32 halves, made each call, and four GEMMs a block
+            tf32 = {fb.KERNEL_TF32: 8, fb.KERNEL_SPLIT: 8} if dtype == torch.float32 else {}
+            assert kernels.launch_counts() == {"block": 2, **tf32} and got.shape == (5, K, 64, 48)
             assert rel_err(got, moe.vitpose_plus_forward(sd, x, cfg, task, plain=True)) <= tol
         onehot = torch.eye(3, device=dev)[torch.tensor([0, 2, 1, 1, 0], device=dev)]
         mixed = moe.vit_plus_forward(sd, x, cfg, expert_onehot=onehot)
@@ -1401,3 +1474,62 @@ def test_pipeline_on_the_card_matches_one_process(hand_off):
         held |= set(pp["grads"])
     n_leaves = sum(1 for k in results[0]["pp"]["grads"] if not k.startswith("backbone.blocks."))
     assert n_leaves > 0 and len(held) == n_leaves + 4 * 12
+
+
+@pytest.mark.parametrize("part", ["head", "stem", "detector"])
+def test_fp32_convolutions_ignore_the_tf32_flag(dev, part):
+    """With cuDNN's TF32 flag at PyTorch's default (True), the fp32 head,
+    hybrid stem and detector give the bits they give with it False, and the
+    same bits run after run: their convolutions run in float32 and on
+    deterministic algorithms either way (the head's transposed convolutions
+    would otherwise take one that sums with atomics), and the caller's
+    flags are left as they were."""
+    from easy_vitpose_tpu_torch.configs import BackboneConfig, HeadConfig
+    from easy_vitpose_tpu_torch.detect import yolo
+    from easy_vitpose_tpu_torch.models import head, stem
+
+    g = np.random.default_rng(3)
+    if part == "head":
+        hcfg = HeadConfig(in_channels=768, num_keypoints=17)
+        hd = head.Head(hcfg)
+        with torch.no_grad():
+            for p in hd.parameters():
+                p.copy_(torch.from_numpy(g.standard_normal(tuple(p.shape)).astype(np.float32))
+                        * (0.05 if p.dim() > 1 else 1.0))
+        hd = hd.to(dev).eval()
+        x = randn(dev, 16, 768, 16, 12)
+        run = lambda: head.head_forward(hd, x)  # noqa: E731
+    elif part == "stem":
+        cfg = BackboneConfig(embed_dim=256, depth=1, num_heads=4, stem_channels=(32, 64, 128, 256))
+        params = {}
+        chans = (3,) + cfg.stem_channels
+        for i in range(4):
+            params[f"convs.{i}.weight"] = randn(dev, chans[i + 1], chans[i], 3, 3, scale=0.2,
+                                                seed=i)
+            params[f"convs.{i}.bias"] = randn(dev, chans[i + 1], scale=0.1, seed=10 + i)
+            params[f"norms.{i}.weight"] = randn(dev, chans[i + 1], seed=20 + i) * 0.1 + 1
+            params[f"norms.{i}.bias"] = randn(dev, chans[i + 1], scale=0.1, seed=30 + i)
+        params["proj.weight"] = randn(dev, 256, 256, scale=0.05, seed=40)
+        params["proj.bias"] = randn(dev, 256, scale=0.1, seed=41)
+        x = randn(dev, 4, 256, 192, 3)
+        run = lambda: stem.stem_forward(params, x, cfg)  # noqa: E731
+    else:
+        frame_np = g.integers(0, 256, (480, 640, 3), dtype=np.uint8)
+        spec = yolo.YoloSpec("n")
+        model = yolo.yolo_params_from_jax(yolo.init_yolo_params(0, spec, frame_np, 320), spec,
+                                          torch.float32, dev)
+        x = torch.from_numpy(g.uniform(0, 1, (2, 320, 320, 3)).astype(np.float32)).to(dev)
+        run = lambda: torch.cat([o.reshape(-1) for o in yolo.yolo_forward(model, x)])  # noqa: E731
+    prev = torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic
+    try:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = True, False
+        with torch.no_grad():
+            loose, again = run(), run()
+        # the caller's settings, restored
+        assert torch.backends.cudnn.allow_tf32 and not torch.backends.cudnn.deterministic
+        torch.backends.cudnn.allow_tf32 = False
+        with torch.no_grad():
+            strict = run()
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cudnn.deterministic = prev
+    assert torch.equal(loose, strict) and torch.equal(loose, again)

@@ -89,6 +89,7 @@ MODULES = [
     "easy_vitpose_tpu_torch.version",
     "easy_vitpose_tpu_torch.utils.logging",
     "easy_vitpose_tpu_torch.utils.profiling",
+    "easy_vitpose_tpu_torch.utils.precision",
 ]
 FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|easy_vitpose_tpu)\b(?!_torch)", re.M)
 
