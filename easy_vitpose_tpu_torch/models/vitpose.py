@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..configs import ModelConfig
+from ..utils.profiling import span
 from .head import Head, head_forward, head_forward_train
 from .vit import ViT, vit_forward, vit_forward_train
 
@@ -46,9 +47,10 @@ def vitpose_forward(model: ViTPose, x: torch.Tensor, *, plain: bool = False) -> 
 
     ``plain=True`` runs the kernels' plain versions on any device (see
     :func:`..models.vit.vit_forward`)."""
-    feats = vit_forward(model.backbone, x, plain=plain)
-    heat = head_forward(model.keypoint_head, feats.permute(0, 3, 1, 2))
-    return heat.contiguous()
+    with span("evt.pose.backbone"):
+        feats = vit_forward(model.backbone, x, plain=plain)
+    with span("evt.pose.head"):
+        return head_forward(model.keypoint_head, feats.permute(0, 3, 1, 2)).contiguous()
 
 
 def vitpose_forward_train(params, x: torch.Tensor, cfg: ModelConfig, *,

@@ -47,6 +47,7 @@ from ..kernels import resolve_device
 from ..models.vitpose import ViTPose, serving_copy
 from ..skeletons import joints_dict
 from ..track.sort import Sort, track_and_cap
+from ..utils.profiling import span
 from .pose_step import bucket_slots, pose_multi_frame, pose_step
 
 __all__ = ["VitInference"]
@@ -297,14 +298,17 @@ class VitInference:
         return results[results[:, 4] > self._gate()][:, :5]
 
     def _upload(self, img: np.ndarray) -> torch.Tensor:
-        return to_device(img, self.device)
+        with span("evt.frame.upload"):
+            return to_device(img, self.device)
 
     def _pose(self, frame_dev: torch.Tensor, boxes: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """The pose step on (M, 4) host boxes: (M, K, 3) keypoints, fetched."""
-        out = pose_step(self._model, frame_dev, to_device(boxes, self.device),
-                        to_device(mask, self.device), flip_pairs=self._flip_pairs,
-                        plain=self.plain)
-        return out.cpu().numpy()
+        with span("evt.frame.dispatch"):
+            out = pose_step(self._model, frame_dev, to_device(boxes, self.device),
+                            to_device(mask, self.device), flip_pairs=self._flip_pairs,
+                            plain=self.plain)
+        with span("evt.frame.fetch"):
+            return out.cpu().numpy()
 
     def inference(self, img: np.ndarray,
                   bboxes: Optional[np.ndarray] = None) -> Dict[Any, np.ndarray]:
@@ -322,7 +326,8 @@ class VitInference:
         if bboxes is not None:
             res_pd = np.asarray(bboxes, np.float32).reshape(-1, 5)
         elif self._detector is not None and self._detect_due():
-            results = self._detector(frame_dev, frame_hw=img.shape[:2])
+            with span("evt.frame.dispatch"):
+                results = self._detector(frame_dev, frame_hw=img.shape[:2])
             if len(results):
                 res_pd = self._filter_dets(results)
         self.frame_counter += 1
@@ -351,13 +356,15 @@ class VitInference:
                                det.classes, det.conf, det.iou, det.max_det, det.dtype, slots,
                                gate, flip_pairs=self._flip_pairs, plain=self.plain)
 
-        if det.graphed:
-            packed_dev, kpts_dev = det.graphs.run(
-                ("detect_pose", tuple(frame_dev.shape), slots, gate), program, frame_dev)
-        else:
-            packed_dev, kpts_dev = program(frame_dev)
+        with span("evt.frame.dispatch"):
+            if det.graphed:
+                packed_dev, kpts_dev = det.graphs.run(
+                    ("detect_pose", tuple(frame_dev.shape), slots, gate), program, frame_dev)
+            else:
+                packed_dev, kpts_dev = program(frame_dev)
         # the one fetch of the frame: both outputs in one copy
-        both = torch.cat([packed_dev.reshape(-1), kpts_dev.reshape(-1)]).cpu().numpy()
+        with span("evt.frame.fetch"):
+            both = torch.cat([packed_dev.reshape(-1), kpts_dev.reshape(-1)]).cpu().numpy()
         packed = both[:packed_dev.numel()].reshape(packed_dev.shape)
         kpts = both[packed_dev.numel():].reshape(kpts_dev.shape)
         self.frame_counter += 1
@@ -440,7 +447,9 @@ class VitInference:
         res_pd = np.empty((0, 5), np.float32)
         results = None
         if det_h is not None:
-            results = self._detector.unpack(det_h.cpu().numpy(), hw)
+            with span("evt.frame.fetch"):
+                det_host = det_h.cpu().numpy()
+            results = self._detector.unpack(det_host, hw)
             if len(results):
                 res_pd = self._filter_dets(results)
         return res_pd, results
@@ -448,7 +457,10 @@ class VitInference:
     def _dispatch_detect_async(self, frame_dev, hw):
         due = self._detector is not None and self._detect_due()
         self.frame_counter += 1
-        return self._detector.detect_async(frame_dev, frame_hw=hw) if due else None
+        if not due:
+            return None
+        with span("evt.frame.dispatch"):
+            return self._detector.detect_async(frame_dev, frame_hw=hw)
 
     def inference_batched(self, frames, bboxes_per_frame=None) -> list:
         """Offline batched video inference: F consecutive same-size frames ->
@@ -575,7 +587,9 @@ class VitInference:
         filter -> score cap.  Returns (rows, ids, scores, det_idx), where
         ``det_idx`` maps each output row to its index in ``res_pd`` (-1 for
         a coasting track with no detection this frame)."""
-        rows, det_idx = track_and_cap(self.tracker, res_pd, self.fixed_slots or self.max_people)
+        with span("evt.frame.track"):
+            rows, det_idx = track_and_cap(self.tracker, res_pd,
+                                          self.fixed_slots or self.max_people)
         ids = (rows[:, 5].astype(int).tolist() if self.tracker is not None
                else list(range(len(rows))))
         return rows, ids, rows[:, 4].tolist(), det_idx

@@ -33,6 +33,7 @@ from ..ops.affine import flip_back_heatmaps
 from ..ops.decode import decode_keypoints, decode_keypoints_plain
 from ..ops.preprocess import Geometry, geometry_views
 from ..ops.sampler import crop_normalize, crop_normalize_plain
+from ..utils.profiling import span
 
 ArrayLike = Union[np.ndarray, torch.Tensor]
 
@@ -48,7 +49,8 @@ def _heatmaps(model: ViTPose, frame: torch.Tensor, boxes: torch.Tensor,
     """(heatmaps in the head's dtype, or float32 with the flip test;
     packed (M, 8) crop geometry)."""
     crop = crop_normalize_plain if plain else crop_normalize
-    x, geo = crop(frame, boxes, IMAGE_SIZE, compute_dtype(model), frame_idx)
+    with span("evt.pose.sample"):
+        x, geo = crop(frame, boxes, IMAGE_SIZE, compute_dtype(model), frame_idx)
     heat = vitpose_forward(model, x, plain=plain)
     if flip_pairs is not None:
         # flip test: forward the mirrored crop, un-flip, average
@@ -92,14 +94,16 @@ def pose_step(model: ViTPose, frame: ArrayLike, boxes: ArrayLike, mask: ArrayLik
     device = resolve_device(device, frame)
     if model.backbone.pos_embed.device != device:
         raise ValueError(f"model is on {model.backbone.pos_embed.device}, step on {device}")
-    frame = _to(frame, device)
-    boxes = _to(boxes, device, torch.float32)
-    mask = _to(mask, device, torch.bool)
-    if frame_idx is not None:
-        frame_idx = _to(frame_idx, device, torch.int32)
-    heat, geo = _heatmaps(model, frame, boxes, flip_pairs, plain, frame_idx)
-    # decode with the padded crop's center (w//2, h//2) and size (w, h)
-    return (decode_keypoints_plain if plain else decode_keypoints)(heat, geo, mask)
+    with span("evt.pose.step"):
+        frame = _to(frame, device)
+        boxes = _to(boxes, device, torch.float32)
+        mask = _to(mask, device, torch.bool)
+        if frame_idx is not None:
+            frame_idx = _to(frame_idx, device, torch.int32)
+        heat, geo = _heatmaps(model, frame, boxes, flip_pairs, plain, frame_idx)
+        # decode with the padded crop's center (w//2, h//2) and size (w, h)
+        with span("evt.pose.decode"):
+            return (decode_keypoints_plain if plain else decode_keypoints)(heat, geo, mask)
 
 
 def pose_multi_frame(model: ViTPose, frames: ArrayLike, boxes: ArrayLike,

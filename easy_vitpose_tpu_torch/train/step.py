@@ -53,6 +53,7 @@ from ..models.fused_block import split_block_weights
 from ..models.vit import draw_drop_path_masks
 from ..models.vitpose import BN_STATS, ViTPose, vitpose_forward, vitpose_forward_train
 from ..ops.heatmap import generate_gaussian_targets
+from ..utils.profiling import span
 from .fused_opt import global_norm, sqrt_rn
 from .losses import joints_mse_loss
 
@@ -140,15 +141,16 @@ def render_batch_on_device(batch: Mapping[str, Any], device=None,
     ``target_weights``) passes through, so every step accepts either form."""
     first = batch["images_u8" if "images_u8" in batch else "images"]
     device = resolve_device(device, like=first)
-    batch = {k: _upload(v, device) for k, v in batch.items() if k != "meta"}
-    if "images_u8" not in batch:
-        return batch
-    x = batch["images_u8"].float()
-    x = x / torch.full((1,), 255.0, device=device)
-    mean, std = _mean_std(device)
-    targets, weights = generate_gaussian_targets(batch["joints"], batch["joints_vis"],
-                                                 **(render_kwargs or {}))
-    return {"images": (x - mean) / std, "targets": targets, "target_weights": weights}
+    with span("evt.train.render"):
+        batch = {k: _upload(v, device) for k, v in batch.items() if k != "meta"}
+        if "images_u8" not in batch:
+            return batch
+        x = batch["images_u8"].float()
+        x = x / torch.full((1,), 255.0, device=device)
+        mean, std = _mean_std(device)
+        targets, weights = generate_gaussian_targets(batch["joints"], batch["joints_vis"],
+                                                     **(render_kwargs or {}))
+        return {"images": (x - mean) / std, "targets": targets, "target_weights": weights}
 
 
 def forward_loss(cfg: ModelConfig, trainable: Mapping[str, torch.Tensor],
@@ -161,18 +163,21 @@ def forward_loss(cfg: ModelConfig, trainable: Mapping[str, torch.Tensor],
     require grad: -> (loss, new BN running statistics, leaves by name).
     ``loss_fn(heatmaps, targets, target_weights)`` gives the loss; ``group``
     makes the head's BatchNorm statistics global over a process group."""
-    leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
-    dt = torch.bfloat16 if use_amp else torch.float32
-    params = merge_bn_state({k: v.to(dt) for k, v in leaves.items()}, bn_state)
-    heat, new_bn = vitpose_forward_train(params, batch["images"].to(dt), cfg,
-                                         drop_path_masks=drop_path_masks, generator=generator,
-                                         block_impl=block_impl, plain=plain, group=group)
-    return loss_fn(heat, batch["targets"], batch["target_weights"]), new_bn, leaves
+    with span("evt.train.forward"):
+        leaves = {k: v.detach().requires_grad_(True) for k, v in trainable.items()}
+        dt = torch.bfloat16 if use_amp else torch.float32
+        params = merge_bn_state({k: v.to(dt) for k, v in leaves.items()}, bn_state)
+        heat, new_bn = vitpose_forward_train(params, batch["images"].to(dt), cfg,
+                                             drop_path_masks=drop_path_masks,
+                                             generator=generator, block_impl=block_impl,
+                                             plain=plain, group=group)
+        return loss_fn(heat, batch["targets"], batch["target_weights"]), new_bn, leaves
 
 
 def backward(loss: torch.Tensor, leaves: Mapping[str, torch.Tensor]) -> Tensors:
     """float32 grads of ``loss`` by leaf name."""
-    return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+    with span("evt.train.backward"):
+        return dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
 
 
 def loss_and_grads(cfg: ModelConfig, trainable: Mapping[str, torch.Tensor],
@@ -387,21 +392,22 @@ def apply_optimizer(tx, grads, opt_state, params, g_norm: Optional[torch.Tensor]
     train are kept) and the global norm of every gradient.  ``g_norm``
     gives an :class:`Optimizer` the global norm of a tree whose leaves here
     are shards (the fused optimizer takes none)."""
-    if hasattr(tx, "fused_apply"):
-        if g_norm is not None:
-            raise ValueError("the fused optimizer computes its own norm; sharded leaves "
-                             "need an Optimizer (make_optimizer)")
-        return tx.fused_apply(grads, opt_state, params)
-    if g_norm is None:
-        updates, new_opt = tx.update(grads, opt_state, params)
-        g_norm = global_norm(grads)
-    else:
-        updates, new_opt = tx.update(grads, opt_state, params, g_norm=g_norm)
-    names = list(updates)
-    new = dict(params)
-    new.update(zip(names, torch._foreach_add([params[k] for k in names],
-                                             [updates[k] for k in names])))
-    return new, new_opt, g_norm
+    with span("evt.train.optimizer"):
+        if hasattr(tx, "fused_apply"):
+            if g_norm is not None:
+                raise ValueError("the fused optimizer computes its own norm; sharded leaves "
+                                 "need an Optimizer (make_optimizer)")
+            return tx.fused_apply(grads, opt_state, params)
+        if g_norm is None:
+            updates, new_opt = tx.update(grads, opt_state, params)
+            g_norm = global_norm(grads)
+        else:
+            updates, new_opt = tx.update(grads, opt_state, params, g_norm=g_norm)
+        names = list(updates)
+        new = dict(params)
+        new.update(zip(names, torch._foreach_add([params[k] for k in names],
+                                                 [updates[k] for k in names])))
+        return new, new_opt, g_norm
 
 
 def make_train_step(cfg: ModelConfig, tx, *, use_amp: bool = True,
@@ -430,11 +436,12 @@ def make_train_step(cfg: ModelConfig, tx, *, use_amp: bool = True,
     forward_kw = _forward_kw(use_amp, loss_fn, block_impl, plain)
 
     def step(state, batch, generator=None, drop_path_masks=None):
-        dev = state["step"].device
-        batch = render_batch_on_device(batch, dev, render_kwargs)
-        loss, bn_state, grads = _accumulate(cfg, state, batch, k, generator, drop_path_masks,
-                                            forward_kw)
-        return _finish(tx, state, loss, bn_state, grads, ema_decay)
+        with span("evt.train.step"):
+            dev = state["step"].device
+            batch = render_batch_on_device(batch, dev, render_kwargs)
+            loss, bn_state, grads = _accumulate(cfg, state, batch, k, generator,
+                                                drop_path_masks, forward_kw)
+            return _finish(tx, state, loss, bn_state, grads, ema_decay)
 
     return step
 
@@ -550,13 +557,14 @@ def make_train_step_sharded(cfg: ModelConfig, tx, mesh, *, use_amp: bool = True,
     forward_kw = dict(_forward_kw(use_amp, loss_fn, block_impl, plain), group=mesh.group)
 
     def step(state, batch, generator=None, drop_path_masks=None):
-        dev = state["step"].device
-        batch = render_batch_on_device(batch, dev, render_kwargs)
-        masks = global_drop_path_masks(cfg, mesh, batch["images"].shape[0], generator,
-                                       drop_path_masks, dev)
-        loss, bn_state, grads = _accumulate(cfg, state, batch, k, None, masks, forward_kw)
-        loss, grads = all_reduce_grads(loss, grads, list(state["params"]), mesh.group)
-        return _finish(tx, state, loss, bn_state, grads, ema_decay)
+        with span("evt.train.step"):
+            dev = state["step"].device
+            batch = render_batch_on_device(batch, dev, render_kwargs)
+            masks = global_drop_path_masks(cfg, mesh, batch["images"].shape[0], generator,
+                                           drop_path_masks, dev)
+            loss, bn_state, grads = _accumulate(cfg, state, batch, k, None, masks, forward_kw)
+            loss, grads = all_reduce_grads(loss, grads, list(state["params"]), mesh.group)
+            return _finish(tx, state, loss, bn_state, grads, ema_decay)
 
     return step
 
