@@ -423,14 +423,30 @@ def check_block_launches(torch, blk, x, dtype: str) -> dict:
         q, s = quant.rowquant_cuda(h)
         rq, rs = quant.quant_rows(h)
         check(torch.equal(q, rq) and torch.equal(s, rs[:, 0]), "int8 rowquant is not bit-equal")
+        tops = {}
+
+        def hold_q8(name, inp, wname, out_dt, epi, ref):
+            """The int8 GEMM against its plain version, the same bits on a
+            second run, and its TOP/s (the GEMM alone, its rows quantised)."""
+            got = quant.gemm_q8_cuda(inp, *lin(wname), out_dt, epi)
+            hold(name, got, ref)
+            check(torch.equal(got, quant.gemm_q8_cuda(inp, *lin(wname), out_dt, epi)),
+                  f"int8 {name}: two runs are not bit-equal")
+            qi, si = quant.rowquant_cuda(inp)
+            ms = device_ms(torch, lambda: quant.gemm_q8_rows_cuda(qi, si, *lin(wname), out_dt, epi))
+            tops[name] = 2.0 * qi.shape[0] * qi.shape[1] * lin(wname)[0].shape[0] / ms / 1e9
+
         qkv = quant.linear_q8(h, *lin("qkv")).to(dt)
-        hold("gemm qkv", quant.gemm_q8_cuda(h, *lin("qkv"), dt), qkv)
+        hold_q8("gemm qkv", h, "qkv", dt, fb.EPI_NONE, qkv)
         o = vit.attention_core(qkv.reshape(B, N, -1), blk.num_heads).reshape(B * N, D)
         hold("attention", fb.attention_cuda(qkv, B, N, blk.num_heads), o)
-        hold("gemm proj", quant.gemm_q8_cuda(o, *lin("proj"), f32), quant.linear_q8(o, *lin("proj")))
+        hold_q8("gemm proj", o, "proj", f32, fb.EPI_NONE, quant.linear_q8(o, *lin("proj")))
         m = vit.gelu(quant.linear_q8(h, *lin("fc1")))
-        hold("gemm fc1 gelu", quant.gemm_q8_cuda(h, *lin("fc1"), f32, fb.EPI_GELU), m)
-        hold("gemm fc2", quant.gemm_q8_cuda(m, *lin("fc2"), f32), quant.linear_q8(m, *lin("fc2")))
+        hold_q8("gemm fc1 gelu", h, "fc1", f32, fb.EPI_GELU, m)
+        hold_q8("gemm fc2", m, "fc2", f32, fb.EPI_NONE, quant.linear_q8(m, *lin("fc2")))
+        print(f"int8 GEMM TOP/s at B={B} (wgmma; peak 1979):",
+              " ".join(f"{k.split()[1]} {v:.1f}" for k, v in tops.items()),
+              "| launches by tile", quant.gemm_q8_launches())
         return errs
     a, mlp, ln = blk.attn, blk.mlp, blk.norm1
     wb = lambda lin: (lin.weight, lin.bias)
@@ -1902,6 +1918,7 @@ def run_parallel_ranks(torch, seed: int) -> dict:
 def run_pose_steps(torch, model, rng, reps, dev):
     """The main path at each serving dtype; returns launches and times."""
     from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.models import quant
     from easy_vitpose_tpu_torch.models.vitpose import serving_copy
     from easy_vitpose_tpu_torch.ops import decode
     from easy_vitpose_tpu_torch.pipeline import pose_step as ps
@@ -1935,6 +1952,7 @@ def run_pose_steps(torch, model, rng, reps, dev):
         ps.decode_keypoints = spy
         try:
             kernels.reset_launch_counts()
+            tiles = quant.gemm_q8_launches() if dtype == "int8" else None
             kp = ps.pose_step(sm, frame_np, boxes_np, mask_np)   # as a caller would: numpy in
             torch.cuda.synchronize()
             counts = kernels.launch_counts()
@@ -1945,6 +1963,11 @@ def run_pose_steps(torch, model, rng, reps, dev):
         if dtype == "fp32":       # the four 3xTF32 GEMMs of each block
             want["gemm_tf32"] = 4 * depth
         check(counts == want, f"{dtype} pose step launched {counts}, expected {want}")
+        if dtype == "int8":       # the four int8 GEMMs of each block, all on wgmma
+            tiles = {t: n - tiles[t] for t, n in quant.gemm_q8_launches().items()}
+            print(f"pose step int8: int8 GEMM (wgmma) launches by tile {tiles}")
+            check(sum(tiles.values()) == 4 * depth,
+                  f"int8 pose step: {tiles} int8 GEMM launches, expected {4 * depth}")
         check(kp.is_cuda and tuple(kp.shape) == (SLOTS, 17, 3),
               f"keypoints {kp.device} {tuple(kp.shape)}")
         check(bool(torch.isfinite(kp).all()), f"{dtype} keypoints are not finite")

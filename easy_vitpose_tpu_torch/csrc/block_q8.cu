@@ -1,9 +1,10 @@
 // K2, the int8 (W8A8) block's own kernels, driven by models/quant.py:
 // the per-row quantisation and the int8 GEMM with its float32 dequant
-// epilogue.  LayerNorm and attention come from block.cu.
-// Replaces easy_vitpose_tpu/models/quant.py::_block_q8_kernel.
+// epilogue (gemm_q8.cuh: wgmma from a TMA ring, persistent blocks of
+// 128 x 192 or 128 x 64 tiles).  LayerNorm and attention come from
+// block.cu.  Replaces easy_vitpose_tpu/models/quant.py::_block_q8_kernel.
 #include "common.cuh"
-#include "gemm_mma.cuh"
+#include "gemm_q8.cuh"
 
 // One warp per row: s = amax / 127 (1 for an all-zero row),
 // q = clip(rint(h / s), -127, 127) with IEEE division and round-half-even,
@@ -41,16 +42,23 @@ EVT_EXPORT int evt_rowquant(const void* h, void* q, void* s, int R, int C, int h
 }
 
 // out = epilogue(acc * sx[row] * sw[col] + bias[col]) with int32 acc of
-// q (M, K) int8 against wq (N, K) int8.  N % 64 == 0, K % 128 == 0.
+// q (M, K) int8 against wq (N, K) int8.  N % 64 == 0, K % 128 == 0, q and
+// wq 16-byte aligned.
 EVT_EXPORT int evt_gemm_q8(const void* q, const void* wq, const void* sx, const void* sw,
                            const void* bias, const void* res, void* out, int M, int N, int K,
                            int epi, int out_bf16, void* stream) {
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const float* fsx = static_cast<const float*>(sx);
     const float* fsw = static_cast<const float*>(sw);
+    const float* fb = static_cast<const float*>(bias);
     return static_cast<int>(
-        out_bf16
-            ? mma_gemm::launch<true, float, bf16>(q, wq, fsx, fsw, bias, res, out, M, N, K, epi, st)
-            : mma_gemm::launch<true, float, float>(q, wq, fsx, fsw, bias, res, out, M, N, K, epi,
-                                                   st));
+        out_bf16 ? wgq8::launch<bf16>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, st)
+                 : wgq8::launch<float>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, st));
+}
+
+// The int8 GEMM's launches since the library was loaded, by tile (128 x
+// 192, 128 x 64), into out[0..1].
+EVT_EXPORT int evt_gemm_q8_launches(long long* out) {
+    for (int t = 0; t < wgq8::TILES; ++t) out[t] = wgq8::launch_counts()[t].load();
+    return 0;
 }

@@ -1,6 +1,10 @@
-// Tensor-core GEMM of the serving blocks (K1 bf16, K2 int8) with mma.sync:
+// Tensor-core GEMM of K1's bf16 serving block with mma.sync:
 // out = epilogue(A @ W^T), A (M, K) and W (N, K) both K-contiguous (W in
-// torch's Linear layout).
+// torch's Linear layout).  It served K2's int8 GEMM too, until that moved to
+// wgmma from a TMA ring (gemm_q8.cuh, whose epilogue repeats this one's
+// arithmetic); no library instantiates the int8 path now but
+// scripts/bench_kernel_variants.py --q8-gemm, which times it beside the new
+// kernel.
 //
 // bf16: mma.m16n8k16, float32 accumulation.  int8: mma.m16n8k32, int32
 // accumulation.  Both read the same bytes per thread: a k-step is 32 bytes
@@ -33,7 +37,7 @@
 // On the H100 these two tiles measured best, by the products of a ViT-B
 // block, against 64x64 warp tiles (128x128, 256x128 and 128x256 blocks)
 // and a 4-stage ring (scripts/bench_kernel_variants.py; PERF.md).
-// wgmma fed by TMA is the next step (ROADMAP).
+// wgmma fed by TMA is the next step for bf16 too (ROADMAP S3).
 #pragma once
 
 #include "common.cuh"

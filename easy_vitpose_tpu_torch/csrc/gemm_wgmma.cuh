@@ -70,7 +70,7 @@ inline EncodeTiled encoder() {
     return fn;
 }
 
-// The map of a bf16 (es 2) or float32 (es 4) matrix with `outer` rows of
+// The map of an int8 (es 1), bf16 (es 2) or float32 (es 4) matrix with `outer` rows of
 // `inner` contiguous elements, row r at base + r * ld, read or written in
 // boxes of box_inner x box_outer with the 128-byte swizzle; reads outside
 // are zeros, writes outside are dropped.  False if the encoder refuses it
@@ -84,7 +84,9 @@ inline bool make_map(CUtensorMap* map, const void* base, int inner, int outer, i
     const cuuint32_t step[2] = {1, 1};
     const EncodeTiled enc = encoder();
     return enc != nullptr &&
-           enc(map, es == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2,
+           enc(map, es == 4   ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                    : es == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                              : CU_TENSOR_MAP_DATA_TYPE_UINT8, 2,
                const_cast<void*>(base), dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;

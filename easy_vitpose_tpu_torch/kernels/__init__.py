@@ -67,6 +67,8 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
         "evt_rowquant": [_P, _P, _P, _I, _I, _I, _P],
         # q, wq, sx, sw, bias, res, out, M, N, K, epilogue, out_bf16, stream
         "evt_gemm_q8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # out (2 long longs): the GEMM's launches by tile; no stream
+        "evt_gemm_q8_launches": [_P],
     },
     "sampler": {
         # frames, frame_idx (or null), S, boxes, geo (out), crops (out), M, H, W,

@@ -10,9 +10,13 @@ with float32 logits, and the LN statistics stay float32.
 
 The block reuses K1's LayerNorm and attention launches (``csrc/block.cu``)
 and adds two kernels of ``csrc/block_q8.cu``: the row quantisation, and an
-int8 GEMM on the tensor cores (``mma.sync`` m16n8k32, int32 accumulation)
-whose epilogue computes ``acc * sx * sw + b`` in float32 and then the GELU
-or the residual add and the cast.  Per block:
+int8 GEMM on Hopper's warpgroup tensor cores (``csrc/gemm_q8.cuh``:
+``wgmma`` m64nNk32 with int32 sums from a TMA ring, persistent blocks of
+128 x 192 or 128 x 64 tiles picked from M, N and the epilogue, outputs
+stored by TMA) whose epilogue computes ``acc * sx * sw + b`` in float32
+and then the GELU or the residual add and the cast.  The int32 sums are
+exact, so the outputs are the bits of the ``mma.sync`` kernel it replaced.
+Per block:
 
   LN1 -> quant -> GEMM qkv -> attention -> quant -> GEMM proj (+residual)
       -> LN2 -> quant -> GEMM fc1 (GELU, float32) -> quant
@@ -130,15 +134,45 @@ def gemm_q8_cuda(h: torch.Tensor, wq, sw, b, out_dtype, epilogue: int = EPI_NONE
                  residual=None) -> torch.Tensor:
     """Quantize the rows of ``h``, then ``epilogue(acc * sx * sw + b)``."""
     q, sx = rowquant_cuda(h)
+    return gemm_q8_rows_cuda(q, sx, wq, sw, b, out_dtype, epilogue, residual)
+
+
+def check_q8_weight(wq: torch.Tensor, K: int) -> None:
+    """The int8 GEMM's weight: (N, K) with N a multiple of 64 and K of 128,
+    contiguous and 16-byte aligned (TMA reads whole 16-byte rows)."""
+    N, Kw = wq.shape
+    check_gemm_shape(N, Kw, 1)
+    if K != Kw:
+        raise ValueError(f"GEMM input depth {K} against a weight of depth {Kw}")
+    if wq.data_ptr() % 16 or not wq.is_contiguous():
+        raise ValueError("the int8 GEMM needs a contiguous, 16-byte aligned weight")
+
+
+def gemm_q8_rows_cuda(q: torch.Tensor, sx: torch.Tensor, wq, sw, b, out_dtype,
+                      epilogue: int = EPI_NONE, residual=None) -> torch.Tensor:
+    """``epilogue(acc * sx * sw + b)`` of rows quantised by
+    :func:`rowquant_cuda` (``q`` (M, K) int8, ``sx`` (M,) float32)."""
     M, K = q.shape
+    check_q8_weight(wq, K)
     N = wq.shape[0]
-    check_gemm_shape(N, K, 1)
-    out = torch.empty((M, N), dtype=out_dtype, device=h.device)
+    out = torch.empty((M, N), dtype=out_dtype, device=q.device)
     res = residual.data_ptr() if residual is not None else None
-    kernels.call(KERNEL, "evt_gemm_q8", h.device, q.data_ptr(), wq.data_ptr(),
+    kernels.call(KERNEL, "evt_gemm_q8", q.device, q.data_ptr(), wq.data_ptr(),
                  sx.data_ptr(), sw.data_ptr(), b.data_ptr(), res, out.data_ptr(),
                  M, N, K, epilogue, int(out_dtype == torch.bfloat16))
     return out
+
+
+GEMM_Q8_TILES = ("128x192", "128x64")
+
+
+def gemm_q8_launches() -> dict:
+    """The int8 GEMM's launches by tile since its library was loaded
+    (``csrc/gemm_q8.cuh``; a CUDA graph's replay adds none)."""
+    import ctypes
+    n = (ctypes.c_longlong * len(GEMM_Q8_TILES))()
+    kernels.lib(KERNEL).evt_gemm_q8_launches(n)
+    return dict(zip(GEMM_Q8_TILES, n))
 
 
 def fused_block_q8(x: torch.Tensor, qb: QBlock) -> torch.Tensor:

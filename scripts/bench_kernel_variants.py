@@ -9,8 +9,8 @@ crops of 192 tokens (CUDA events, the best of five windows of 50 launches):
 * attention, head dim 64: the shipped forward and backward; P's IEEE
   division replaced by ``__fdividef``; ``expf`` by ``__expf``; both; and
   ``__launch_bounds__(128, 3)`` (3 blocks per SM, which caps registers);
-* GEMM, the four products of a block (M = 12288) at bf16 and int8: the two
-  shipped tiles (128x128 with 64x32 warp tiles, 128x64 with 32x32), 64x64
+* K1's bf16 GEMM (``csrc/gemm_mma.cuh``), the four products of a block
+  (M = 12288): the two shipped tiles (128x128 with 64x32 warp tiles, 128x64 with 32x32), 64x64
   warp tiles in 128x128, 256x128 and 128x256 blocks, 128x64 with 64x32
   warp tiles, and the shipped tiles with a 4-stage ring.
 
@@ -81,9 +81,27 @@ and its split rounded by ``cvt.rna.tf32.f32`` (the same bits) instead of
 an integer add; and the time of the second output that A's producers
 would write.  Outputs are checked against the shipped kernel's.
 
+With ``--q8-gemm`` it times instead variants of K2's int8 GEMM
+(``csrc/gemm_q8.cuh``, ``wgmma`` from a TMA ring), each a ``block_q8``
+library of its own, called on the same row-quantised operands
+(``chip_smoke.device_ms``, TOP/s beside each time): the shipped launch
+(the tile it picks by shape and epilogue); its one-block-an-SM tile at
+128x192 with 4 and 3 ring stages, 128x256 with 3 and 128x128 with 4 and
+3; its two-blocks-an-SM tile at 128x64 with 3 and 2 stages and 128x128
+with 2; both shipped tiles with a block per tile instead of the
+persistent grid; and the ``mma.sync`` kernel it replaced
+(``csrc/gemm_mma.cuh``, its launch as it was).  First at ViT-B's four
+products (M = 12288: qkv and proj into bf16, proj with the residual, fc1
+with GELU into float32, fc2 with the residual), then the shipped launch
+against the ``mma.sync`` kernel over M in {192, 1536, 12288} and the four
+products of D in {384, 768, 1024, 1280}, with the tile each shape takes
+and the time of each of the two shipped tiles forced.
+Every variant's outputs are checked for the shipped launch's bits.
+
 Usage (a machine with the CUDA toolkit and a card):
     python3 scripts/bench_kernel_variants.py [--out FILE] [--train-gemm | --adam-q8 |
-                                              --crop-decode | --nms | --tf32-gemm]
+                                              --crop-decode | --nms | --tf32-gemm |
+                                              --q8-gemm]
 """
 import argparse
 import json
@@ -329,37 +347,25 @@ int main() {
     const char* gn[] = {@GEMM_NAMES@};
     int gbn[] = {@GEMM_BN@};
     Gemm gb[] = {@GEMM_BF16@};
-    Gemm gq[] = {@GEMM_INT8@};
     for (auto& sh : shapes) {
         void *a, *w, *bias, *res, *out;
-        float *sx, *sw, *fb;
         cudaMalloc(&a, (size_t)M * sh.k * 2);
         cudaMalloc(&w, (size_t)sh.n * sh.k * 2);
         cudaMalloc(&bias, sh.n * 2);
         cudaMalloc(&res, (size_t)M * sh.n * 2);
         cudaMalloc(&out, (size_t)M * sh.n * 4);
-        cudaMalloc(&sx, M * 4);
-        cudaMalloc(&sw, sh.n * 4);
-        cudaMalloc(&fb, sh.n * 4);
         fill(a, (size_t)M * sh.k, 3, 4.f);
         fill(w, (size_t)sh.n * sh.k, 4, 0.1f);
         fill(bias, sh.n, 5, 0.2f);
         fill(res, (size_t)M * sh.n, 6, 2.f);
-        cudaMemset(sx, 0, M * 4);
-        cudaMemset(sw, 0, sh.n * 4);
-        cudaMemset(fb, 0, sh.n * 4);
         for (int v = 0; v < (int)(sizeof(gb) / sizeof(gb[0])); ++v) {
             if (sh.n % gbn[v]) continue;
             printf("gemm %s %s bf16 %.4f\n", gn[v], sh.name, best_ms([&] {
                        return gb[v](a, w, nullptr, nullptr, bias, res, out, M, sh.n, sh.k * 2,
                                     sh.epi, 0);
                    }));
-            printf("gemm %s %s int8 %.4f\n", gn[v], sh.name, best_ms([&] {
-                       return gq[v](a, w, sx, sw, fb, res, out, M, sh.n, sh.k, sh.epi, 0);
-                   }));
         }
         cudaFree(a); cudaFree(w); cudaFree(bias); cudaFree(res); cudaFree(out);
-        cudaFree(sx); cudaFree(sw); cudaFree(fb);
     }
     return 0;
 }
@@ -403,8 +409,6 @@ def harness_source(includes: str) -> str:
         "@GEMM_NAMES@": ", ".join(f'"{g[0]}"' for g in GEMM),
         "@GEMM_BN@": ", ".join(g[2].split(", ")[1] for g in GEMM),
         "@GEMM_BF16@": ", ".join(f"{ns}::launch_tile<false, bf16, bf16, {ns}::Tile<{t}>>"
-                                 for _, ns, t in GEMM),
-        "@GEMM_INT8@": ", ".join(f"{ns}::launch_tile<true, float, bf16, {ns}::Tile<{t}>>"
                                  for _, ns, t in GEMM),
     }
     src = HARNESS
@@ -637,6 +641,124 @@ def tf32_gemm_variants(card: str) -> dict:
     return out
 
 
+# K2's int8 GEMM (csrc/gemm_q8.cuh through block_q8.cu's evt_gemm_q8)
+def _force(tile: str) -> tuple:
+    return ("gemm_q8.cuh", "const int tile = pick(M, N, K, epi);", f"const int tile = {tile};")
+
+
+_NOT_PERSISTENT = ("gemm_q8.cuh", "const bool persistent = true;", "const bool persistent = false;")
+_MMA_SYNC = [("wgq8::launch<bf16>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, st)",
+              "mma_gemm::launch<true, float, bf16>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, st)"),
+             ("wgq8::launch<float>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, st)",
+              "mma_gemm::launch<true, float, float>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, "
+              "st)")]
+def _tile(name: str, old: str, new: str) -> tuple:
+    return ("gemm_q8.cuh", f"typedef Tile<{old}> {name};", f"typedef Tile<{new}> {name};")
+
+
+_MID, _NARROW = "192, 4, 1", "64, 3, 2"
+Q8_GEMM = {
+    "shipped": [],
+    "128x192_4_stages": [_force("MID")],
+    "128x192_3_stages": [_force("MID"), _tile("Mid", _MID, "192, 3, 1")],
+    "128x256_3_stages": [_force("MID"), _tile("Mid", _MID, "256, 3, 1")],
+    "128x128_4_stages": [_force("MID"), _tile("Mid", _MID, "128, 4, 1")],
+    "128x128_3_stages": [_force("MID"), _tile("Mid", _MID, "128, 3, 1")],
+    "128x64_3_stages_2_per_sm": [_force("NARROW")],
+    "128x64_2_stages_2_per_sm": [_force("NARROW"), _tile("Narrow", _NARROW, "64, 2, 2")],
+    "128x128_2_stages_2_per_sm": [_force("NARROW"), _tile("Narrow", _NARROW, "128, 2, 2")],
+    "128x192_block_per_tile": [_force("MID"), _NOT_PERSISTENT],
+    "128x64_block_per_tile": [_force("NARROW"), _NOT_PERSISTENT],
+    "mma_sync": _MMA_SYNC,
+}
+
+
+def q8_gemm_variants(card: str) -> dict:
+    """ms per launch and TOP/s of each Q8_GEMM variant (see the module
+    doc), and the sweep of the shipped launch against ``mma_sync``."""
+    import torch
+    import chip_smoke as cs
+    from easy_vitpose_tpu_torch.models import fused_block as fb, quant
+
+    libs, tmp = build_variants("block_q8", Q8_GEMM)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    shipped_lib = libs["shipped"]
+
+    def case(M, D, name):
+        N, K, out_dt, epi = {"qkv": (3 * D, D, torch.bfloat16, fb.EPI_NONE),
+                             "proj": (D, D, torch.bfloat16, fb.EPI_RESIDUAL),
+                             "fc1": (4 * D, D, torch.float32, fb.EPI_GELU),
+                             "fc2": (D, 4 * D, torch.bfloat16, fb.EPI_RESIDUAL)}[name]
+        q, sx = quant.rowquant_cuda(torch.randn(M, K, device=dev, generator=gen))
+        wq, sw = quant.quantize_linear(torch.randn(N, K, device=dev, generator=gen) * 0.03)
+        b = torch.randn(N, device=dev, generator=gen) * 0.1
+        res = torch.randn(M, N, device=dev, generator=gen).to(out_dt)
+        o = torch.empty(M, N, device=dev, dtype=out_dt)
+
+        def run(lib):
+            return lambda: lib.evt_gemm_q8(  # noqa: E731
+                q.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(), b.data_ptr(),
+                res.data_ptr() if epi == fb.EPI_RESIDUAL else None, o.data_ptr(), M, N, K, epi,
+                int(out_dt == torch.bfloat16), stream())
+        return run, o, 2.0 * M * N * K
+
+    def timed(run, o, ops, lib, name, ref):
+        fn = run(lib)
+        if fn():
+            raise RuntimeError(f"int8 GEMM variant {name} refused a launch")
+        torch.cuda.synchronize()
+        if ref is not None:
+            cs.check(torch.equal(o, ref), f"int8 GEMM variant {name}: not the shipped bits")
+        ms = cs.device_ms(torch, fn)
+        return {"ms": ms, "tops": ops / ms / 1e9}
+
+    products = ("qkv", "proj", "fc1", "fc2")
+    out = {"card": card, "q8_gemm": {}, "sweep": []}
+    with torch.no_grad():
+        for name in products:
+            run, o, ops = case(cs.SLOTS * 192, 768, name)
+            run(shipped_lib)()
+            torch.cuda.synchronize()
+            ref = o.clone()
+            for vname, lib in libs.items():
+                out["q8_gemm"].setdefault(vname, {})[name] = timed(run, o, ops, lib, vname, ref)
+        for row in out["q8_gemm"].values():
+            ms = sum(row[p]["ms"] for p in products)
+            row["sum"] = {"ms": ms, "tops": sum(row[p]["tops"] * row[p]["ms"]
+                                                for p in products) / ms}
+        for M in (192, 1536, 12288):
+            for D in (384, 768, 1024, 1280):
+                for name in products:
+                    run, o, ops = case(M, D, name)
+                    before = _launches(shipped_lib)
+                    new = timed(run, o, ops, shipped_lib, "shipped", None)
+                    ref = o.clone()
+                    tile = [t for t, a, b in zip(quant.GEMM_Q8_TILES, before,
+                                                 _launches(shipped_lib)) if a != b]
+                    old = timed(run, o, ops, libs["mma_sync"], "mma_sync", ref)
+                    rec = {"M": M, "D": D, "product": name, "tile": tile, "ms": new["ms"],
+                           "mma_sync_ms": old["ms"], "tops": new["tops"],
+                           "mma_sync_tops": old["tops"], "ratio": new["ms"] / old["ms"]}
+                    for key, vname in (("128x192_ms", "128x192_4_stages"),
+                                       ("128x64_ms", "128x64_3_stages_2_per_sm")):
+                        rec[key] = timed(run, o, ops, libs[vname], vname, ref)["ms"]
+                    out["sweep"].append(rec)
+    out["sweep_worst_ratio"] = max(r["ratio"] for r in out["sweep"])
+    import shutil
+    shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def _launches(lib) -> list:
+    import ctypes
+    from easy_vitpose_tpu_torch.models import quant
+    n = (ctypes.c_longlong * len(quant.GEMM_Q8_TILES))()
+    lib.evt_gemm_q8_launches(n)
+    return list(n)
+
+
 def crop_decode_variants(card: str) -> dict:
     """ms of one launch of each SAMPLER variant on the smoke's 1080p frame
     and 64 boxes at bf16, and of each DECODE variant on 64 x 17 bf16 maps
@@ -794,13 +916,17 @@ def main():
                     help="time the variants of the NMS kernel (D2) instead")
     ap.add_argument("--tf32-gemm", action="store_true",
                     help="time the variants of K1's float32 (3xTF32) GEMM instead")
+    ap.add_argument("--q8-gemm", action="store_true",
+                    help="time the variants of K2's int8 GEMM instead")
     args = ap.parse_args()
-    if args.train_gemm or args.adam_q8 or args.crop_decode or args.nms or args.tf32_gemm:
+    if (args.train_gemm or args.adam_q8 or args.crop_decode or args.nms or args.tf32_gemm
+            or args.q8_gemm):
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True,
                               text=True).stdout.strip().splitlines()[0]
         line = json.dumps(train_gemm_variants(card) if args.train_gemm else
                           tf32_gemm_variants(card) if args.tf32_gemm else
+                          q8_gemm_variants(card) if args.q8_gemm else
                           adam_q8_variants(card) if args.adam_q8 else
                           nms_variants(card) if args.nms else
                           crop_decode_variants(card))
@@ -828,7 +954,7 @@ def main():
         if m:
             out["attention_ms"].setdefault(m[1], {})[m[2]] = float(m[3])
             continue
-        m = re.match(r"gemm (\S+) (\S+) (bf16|int8) (\S+)", line)
+        m = re.match(r"gemm (\S+) (\S+) (bf16) (\S+)", line)
         if m:
             out["gemm_ms"].setdefault(m[1], {})[f"{m[2]}_{m[3]}"] = float(m[4])
     line = json.dumps(out)

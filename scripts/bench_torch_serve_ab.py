@@ -27,6 +27,9 @@ inputs from ``--seed``:
   ``nn.TransformerEncoderLayer`` at float32 on the same block;
 * counts the device operations (kernels, copies, fills) of one pose step
   with ``torch.profiler``, and the host's time to queue a step;
+* records a SHA-256 of the int8 pose step's outputs on the timed step's
+  frame and boxes (the backbone's features, the heatmaps, the keypoints'
+  coordinates and scores);
 * runs the four int8 GEMMs of K2 once more on fixed inputs made with numpy
   from ``--seed`` (ViT-B block 0's shapes, 64 crops: M = 12288), the crop
   sampler (K3, with its geometry) on the pose step's frame and boxes at
@@ -114,6 +117,24 @@ def serving_digests(torch, frame, boxes, g, dev) -> dict:
         kp = torch.where(mask[:, None, None], kp, torch.zeros_like(kp))
     out["decode_keypoints"] = sha(torch, kp)
     return out
+
+
+def int8_pose_digests(torch, model, frame, boxes, mask) -> dict:
+    """SHA-256 of the int8 pose step's outputs on the timed step's frame and
+    boxes: the backbone's features, the heatmaps, and the keypoints'
+    coordinates and scores."""
+    from easy_vitpose_tpu_torch.configs import IMAGE_SIZE
+    from easy_vitpose_tpu_torch.models.vit import vit_forward
+    from easy_vitpose_tpu_torch.models.vitpose import compute_dtype
+    from easy_vitpose_tpu_torch.ops import sampler
+    from easy_vitpose_tpu_torch.pipeline.pose_step import pose_heatmaps, pose_step
+
+    crops, _ = sampler.crop_normalize(frame, boxes, IMAGE_SIZE, compute_dtype(model))
+    heat, _ = pose_heatmaps(model, frame, boxes)
+    kp = pose_step(model, frame, boxes, mask)
+    return {"backbone": sha(torch, vit_forward(model.backbone, crops)),
+            "heatmaps": sha(torch, heat), "keypoints": sha(torch, kp[..., :2]),
+            "scores": sha(torch, kp[..., 2])}
 
 
 def fp32_default_frame(torch, cs, model, seed: int, frame_out: str) -> dict:
@@ -312,6 +333,7 @@ def main():
         out["gemm_int8_sum_ms"] = sum(out[f"gemm_int8_{n}_ms"] for n in digests)
         out["int8_digests"] = digests
         out["serving_digests"] = serving_digests(torch, frame, boxes, g, dev)
+        out["int8_pose_digests"] = int8_pose_digests(torch, copies["int8"], frame, boxes, mask)
     if args.against:
         with open(args.against) as f:
             other = json.load(f)
@@ -322,6 +344,9 @@ def main():
         out["serving_bit_equal_to_against"] = {
             n: other.get("serving_digests", {}).get(n) == d
             for n, d in out["serving_digests"].items()}
+        out["int8_pose_bit_equal_to_against"] = {
+            n: other.get("int8_pose_digests", {}).get(n) == d
+            for n, d in out["int8_pose_digests"].items()}
     line = json.dumps(out)
     print(line)
     if args.out:

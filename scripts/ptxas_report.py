@@ -6,10 +6,10 @@ only, one ``nvcc`` per source in parallel, and prints one line per kernel
 (demangled where ``c++filt`` is there): registers, spill stores and loads,
 stack frame and static shared memory.  Ends with one JSON line and exits 1
 if a kernel whose name matches ``--must-not-spill`` (a regular expression;
-by default the tensor-core attentions, the serving GEMMs and the bf16
-training GEMMs) spills, or if ptxas serializes a kernel's ``wgmma``
-instructions (its "wgmma.mma_async instructions are serialized" warning,
-printed with the kernel's name).
+by default the tensor-core attentions, the serving GEMMs (K1's bf16 and
+float32, K2's int8) and the bf16 training GEMMs) spills, or if ptxas
+serializes a kernel's ``wgmma`` instructions (its "wgmma.mma_async
+instructions are serialized" warning, printed with the kernel's name).
 
 Usage (a machine with the CUDA toolkit):
     python3 scripts/ptxas_report.py [block train_block ...] [--must-not-spill REGEX]
@@ -65,8 +65,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("sources", nargs="*", default=list(kernels.SOURCES))
     ap.add_argument("--must-not-spill",
-                    default=r"attn_tc::|attn_tf32::|mma_gemm::gemm_kernel|tf::gemm_tf32_kernel|"
-                            r"tg::gemm_(tn2_)?bf16_kernel")
+                    default=r"attn_tc::|attn_tf32::|mma_gemm::gemm_kernel|wgq8::gemm_kernel|"
+                            r"tf::gemm_tf32_kernel|tg::gemm_(tn2_)?bf16_kernel")
     args = ap.parse_args()
     nvcc = kernels.nvcc_path()
     flags = [f for f in kernels.NVCC_FLAGS if f not in ("-shared", "-Xcompiler", "-fPIC")]

@@ -126,15 +126,27 @@ def test_gemm_tf32_refuses(dev):
     assert kernels.launch_counts() == {}
 
 
-@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("epi", [fb.EPI_NONE, fb.EPI_GELU, fb.EPI_RESIDUAL])
-@pytest.mark.parametrize("M", [300, 12288 + 77])
-def test_gemm_q8(dev, out_dtype, epi, M):
-    K, N = 384, 128
+# the int8 GEMM's row counts: one crop, a ragged few, 64 crops of 192
+# tokens and a ragged 64; its widths: the four products of ViT-S, B, L and
+# H, N a multiple of 64 but not of 128 (192, 320), and the shallowest K (128)
+Q8_ROWS = [1, 192, 300, 12288 - 50, 12288]
+Q8_PRODUCTS = sorted(set(VIT_PRODUCTS) | {(192, 384), (320, 768), (128, 128)})
+
+
+def q8_case(dev, M, N, K, out_dtype):
     h = randn(dev, M, K)
     wq, sw = quant.quantize_linear(randn(dev, N, K, scale=0.05))
     b = randn(dev, N, scale=0.1)
     res = randn(dev, M, N, dtype=out_dtype, seed=1)
+    return h, wq, sw, b, res
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("epi", [fb.EPI_NONE, fb.EPI_GELU, fb.EPI_RESIDUAL])
+@pytest.mark.parametrize("N,K", Q8_PRODUCTS)
+@pytest.mark.parametrize("M", Q8_ROWS)
+def test_gemm_q8(dev, out_dtype, epi, M, N, K):
+    h, wq, sw, b, res = q8_case(dev, M, N, K, out_dtype)
     got = quant.gemm_q8_cuda(h, wq, sw, b, out_dtype, epi,
                              res if epi == fb.EPI_RESIDUAL else None)
     ref = quant.linear_q8(h, wq, sw, b)
@@ -145,10 +157,56 @@ def test_gemm_q8(dev, out_dtype, epi, M):
     assert rel_err(got, ref.to(out_dtype)) <= (1e-5 if out_dtype == torch.float32 else 1e-2)
 
 
-# a ViT block's four products at 64 crops of 192 tokens (M = 12288), in
-# the tile widths the launch picks there (128 for qkv and fc1, 64 for proj
-# and fc2), and at a ragged M
-@pytest.mark.parametrize("N,K", [(2304, 768), (768, 768), (3072, 768), (768, 3072)])
+@pytest.mark.parametrize("N,K", Q8_PRODUCTS)
+@pytest.mark.parametrize("M", Q8_ROWS)
+def test_gemm_q8_bit_equal(dev, M, N, K):
+    """With no epilogue and float32 outputs the int8 GEMM computes
+    ``linear_q8``'s rounded operations in its order (exact int32 sums, then
+    ``acc * sx * sw + b``), so it gives the same bits, and the same bits
+    twice, at every tile the launch picks."""
+    h, wq, sw, b, _ = q8_case(dev, M, N, K, torch.float32)
+    got = quant.gemm_q8_cuda(h, wq, sw, b, torch.float32)
+    assert torch.equal(got, quant.linear_q8(h, wq, sw, b))
+    assert torch.equal(got, quant.gemm_q8_cuda(h, wq, sw, b, torch.float32))
+
+
+def test_gemm_q8_launches(dev):
+    """The launches by tile: a 64-crop ViT-B block's four products each
+    take the one the launch picks, counted once; the tile counter sits
+    beside the kernel launch counters."""
+    from easy_vitpose_tpu_torch.configs import get_model_config
+    cfg = get_model_config("coco", "b").backbone
+    x = randn(dev, 64, cfg.num_tokens, cfg.embed_dim, dtype=torch.bfloat16)
+    qb = quant.QBlock(vit.Block(cfg).to(dev))
+    before = quant.gemm_q8_launches()
+    kernels.reset_launch_counts()
+    quant.fused_block_q8(x, qb)
+    after = quant.gemm_q8_launches()
+    assert sum(after.values()) - sum(before.values()) == 4
+    assert set(after) == set(quant.GEMM_Q8_TILES)
+    assert kernels.launch_counts() == {quant.KERNEL: 1}
+
+
+def test_gemm_q8_refuses(dev):
+    """No fallback: a weight off TMA's 16-byte rows, one of another depth
+    than the input and an N off the 64-wide tile raise before the GEMM
+    launches."""
+    h, wq, sw, b, _ = q8_case(dev, 64, 192, 384, torch.float32)
+    before = quant.gemm_q8_launches()
+    wq_off = torch.empty(192 * 384 + 1, dtype=torch.int8, device=dev)[1:].view(192, 384)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        quant.gemm_q8_cuda(h, wq_off, sw, b, torch.float32)
+    with pytest.raises(ValueError, match="depth"):
+        quant.gemm_q8_cuda(h[:, :256], wq, sw, b, torch.float32)
+    with pytest.raises(ValueError, match="not a multiple of 64"):
+        quant.gemm_q8_cuda(h, wq[:100], sw[:100], b[:100], torch.float32)
+    assert quant.gemm_q8_launches() == before
+
+
+# a ViT block's four products at 64 crops of 192 tokens (M = 12288) and at
+# a ragged M, at ViT-S, B, L and H widths: K1's bf16 GEMM with GELU and
+# K2's int8 GEMM with the residual into bf16
+@pytest.mark.parametrize("N,K", VIT_PRODUCTS)
 @pytest.mark.parametrize("M", [12288, 12288 - 50])
 def test_gemm_vit_shapes(dev, N, K, M):
     a = randn(dev, M, K, dtype=torch.bfloat16)
