@@ -215,16 +215,31 @@ toolkit:
    batches 1, 4 and 8 against 8 within ``DETECTOR_BATCH_GAP`` (ROADMAP
    C18), and the eval gt-crops lane so split, bit for bit the one-device
    lane;
+12e. ``plus:`` ViTPose+-H int8 on boxes of mixed tasks (``models/moe.py``;
+   D 1280, 32 blocks, fc2 960 shared + 6 x 320 expert rows, random weights
+   from ``--seed``; 64 boxes on a 1080p frame, 4 masked, tasks drawn at the
+   benchmark's plus-cell shares): G1 (``grouped_gemm_kernel``) on 64 crops
+   of those tasks against ``moe.routed_fc2_plain``'s arithmetic within
+   ``G1_TOL``, a rolled expert table and rolled rows failing it by ten
+   times over, timed beside its plain version; one ``pose_step(PlusQ8,
+   tasks=)`` queued under the synchronisation check set to raise, with the
+   launch counts set to 0 just before it (K3 once, K2 and G1 32 times, the
+   dense int8 GEMM 128, one head and one decode a task with boxes, every
+   box's 32 x 192 rows routed to its task's expert, none padded), its
+   keypoints zero past each box's K and in masked slots, each task's
+   features the spliced int8 model's bits and heatmaps within
+   ``DEEP_HEATMAP_TOL`` of the plain step's; ms a step and the host's ms to
+   queue one (alone: ``run_plus_phase``);
 13. prints the optimizer's times (``optimizer``), the norm kernel's row
    (``grad_norm``: it replaces no Pallas kernel), one JSON line per kernel
-   set (``kernels``, 20 rows: D1 and D2 after K4's; K3's, D1's and D2's
+   set (``kernels``, 23 rows: D1, D2 and G1 after K4's; K3's, D1's and D2's
    launches count the image frame's and a multi-stream tick's), the
    detector's, ``VitInference``'s, the stacked kernels', the multi-stream,
    the HTTP and the tools' measurements (``detector``, ``detector_stacked``,
    ``sampler_stacked``, ``vitinference``, ``multistream``, ``serve_http``,
    ``api``, ``convert``, ``export``, ``eval_coco``: these four with the card; the
    kernel rows count their launches too), the ``k4_front_door``, ``moe``,
-   ``stem`` and ``parallel`` lines (their launches counted in the rows
+   ``stem``, ``plus`` and ``parallel`` lines (their launches counted in the rows
    too), the card line, and last ``{"ok": true, "device": {...}}``.
 
 The A/B of each flavor against the default, interleaved in one process,
@@ -4529,6 +4544,228 @@ def check_k4_front_door(torch, model, rng, dev) -> dict:
 LOOP_L_DEPTH = 24      # ViT-L's full depth
 
 
+# ---------------------------------------- ViTPose+-H on boxes of mixed tasks
+# the task shares of the mixed-task pose step's boxes (SPLIT_DATASETS order:
+# coco, aic, mpii, ap10k, apt36k, wholebody), as the benchmark's plus cell
+PLUS_H_SHARES = (0.30, 0.10, 0.10, 0.20, 0.10, 0.20)
+PLUS_H_MASKED = 4          # the last slots of the mixed-task step are masked
+# G1 against the routed product's plain version, relative to max |plain|:
+# the output's bf16 cast and a flipped rint(h / s) of the row quantisation
+# (TOL["int8"]); a wrong expert or another crop's rows read O(1)
+G1_TOL = TOL["int8"]
+
+
+def check_grouped_gemm(torch, model, tasks, rng, dev) -> dict:
+    """G1 (``csrc/gemm_q8.cuh::grouped_gemm_kernel``) at ViT-H's fc2 on
+    ``len(tasks)`` crops of 192 rows in task order, block 0's six experts of
+    320 rows: the kernel's expert columns (after the residual) against
+    ``moe.routed_fc2_plain``'s arithmetic on the same float32 rows and
+    experts, a task's group at a time; the same comparison with the experts
+    rolled by one and with the rows rolled by a crop, which must fail it;
+    and the kernel's, issued and plain times."""
+    from types import SimpleNamespace
+
+    from easy_vitpose_tpu_torch.models import moe, quant
+
+    blk = model.backbone.blocks[0]
+    E, NE, hidden = blk.ex_wq.shape
+    D, T = model.cfg.backbone.embed_dim, 192
+    NS, M = D - NE, len(tasks) * T
+    r = moe.Routing(tasks, len(model.tasks), T).to(dev)
+    m = torch.from_numpy(rng.standard_normal((M, hidden), dtype=np.float32)).to(dev)
+    q, sx = quant.rowquant_cuda(m)
+    x1 = torch.from_numpy(rng.standard_normal((M, D), dtype=np.float32)).to(dev, torch.bfloat16)
+    out = torch.zeros_like(x1)
+
+    def run():
+        return quant.gemm_q8_grouped_cuda(q, sx, blk.ex_wq, blk.ex_s, blk.ex_b, r.groups_t,
+                                          len(r.groups), x1, out, NS)
+
+    def experts(roll):   # the experts alone: routed_fc2_plain's shared part given 0 rows
+        return SimpleNamespace(fc2_wq=blk.fc2_wq[:0], fc2_s=blk.fc2_s[:0], fc2_b=blk.fc2_b[:0],
+                               ex_wq=blk.ex_wq.roll(roll, 0), ex_s=blk.ex_s.roll(roll, 0),
+                               ex_b=blk.ex_b.roll(roll, 0))
+
+    run()
+    got = out[:, NS:]
+    ref = x1[:, NS:].float() + moe.routed_fc2_plain(m, experts(0), r)
+    err, rel = max_rel_err(torch, got, ref)
+    wrong_expert = max_rel_err(torch, got, x1[:, NS:].float()
+                               + moe.routed_fc2_plain(m, experts(1), r))[1]
+    wrong_rows = max_rel_err(torch, got, ref.roll(T, 0))[1]
+    print(f"check G1 grouped GEMM {len(tasks)} crops {r.groups[:, 1].tolist()} rows: "
+          f"max_abs_err {err:.3e} rel {rel:.3e}; experts rolled {wrong_expert:.3e}, "
+          f"rows rolled {wrong_rows:.3e}")
+    check(rel <= G1_TOL, f"G1 disagrees with the routed product's plain version: {rel}")
+    check(min(wrong_expert, wrong_rows) > 10 * G1_TOL,
+          f"G1's comparison misses a wrong expert ({wrong_expert}) or rows ({wrong_rows})")
+    check(bool((out[:, :NS] == 0).all()), "G1 wrote outside its expert columns")
+    plain = experts(0)
+    nbytes = M * hidden + E * NE * hidden + M * NE * 2.0   # int8 rows, experts, bf16 output
+    return {"max_abs_err": err, "rel": rel, "wrong_expert_rel": wrong_expert,
+            "wrong_rows_rel": wrong_rows, "rows": r.groups[:, 1].tolist(),
+            "ms": device_ms(torch, run), "issued_ms": time_ms(torch, run),
+            "plain_ms": time_ms(torch, lambda: moe.routed_fc2_plain(m, plain, r)),
+            "bound": bound(nbytes, {"int8": 2.0 * M * hidden * NE}), "library_ms": None}
+
+
+def run_plus(torch, seed, dev) -> dict:
+    """ViTPose+-H int8 served on boxes of mixed tasks: D 1280, 32 blocks,
+    fc2 of 960 shared rows and 6 experts of 320, heads of K = 17, 14, 16,
+    17, 17, 133, random weights from ``seed``; a 1080p frame and 64 boxes
+    from ``seed`` (the last ``PLUS_H_MASKED`` masked), their tasks drawn at
+    ``PLUS_H_SHARES``.  G1 against its plain version (:func:`check_grouped_gemm`);
+    one ``pose_step(PlusQ8, tasks=)`` queued under PyTorch's synchronisation
+    check set to raise, with the launch counts set to 0 just before it: K3
+    once, K2 32 times, G1 32 times, the dense int8 GEMM 128 times, one head
+    and one decode a task with boxes, 32 x 192 rows a box routed to its
+    task's expert and none padded; its keypoints finite, zero in masked
+    slots and past each box's K; the routed backbone's features of each
+    task's crops equal to the task-spliced int8 model's bit for bit; each
+    task's heatmaps within ``DEEP_HEATMAP_TOL`` of the plain step's; ms a
+    step and the host's ms to queue one."""
+    from easy_vitpose_tpu_torch import kernels
+    from easy_vitpose_tpu_torch.configs import IMAGE_SIZE, get_model_config
+    from easy_vitpose_tpu_torch.convert.model_split import SPLIT_DATASETS, SPLIT_NUM_KPTS
+    from easy_vitpose_tpu_torch.models import moe, quant
+    from easy_vitpose_tpu_torch.models.head import heads_forward
+    from easy_vitpose_tpu_torch.models.vit import vit_forward
+    from easy_vitpose_tpu_torch.models.vitpose import serving_copy
+    from easy_vitpose_tpu_torch.ops.sampler import crop_normalize
+    from easy_vitpose_tpu_torch.pipeline.pose_step import pose_step
+
+    t_phase = time.perf_counter()
+    cfg = get_model_config("coco", "h")
+    depth, T = cfg.backbone.depth, cfg.backbone.num_tokens
+    params = {k: v.to(dev) for k, v in
+              moe.init_vitpose_plus_params(cfg, seed, SPLIT_DATASETS).items()}
+    model = moe.PlusQ8(params, cfg)
+    check(model.backbone.blocks[0].ex_wq.shape[:2] == (6, 320)
+          and model.backbone.blocks[0].fc2_wq.shape[0] == 960,
+          "the ViTPose+-H layout is not 960 + 6 x 320")
+    rng = np.random.default_rng(seed + 40)
+    H, W = FRAME_HW
+    frame = torch.from_numpy(rng.integers(0, 256, (H, W, 3), dtype=np.uint8)).to(dev)
+    boxes = torch.from_numpy(make_boxes(rng, SLOTS, H, W)).to(dev)
+    live = np.arange(SLOTS) < SLOTS - PLUS_H_MASKED
+    mask = torch.from_numpy(live).to(dev)
+    tasks = rng.choice(len(SPLIT_DATASETS), SLOTS, p=PLUS_H_SHARES)
+    n = np.bincount(tasks, minlength=len(SPLIT_DATASETS))
+    present = [SPLIT_DATASETS[e] for e in range(len(n)) if n[e]]
+    res = {"crops": dict(zip(SPLIT_DATASETS, n.tolist()))}
+    with torch.no_grad():
+        res["G1"] = check_grouped_gemm(torch, model, tasks, rng, dev)
+
+        def step():
+            return pose_step(model, frame, boxes, mask, tasks=tasks)
+
+        step()
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        moe.reset_routing_counts()
+        g0, d0 = quant.grouped_gemm_launches(), sum(quant.gemm_q8_launches().values())
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            kp = step()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        res["launches"] = {**counts, "grouped_gemm": quant.grouped_gemm_launches() - g0,
+                           "dense_gemm_q8": sum(quant.gemm_q8_launches().values()) - d0}
+        res["heads"], res["routed_rows"] = moe.head_launches(), moe.routed_rows()
+        print(f"plus: one step of {res['crops']} queued with no host sync: launches "
+              f"{res['launches']}, heads {res['heads']}, routed rows {res['routed_rows']}")
+        check(counts == {"sampler": 1, "block_q8": depth, "decode": len(present)},
+              f"plus step launched {counts}")
+        check(res["launches"]["grouped_gemm"] == depth
+              and res["launches"]["dense_gemm_q8"] == 4 * depth,
+              f"plus step's int8 GEMMs: {res['launches']}")
+        check(res["heads"] == {t: 1 for t in present}, f"plus step's heads: {res['heads']}")
+        check(res["routed_rows"] == {"padded": 0, **{SPLIT_DATASETS[e]: depth * int(n[e]) * T
+                                                     for e in range(len(n)) if n[e]}},
+              f"plus step's routed rows: {res['routed_rows']}")
+        k_max = max(SPLIT_NUM_KPTS.values())
+        check(tuple(kp.shape) == (SLOTS, k_max, 3) and bool(torch.isfinite(kp).all()),
+              f"plus keypoints {tuple(kp.shape)}, finite {bool(torch.isfinite(kp).all())}")
+        check(int(torch.count_nonzero(kp[~mask])) == 0, "plus step: a masked slot is not zero")
+        past = [int(torch.count_nonzero(kp[i, SPLIT_NUM_KPTS[SPLIT_DATASETS[t]]:]))
+                for i, t in enumerate(tasks)]
+        check(sum(past) == 0, "plus step: rows past a box's K are not zero")
+
+        r = moe.Routing(tasks, len(SPLIT_DATASETS), T).to(dev)
+        x, _ = crop_normalize(frame, boxes.index_select(0, r.order_t), IMAGE_SIZE, torch.bfloat16)
+        feats = moe.routed_backbone(model, x, r)
+        heats = heads_forward(model.heads, feats.permute(0, 3, 1, 2), r.slices, model.tasks)
+        plain = heads_forward(model.heads, moe.routed_backbone(model, x, r, plain=True)
+                              .permute(0, 3, 1, 2), r.slices, model.tasks)
+        res["heatmap_err"] = {SPLIT_DATASETS[e]: span_err(torch, a, b)
+                              for (e, _, _), a, b in zip(r.slices, heats, plain)}
+        print(f"plus: heatmaps vs plain {res['heatmap_err']}")
+        check(max(res["heatmap_err"].values()) <= DEEP_HEATMAP_TOL,
+              f"plus heatmaps disagree with the plain step: {res['heatmap_err']}")
+        del heats, plain
+        res["features_equal"] = {}
+        for e, first, end in r.slices:
+            spliced = serving_copy(moe.task_model(params, cfg, SPLIT_DATASETS[e]), "int8")
+            own = torch.from_numpy(np.flatnonzero(tasks == e)).to(dev)
+            xe, _ = crop_normalize(frame, boxes.index_select(0, own), IMAGE_SIZE, torch.bfloat16)
+            same = torch.equal(feats[first:end], vit_forward(spliced.backbone, xe))
+            res["features_equal"][SPLIT_DATASETS[e]] = same
+            del spliced
+            torch.cuda.empty_cache()
+        print(f"plus: features equal to the spliced int8 model's {res['features_equal']}")
+        check(all(res["features_equal"].values()),
+              f"plus features differ from the spliced models': {res['features_equal']}")
+        del feats, x
+        res["ms_per_step"] = time_ms(torch, step)
+        queued = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step()
+            queued.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        res["host_ms"] = statistics.median(queued)
+    res["crops_per_s"] = SLOTS / res["ms_per_step"] * 1e3
+    res["peak_bytes"] = torch.cuda.max_memory_allocated(dev)
+    res["phase_s"] = time.perf_counter() - t_phase
+    print(f"plus: {res['ms_per_step']:.3f} ms a step ({res['crops_per_s']:.1f} crops/s), host "
+          f"{res['host_ms']:.2f} ms to queue one; G1 {res['G1']['ms']:.4f} ms (bound "
+          f"{res['G1']['bound'][0]:.4f}, plain {res['G1']['plain_ms']:.3f}); phase "
+          f"{res['phase_s']:.1f} s")
+    return res
+
+
+def g1_row(plus: dict) -> dict:
+    """The ``kernels`` line's row of G1, from :func:`run_plus`."""
+    g = plus["G1"]
+    return {"name": "G1 grouped expert GEMM", "route": "cuda",
+            "source": "easy_vitpose_tpu_torch/csrc/gemm_q8.cuh",
+            "replaces": "easy_vitpose_tpu/models/moe.py:59 (XLA einsums over every expert, "
+                        "no Pallas)",
+            "launches": plus["launches"]["grouped_gemm"], "max_abs_err": g["max_abs_err"],
+            "ms": g["ms"], "plain_ms": g["plain_ms"], "bound_ms": g["bound"][0],
+            "bound_by": g["bound"][1], "library_ms": None}
+
+
+def run_plus_phase(torch, seed: int = 0) -> dict:
+    """The ViTPose+-H mixed-task phase alone (``python3 -c "import torch,
+    chip_smoke as c; c.run_plus_phase(torch)"`` on a machine with a card):
+    prints the ``plus:`` line and G1's ``kernels`` row."""
+    from easy_vitpose_tpu_torch import kernels
+
+    check(torch.cuda.is_available(), "no CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False   # fp32 means float32 here
+    torch.backends.cudnn.allow_tf32 = False
+    card = host_record(torch)
+    kernels.build()
+    res = run_plus(torch, seed, torch.device("cuda"))
+    print("plus:", json.dumps(res), "|", card)
+    print(json.dumps({"kernels": [g1_row(res)]}))
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -4629,9 +4866,12 @@ def main() -> int:
     stem_res = run_stem(torch, args.seed, dev)
     torch.cuda.empty_cache()
     par_ranks = run_parallel_ranks(torch, args.seed)
-    phase_counts = {}          # the moe, stem, K4 front-door and parallel phases' launches
+    torch.cuda.empty_cache()
+    plus = run_plus(torch, args.seed, dev)
+    torch.cuda.empty_cache()
+    phase_counts = {}          # the moe, stem, K4 front-door, parallel and plus phases' launches
     for counts in (moe_res["launches"], stem_res["launches"], k4_door["launches"],
-                   par_b["launches"], par_l["launches"]):
+                   par_b["launches"], par_l["launches"], plus["launches"]):
         add_counts(phase_counts, counts)
     for name in ("two_program", "single_dispatch", "boxes_given"):
         add_counts(phase_counts, ms["sharded"][name]["launches_per_tick"])
@@ -4687,6 +4927,7 @@ def main() -> int:
                      "max_abs_err": d[f"{pre}_err"], "ms": d[f"{pre}_ms"],
                      "plain_ms": d[f"{pre}_plain_ms"], "bound_ms": d[f"{pre}_bound"][0],
                      "bound_by": d[f"{pre}_bound"][1], "library_ms": None})
+    rows.append(g1_row(plus))
     train_spec = (("K5 train_forward", "K5", "models/fused_block_train.py:95", "train_fwd", train),
                   ("K6a mlp_backward", "K6a", "models/fused_block_train.py:195", "train_bwd_mlp", train),
                   ("K6b mlp_backward_dx_save", "K6b", "models/fused_block_train.py:280",
@@ -4753,6 +4994,7 @@ def main() -> int:
     print("k4_front_door:", json.dumps(k4_door), "|", card)
     print("moe:", json.dumps({k: v for k, v in moe_res.items() if k != "launches"}), "|", card)
     print("stem:", json.dumps({k: v for k, v in stem_res.items() if k != "launches"}), "|", card)
+    print("plus:", json.dumps({k: v for k, v in plus.items() if k != "launches"}), "|", card)
     print("parallel:", json.dumps({
         "one_rank_nccl": {"vit_b_f32": par_b, "vit_l_int8": par_l},
         "two_ranks_gloo_cuda": par_ranks, "sharded_serving": ms["sharded"],

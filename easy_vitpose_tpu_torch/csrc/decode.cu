@@ -19,7 +19,8 @@
 //    of its reflect-101 row, then the vertical sum, both in tap order with
 //    round-to-nearest intrinsics, then clip and log: the same bits;
 // 3. the DARK/UDP Newton step, each operation rounded as the eager ops round
-//    it (no FMA contraction, IEEE division for 1/det);
+//    it (no FMA contraction, IEEE division for 1/det), and no step where the
+//    Hessian is singular;
 // 4. transform_preds with UDP (center (wp//2, hp//2), scale (wp, hp)), the
 //    un-crop offsets (x1 - left, y1 - top) and the mask.
 //
@@ -162,8 +163,10 @@ decode_kernel(const T* __restrict__ heat, const int* __restrict__ geo,
     const float inv_det = __fdiv_rn(1.f, __fsub_rn(__fmul_rn(a, d), __fmul_rn(dxy, dxy)));
     const float off_x = __fmul_rn(__fsub_rn(__fmul_rn(d, dx), __fmul_rn(dxy, dy)), inv_det);
     const float off_y = __fmul_rn(__fsub_rn(__fmul_rn(a, dy), __fmul_rn(dxy, dx)), inv_det);
-    const float cx = __fsub_rn(static_cast<float>(px), off_x);
-    const float cy = __fsub_rn(static_cast<float>(py), off_y);
+    // a singular Hessian takes no step (ops/decode.py::post_dark_udp)
+    const bool step = isfinite(off_x) && isfinite(off_y);
+    const float cx = step ? __fsub_rn(static_cast<float>(px), off_x) : static_cast<float>(px);
+    const float cy = step ? __fsub_rn(static_cast<float>(py), off_y) : static_cast<float>(py);
 
     // 4. UDP transform to the padded crop, then the un-crop to the frame;
     // geo rows are [x1, y1, wc, hc, wp, hp, left, top]

@@ -65,10 +65,16 @@ SIGNATURES: Dict[str, Dict[str, list]] = {
     "block_q8": {
         # h, q, s, rows, cols, h_bf16, stream
         "evt_rowquant": [_P, _P, _P, _I, _I, _I, _P],
-        # q, wq, sx, sw, bias, res, out, M, N, K, epilogue, out_bf16, stream
-        "evt_gemm_q8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # q, wq, sx, sw, bias, res, out, M, N, K, epilogue, out_bf16, ldo (0: N), stream
+        "evt_gemm_q8": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
         # out (2 long longs): the GEMM's launches by tile; no stream
         "evt_gemm_q8_launches": [_P],
+        # q, wq, groups, n_groups, sx, sw, bias, res, out, M, NE, K, E, ldo, col0,
+        # out_bf16, stream
+        "evt_gemm_q8_grouped": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                _I, _P],
+        # out (1 long long): the grouped GEMM's launches; no stream
+        "evt_gemm_q8_grouped_launches": [_P],
     },
     "sampler": {
         # frames, frame_idx (or null), S, boxes, geo (out), crops (out), M, H, W,

@@ -15,14 +15,17 @@ taps outside the map and renormalises where torch clamps the source
 coordinate, which at an integer factor gives the same taps with the same
 weights (measured: 0 to float rounding, ``tests/test_torch_head_simple.py``).
 
-:func:`head_forward` serves (eval BatchNorm); :func:`head_forward_train`
-trains, over a mapping from state-dict names to tensors, and returns the new
+:func:`head_forward` serves (eval BatchNorm), and :func:`heads_forward` runs
+each of several heads over its own contiguous slice of a batch (a ViTPose+
+step of mixed tasks); :func:`head_forward_train` trains, over a mapping from state-dict names to tensors, and returns the new
 BatchNorm running statistics.
 
 Modules are keyed by the reference's state-dict names
 (``keypoint_head.deconv_layers.{3i}`` / ``{3i+1}``, ``keypoint_head.final_layer``).
 """
 from __future__ import annotations
+
+from typing import Dict
 
 import torch
 import torch.nn.functional as F
@@ -72,6 +75,35 @@ def head_forward(head: Head, x: torch.Tensor) -> torch.Tensor:
     params = dict(head.named_parameters())
     params.update(head.named_buffers())
     return head_forward_params(params, x, head.cfg)
+
+
+_LAUNCHES: Dict[str, int] = {}     # head name -> launches by heads_forward
+
+
+def heads_forward(heads, x: torch.Tensor, slices, names) -> list:
+    """Several heads over one batch of features: for each (head index,
+    first crop, end crop) of ``slices``, ``heads[i]`` over the contiguous
+    crops ``x[first:end]`` (a ViTPose+ step in task order, ``models/moe.py``),
+    each under its span ``evt.pose.head`` and counted under ``names[i]``
+    (:func:`head_launches`): a list of (n, K_i, 4*Hp, 4*Wp) heatmaps, one a
+    slice."""
+    from ..utils.profiling import span
+
+    out = []
+    for i, first, end in slices:
+        with span("evt.pose.head"):
+            out.append(head_forward(heads[i], x[first:end]).contiguous())
+        _LAUNCHES[names[i]] = _LAUNCHES.get(names[i], 0) + 1
+    return out
+
+
+def head_launches() -> Dict[str, int]:
+    """Launches of each named head by :func:`heads_forward` since load."""
+    return dict(_LAUNCHES)
+
+
+def reset_head_launches() -> None:
+    _LAUNCHES.clear()
 
 
 def head_forward_params(params, x: torch.Tensor, cfg: HeadConfig, prefix: str = "") -> torch.Tensor:

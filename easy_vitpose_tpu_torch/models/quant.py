@@ -22,6 +22,12 @@ Per block:
       -> LN2 -> quant -> GEMM fc1 (GELU, float32) -> quant
       -> GEMM fc2 (+residual)
 
+A ViTPose+ block on crops of mixed tasks (``models/moe.py``) swaps the last
+GEMM for a routed fc2: the dense GEMM over the shared rows into the leading
+columns of the output (``gemm_q8_rows_cuda(out=)``), and the grouped GEMM
+(``gemm_q8_grouped_cuda``, ``grouped_gemm_kernel``) over each task's rows
+and its own expert's rows into the rest, both with the residual epilogue.
+
 What bounds it on the H100 is operations: 174 GOP of int8 linears at 1,979
 TOP/s and 7 GFLOP of bf16 attention, 0.095 ms at ViT-B and 64 crops.  The
 float32 LN and GELU outputs round-trip device memory before their
@@ -30,7 +36,7 @@ size; fusing them into the GEMMs is later work.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Mapping, Tuple
 
 import torch
 from torch import nn
@@ -72,25 +78,31 @@ def linear_q8(h: torch.Tensor, wq: torch.Tensor, sw: torch.Tensor,
     return acc * sx * sw + b
 
 
+def load_q8_block(mod: nn.Module, p: Mapping[str, torch.Tensor], eps: float,
+                  num_heads: int) -> None:
+    """Register a block's int8 serving buffers on ``mod`` from its float
+    tensors ``p``, keyed by the block's state-dict names: float32 LN
+    affines; each linear's int8 weight, float32 per-channel scale and bias."""
+    mod.eps, mod.num_heads = eps, num_heads
+    f32 = lambda t: t.detach().float().clone()
+    for name, key in (("ln1", "norm1"), ("ln2", "norm2")):
+        mod.register_buffer(f"{name}_s", f32(p[f"{key}.weight"]))
+        mod.register_buffer(f"{name}_b", f32(p[f"{key}.bias"]))
+    for name, key in (("qkv", "attn.qkv"), ("proj", "attn.proj"), ("fc1", "mlp.fc1"),
+                      ("fc2", "mlp.fc2")):
+        wq, s = quantize_linear(p[f"{key}.weight"].detach())
+        mod.register_buffer(f"{name}_wq", wq)
+        mod.register_buffer(f"{name}_s", s)
+        mod.register_buffer(f"{name}_b", f32(p[f"{key}.bias"]))
+
+
 class QBlock(nn.Module):
     """A block's int8 serving weights: (out, in) int8 linears with float32
     per-channel scales and biases, and float32 LN affines."""
 
     def __init__(self, blk: Block):
         super().__init__()
-        self.eps = blk.eps
-        self.num_heads = blk.attn.num_heads
-        f32 = lambda t: t.detach().float().clone()
-        for name, ln in (("ln1", blk.norm1), ("ln2", blk.norm2)):
-            self.register_buffer(f"{name}_s", f32(ln.weight))
-            self.register_buffer(f"{name}_b", f32(ln.bias))
-        lins = {"qkv": blk.attn.qkv, "proj": blk.attn.proj,
-                "fc1": blk.mlp.fc1, "fc2": blk.mlp.fc2}
-        for name, lin in lins.items():
-            wq, s = quantize_linear(lin.weight.detach())
-            self.register_buffer(f"{name}_wq", wq)
-            self.register_buffer(f"{name}_s", s)
-            self.register_buffer(f"{name}_b", f32(lin.bias))
+        load_q8_block(self, dict(blk.named_parameters()), blk.eps, blk.attn.num_heads)
 
     def linear(self, name: str):
         return (getattr(self, f"{name}_wq"), getattr(self, f"{name}_s"),
@@ -108,9 +120,11 @@ def quantize_vit_params(model: nn.Module, compute_dtype=torch.bfloat16) -> nn.Mo
     return out
 
 
-def block_q8(x: torch.Tensor, qb: QBlock) -> torch.Tensor:
+def block_q8(x: torch.Tensor, qb: QBlock, fc2=None) -> torch.Tensor:
     """Pre-LN block with int8 linears; the plain version of the int8 block
-    kernel (A&S-erf GELU, rounding as ``_block_q8_kernel``)."""
+    kernel (A&S-erf GELU, rounding as ``_block_q8_kernel``).  ``fc2``:
+    (M, hidden) float32 rows -> their float32 fc2 product, in place of
+    ``qb``'s fc2 (a routed ViTPose+ block, ``models/moe.py``)."""
     dt = x.dtype
     h = layer_norm(x, qb.ln1_s, qb.ln1_b, qb.eps, torch.float32)
     qkv = linear_q8(h, *qb.linear("qkv")).to(dt)
@@ -118,6 +132,9 @@ def block_q8(x: torch.Tensor, qb: QBlock) -> torch.Tensor:
     x = x + linear_q8(o, *qb.linear("proj")).to(dt)
     h = layer_norm(x, qb.ln2_s, qb.ln2_b, qb.eps, torch.float32)
     m = gelu(linear_q8(h, *qb.linear("fc1")))
+    if fc2 is not None:
+        B, N, _ = m.shape
+        return x + fc2(m.reshape(B * N, -1)).reshape(B, N, -1).to(dt)
     return x + linear_q8(m, *qb.linear("fc2")).to(dt)
 
 
@@ -149,18 +166,70 @@ def check_q8_weight(wq: torch.Tensor, K: int) -> None:
 
 
 def gemm_q8_rows_cuda(q: torch.Tensor, sx: torch.Tensor, wq, sw, b, out_dtype,
-                      epilogue: int = EPI_NONE, residual=None) -> torch.Tensor:
+                      epilogue: int = EPI_NONE, residual=None, out=None) -> torch.Tensor:
     """``epilogue(acc * sx * sw + b)`` of rows quantised by
-    :func:`rowquant_cuda` (``q`` (M, K) int8, ``sx`` (M,) float32)."""
+    :func:`rowquant_cuda` (``q`` (M, K) int8, ``sx`` (M,) float32).  With
+    ``out`` (M, L), L >= N, contiguous: written into its leading N columns
+    (the residual is then (M, N) of its own)."""
     M, K = q.shape
     check_q8_weight(wq, K)
     N = wq.shape[0]
-    out = torch.empty((M, N), dtype=out_dtype, device=q.device)
     res = residual.data_ptr() if residual is not None else None
+    if out is None:
+        out, ldo = torch.empty((M, N), dtype=out_dtype, device=q.device), 0
+    elif out.shape[0] != M or out.shape[1] < N or out.dtype != out_dtype or not out.is_contiguous():
+        raise ValueError(f"out must be contiguous ({M}, >= {N}) {out_dtype}, got "
+                         f"{tuple(out.shape)} {out.dtype}")
+    else:
+        ldo = out.shape[1]
     kernels.call(KERNEL, "evt_gemm_q8", q.device, q.data_ptr(), wq.data_ptr(),
                  sx.data_ptr(), sw.data_ptr(), b.data_ptr(), res, out.data_ptr(),
-                 M, N, K, epilogue, int(out_dtype == torch.bfloat16))
+                 M, N, K, epilogue, int(out_dtype == torch.bfloat16), ldo)
     return out
+
+
+GROUPED_EXPERT_ROWS = (192, 256, 320)     # a quarter of D at ViTPose+-B, -L, -H
+
+
+def gemm_q8_grouped_cuda(q: torch.Tensor, sx: torch.Tensor, wq: torch.Tensor, sw, b,
+                         groups: torch.Tensor, n_groups: int, residual: torch.Tensor,
+                         out: torch.Tensor, col0: int) -> torch.Tensor:
+    """The routed expert product (``csrc/gemm_q8.cuh::grouped_gemm_kernel``):
+    for each of the ``n_groups`` rows (first row, rows, expert, 0) of the
+    int32 device table ``groups``, the group's rows of ``q`` (M, K) int8
+    (``sx`` (M,) their scales) against expert ``wq[e]`` ((E, NE, K) int8,
+    ``sw``, ``b`` (E, NE) float32), ``acc * sx * sw + b`` plus the
+    residual, into ``out[:, col0:col0 + NE]``.  ``residual`` and ``out`` are
+    (M, L) and contiguous; a group's first row and its rows are multiples of
+    64.  Rows of no group are left as they are."""
+    M, K = q.shape
+    E, NE, Kw = wq.shape
+    if NE not in GROUPED_EXPERT_ROWS or Kw != K or K % 128:
+        raise ValueError(f"grouped GEMM: experts {tuple(wq.shape)} against rows of depth {K}")
+    if not (wq.is_contiguous() and sw.is_contiguous() and b.is_contiguous()
+            and tuple(sw.shape) == (E, NE) == tuple(b.shape)):
+        raise ValueError("grouped GEMM: contiguous (E, NE, K) int8 weights, (E, NE) scales")
+    L = out.shape[1]
+    if (residual.shape != out.shape or out.shape[0] != M or not out.is_contiguous()
+            or not residual.is_contiguous() or residual.dtype != out.dtype
+            or col0 % 2 or L % 2 or col0 + NE > L):
+        raise ValueError(f"grouped GEMM: out {tuple(out.shape)} and residual must match at "
+                         f"({M}, L >= col0 + {NE})")
+    if groups.dtype != torch.int32 or groups.shape[-1] != 4 or groups.shape[0] < n_groups:
+        raise ValueError("grouped GEMM: groups must be (>= n_groups, 4) int32")
+    kernels.call(KERNEL, "evt_gemm_q8_grouped", q.device, q.data_ptr(), wq.data_ptr(),
+                 groups.data_ptr(), n_groups, sx.data_ptr(), sw.data_ptr(), b.data_ptr(),
+                 residual.data_ptr(), out.data_ptr(), M, NE, K, E, L, col0,
+                 int(out.dtype == torch.bfloat16))
+    return out
+
+
+def grouped_gemm_launches() -> int:
+    """The grouped GEMM's launches since its library was loaded."""
+    import ctypes
+    n = (ctypes.c_longlong * 1)()
+    kernels.lib(KERNEL).evt_gemm_q8_grouped_launches(n)
+    return int(n[0])
 
 
 GEMM_Q8_TILES = ("128x192", "128x64")
@@ -175,13 +244,16 @@ def gemm_q8_launches() -> dict:
     return dict(zip(GEMM_Q8_TILES, n))
 
 
-def fused_block_q8(x: torch.Tensor, qb: QBlock) -> torch.Tensor:
+def fused_block_q8(x: torch.Tensor, qb: QBlock, fc2=None) -> torch.Tensor:
     """One int8 block over (B, N, D) tokens (float32 or bfloat16).
 
     Tokens on the CPU take the plain version; CUDA tokens launch the kernels.
+    ``fc2``: (m, x1) -> the block's output, x1 plus the fc2 product of the
+    float32 rows m, in place of ``qb``'s fc2 (a routed ViTPose+ block, whose
+    plain version :func:`block_q8` takes with the CPU's ``fc2``).
     """
     if x.device.type == "cpu":
-        return block_q8(x, qb)
+        return block_q8(x, qb, fc2)
     bufs = dict(qb.named_buffers())
     kernels.require_cuda(x, *bufs.values())
     dt = x.dtype
@@ -200,6 +272,6 @@ def fused_block_q8(x: torch.Tensor, qb: QBlock) -> torch.Tensor:
     x1 = gemm_q8_cuda(o, *qb.linear("proj"), dt, EPI_RESIDUAL, x)
     h = layernorm_cuda(x1, qb.ln2_s, qb.ln2_b, qb.eps, torch.float32)
     m = gemm_q8_cuda(h, *qb.linear("fc1"), torch.float32, EPI_GELU)
-    out = gemm_q8_cuda(m, *qb.linear("fc2"), dt, EPI_RESIDUAL, x1)
+    out = gemm_q8_cuda(m, *qb.linear("fc2"), dt, EPI_RESIDUAL, x1) if fc2 is None else fc2(m, x1)
     kernels.count_launch(KERNEL)
     return out.reshape(B, N, D)

@@ -19,7 +19,9 @@ Port of ``easy_vitpose_tpu/ops/decode.py``:
   UDP) and :func:`keypoints_from_heatmaps3d`;
 * :func:`decode_keypoints` — the pose step's whole decode (the above, the
   un-crop to the frame and the slot mask) as one launch of
-  ``csrc/decode.cu``; :func:`decode_keypoints_plain` is its plain version.
+  ``csrc/decode.cu``; :func:`decode_keypoints_plain` is its plain version;
+  :func:`decode_task_groups` decodes a mixed-task step, one launch a task,
+  each over its crops' own K maps.
 
 Batched over (N, K) with no host loop, and with no host synchronisation on
 the card: the constants it needs on the device are made once per device.
@@ -80,6 +82,8 @@ def post_dark_udp(coords: torch.Tensor, heatmaps: torch.Tensor,
     The modulated map is edge-padded by one and flattened over the WHOLE
     batch, and the finite differences read it with wrap-around, as the
     reference does: a border or -1 coordinate reads the neighbouring map.
+    Where the Hessian is singular the coordinate keeps its argmax (the
+    reference's step is infinite there).
     ``use_pallas``: modulate with the full-map K4 (one launch on CUDA
     heatmaps; its plain version on the CPU).
     """
@@ -115,7 +119,12 @@ def post_dark_udp(coords: torch.Tensor, heatmaps: torch.Tensor,
     inv_det = 1.0 / (a * d - dxy * dxy)
     off_x = (d * dx - dxy * dy) * inv_det
     off_y = (a * dy - dxy * dx) * inv_det
-    return coords - torch.stack([off_x, off_y], dim=-1)
+    # A singular Hessian (det exactly 0: the modulated map clipped flat on
+    # one side of the peak, so that dxx = dyy = -dxy) gives an infinite or
+    # undefined step, where the reference returns -inf or raises: no step.
+    ok = torch.isfinite(off_x) & torch.isfinite(off_y)
+    off = torch.where(ok[..., None], torch.stack([off_x, off_y], dim=-1), 0.0)
+    return coords - off
 
 
 def transform_preds(coords: torch.Tensor, center: torch.Tensor, scale: torch.Tensor,
@@ -320,6 +329,21 @@ def decode_keypoints_plain(heat: torch.Tensor, geo: torch.Tensor, mask: torch.Te
     off_y = (g["y1"] - g["top"]).float()[:, None]
     kpts = torch.stack([preds[..., 1] + off_y, preds[..., 0] + off_x, maxvals[..., 0]], dim=-1)
     return torch.where(mask[:, None, None], kpts, torch.zeros_like(kpts))
+
+
+def decode_task_groups(heats, geo: torch.Tensor, mask: torch.Tensor, slices, k_max: int,
+                       plain: bool = False) -> torch.Tensor:
+    """The decode of a step whose crops run through several heads: for
+    each (head, first crop, end crop) of ``slices`` and its (n, K, H, W)
+    heatmaps in ``heats``, :func:`decode_keypoints` (one launch on the card;
+    ``plain=True`` or CPU maps: its plain version) over those crops' own K
+    maps, geometry and mask.  -> (M, k_max, 3) float32 keypoints in the
+    crops' order; rows past a crop's K and masked crops are zero."""
+    decode = decode_keypoints_plain if plain else decode_keypoints
+    out = torch.zeros((geo.shape[0], k_max, 3), dtype=torch.float32, device=geo.device)
+    for (_, first, end), heat in zip(slices, heats):
+        out[first:end, :heat.shape[1]] = decode(heat, geo[first:end], mask[first:end])
+    return out
 
 
 def decode_keypoints(heat: torch.Tensor, geo: torch.Tensor, mask: torch.Tensor,

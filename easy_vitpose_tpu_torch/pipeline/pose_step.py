@@ -18,6 +18,16 @@ The step runs on CUDA unless the caller asks for the CPU: pass
 Given a stack of frames (S, H, W, 3) and ``frame_idx``, one step poses boxes
 from many frames (multi-stream ticks, batched windows): each crop reads its
 own frame, boxes stay frame-local (JAX's ``pose_step(frame_idx=)``).
+
+Given a ViTPose+ serving copy (``models/moe.py::PlusQ8``) and
+``tasks``, a task per box as host data, one step poses boxes of mixed tasks:
+the host orders the boxes by task and uploads the order with the grouped
+GEMM's table (``evt.pose.route``); K3 crops them in that order; each block's
+fc2 runs the shared rows over every crop and each task's expert rows over
+that task's crops alone; each task's head runs over its crops
+(``evt.pose.heads``, an ``evt.pose.head`` a task) and the decode over their
+own K maps, and the keypoints go back to box order, (M, K_max, 3) with the
+rows past a box's K all zero.
 """
 from __future__ import annotations
 
@@ -28,9 +38,11 @@ import torch
 
 from ..configs import IMAGE_SIZE
 from ..kernels import resolve_device
+from ..models.head import heads_forward
+from ..models.moe import PlusQ8, Routing, routed_backbone
 from ..models.vitpose import ViTPose, compute_dtype, vitpose_forward
 from ..ops.affine import flip_back_heatmaps
-from ..ops.decode import decode_keypoints, decode_keypoints_plain
+from ..ops.decode import decode_keypoints, decode_keypoints_plain, decode_task_groups
 from ..ops.preprocess import Geometry, geometry_views
 from ..ops.sampler import crop_normalize, crop_normalize_plain
 from ..utils.profiling import span
@@ -74,11 +86,13 @@ def pose_heatmaps(model: ViTPose, frame: torch.Tensor, boxes: torch.Tensor, *,
 def pose_step(model: ViTPose, frame: ArrayLike, boxes: ArrayLike, mask: ArrayLike, *,
               flip_pairs: Optional[Sequence[Sequence[int]]] = None,
               device=None, plain: bool = False,
-              frame_idx: Optional[ArrayLike] = None) -> torch.Tensor:
+              frame_idx: Optional[ArrayLike] = None,
+              tasks: Optional[Union[np.ndarray, Sequence[int]]] = None) -> torch.Tensor:
     """Pose estimation for up to M people on one frame, or on a stack.
 
     Args:
-      model: a serving copy of ViTPose on ``device``.
+      model: a serving copy of ViTPose on ``device``, or of ViTPose+
+        (``models/moe.py::PlusQ8``) with ``tasks``.
       frame: (H, W, 3) uint8 RGB frame (numpy or tensor), or a stack
         (S, H, W, 3) with ``frame_idx``.
       boxes: (M, 4) float32 [x1, y1, x2, y2] frame-local boxes.
@@ -87,11 +101,18 @@ def pose_step(model: ViTPose, frame: ArrayLike, boxes: ArrayLike, mask: ArrayLik
       device: where to run; default: the frame's device if it is a tensor,
         else CUDA (raises if there is none).
       plain: run every kernel's plain version, on any device (for checks).
+      tasks: (M,) int host array (numpy or a list), each box's task, an
+        index into ``model.tasks`` (the reference's dataset order); a
+        ViTPose+ copy only.  Masked boxes still need a task.
     Returns:
       (M, K, 3) float32 keypoints as (y, x, score) in frame coordinates;
-      masked slots are all-zero.
+      masked slots are all-zero.  With ``tasks``: (M, K_max, 3), K_max the
+      largest K of the model's heads, a box's rows past its task's K zero.
     """
     device = resolve_device(device, frame)
+    if isinstance(model, PlusQ8) or tasks is not None:
+        return _pose_step_routed(model, frame, boxes, mask, tasks, device, plain, frame_idx,
+                                 flip_pairs)
     if model.backbone.pos_embed.device != device:
         raise ValueError(f"model is on {model.backbone.pos_embed.device}, step on {device}")
     with span("evt.pose.step"):
@@ -104,6 +125,39 @@ def pose_step(model: ViTPose, frame: ArrayLike, boxes: ArrayLike, mask: ArrayLik
         # decode with the padded crop's center (w//2, h//2) and size (w, h)
         with span("evt.pose.decode"):
             return (decode_keypoints_plain if plain else decode_keypoints)(heat, geo, mask)
+
+
+def _pose_step_routed(model: PlusQ8, frame, boxes, mask, tasks, device, plain: bool,
+                      frame_idx, flip_pairs) -> torch.Tensor:
+    if not isinstance(model, PlusQ8) or tasks is None:
+        raise ValueError("tasks= goes with a ViTPose+ serving copy (models/moe.py::PlusQ8)")
+    if flip_pairs is not None:
+        raise ValueError("the flip test is not served on a batch of mixed tasks")
+    if isinstance(tasks, torch.Tensor) and tasks.device.type != "cpu":
+        raise ValueError("tasks must be host data: reading them from the card would wait on it")
+    if model.backbone.pos_embed.device != device:
+        raise ValueError(f"model is on {model.backbone.pos_embed.device}, step on {device}")
+    Hp, Wp = model.cfg.backbone.patch_shape
+    with span("evt.pose.step"):
+        frame = _to(frame, device)
+        with span("evt.pose.route"):
+            routing = Routing(np.asarray(tasks), len(model.tasks), Hp * Wp).to(device)
+            boxes = _to(boxes, device, torch.float32).index_select(0, routing.order_t)
+            mask = _to(mask, device, torch.bool).index_select(0, routing.order_t)
+            if frame_idx is not None:
+                frame_idx = _to(frame_idx, device, torch.int32).index_select(0, routing.order_t)
+        crop = crop_normalize_plain if plain else crop_normalize
+        with span("evt.pose.sample"):
+            x, geo = crop(frame, boxes, IMAGE_SIZE, compute_dtype(model), frame_idx)
+        with span("evt.pose.backbone"):
+            feats = routed_backbone(model, x, routing, plain)
+        with span("evt.pose.heads"):
+            heats = heads_forward(model.heads, feats.permute(0, 3, 1, 2), routing.slices,
+                                  model.tasks)
+        with span("evt.pose.decode"):
+            kp = decode_task_groups(heats, geo, mask, routing.slices, max(model.num_keypoints),
+                                    plain=plain)
+            return kp.index_select(0, routing.inverse_t)
 
 
 def pose_multi_frame(model: ViTPose, frames: ArrayLike, boxes: ArrayLike,

@@ -12,6 +12,9 @@ shared no-op context otherwise (one check a call).  Names are
 
   evt.pose.step, .sample, .backbone, .head, .decode   pipeline/pose_step.py,
                                                        models/vitpose.py
+  evt.pose.route, .heads (an .head a task inside)     a mixed-task ViTPose+
+                                                       step: pose_step.py,
+                                                       models/head.py
   evt.train.step, .render, .forward, .backward,       train/step.py
     .optimizer
   evt.frame.upload, .dispatch, .fetch, .track         pipeline/inference.py

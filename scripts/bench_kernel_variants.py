@@ -647,9 +647,9 @@ def _force(tile: str) -> tuple:
 
 
 _NOT_PERSISTENT = ("gemm_q8.cuh", "const bool persistent = true;", "const bool persistent = false;")
-_MMA_SYNC = [("wgq8::launch<bf16>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, st)",
+_MMA_SYNC = [("wgq8::launch<bf16>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, st, ldo)",
               "mma_gemm::launch<true, float, bf16>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, st)"),
-             ("wgq8::launch<float>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, st)",
+             ("wgq8::launch<float>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, st, ldo)",
               "mma_gemm::launch<true, float, float>(q, wq, fsx, fsw, fb, res, out, M, N, K, epi, "
               "st)")]
 def _tile(name: str, old: str, new: str) -> tuple:
@@ -701,7 +701,7 @@ def q8_gemm_variants(card: str) -> dict:
             return lambda: lib.evt_gemm_q8(  # noqa: E731
                 q.data_ptr(), wq.data_ptr(), sx.data_ptr(), sw.data_ptr(), b.data_ptr(),
                 res.data_ptr() if epi == fb.EPI_RESIDUAL else None, o.data_ptr(), M, N, K, epi,
-                int(out_dt == torch.bfloat16), stream())
+                int(out_dt == torch.bfloat16), 0, stream())
         return run, o, 2.0 * M * N * K
 
     def timed(run, o, ops, lib, name, ref):

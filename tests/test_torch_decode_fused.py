@@ -174,3 +174,21 @@ def test_pose_step_decodes_its_heatmaps_with_the_fused_decode(monkeypatch):
     assert kp is seen["out"] and torch.equal(seen["mask"], t(mask))
     assert torch.equal(seen["geo"], preprocess.pack_geometry(geo))
     np.testing.assert_allclose(seen["heat"].numpy(), heat.detach().numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("u", [2.0, 3.0])
+def test_a_singular_hessian_takes_no_newton_step(monkeypatch, u):
+    """The modulated map flat around the peak (as where the blurred map is
+    clipped at 0.001) but raised by the same u at its left and lower
+    neighbours: dxx = dyy = u, dxy = -u, and at u >= 2 adding float32's eps
+    rounds away, so the determinant is exactly 0 and the reference's step is
+    infinite.  The decode keeps the argmax there (ROADMAP C20)."""
+    c = -8.0                     # every sum below is exact in float32
+    hm = torch.full((1, 1, 5, 5), c)
+    hm[0, 0, 2, 1] = hm[0, 0, 3, 2] = c + u            # ix1_ and iy1
+    monkeypatch.setattr(modulate, "udp_modulate_plain", lambda heat, kernel: hm.clone())
+    heat = torch.zeros((1, 1, 5, 5))
+    heat[0, 0, 2, 2] = 1.0
+    coords, _ = decode.get_max_preds(heat)
+    got = decode.post_dark_udp(coords, heat)
+    assert got.tolist() == [[[2.0, 2.0]]]
